@@ -1,0 +1,9 @@
+"""PyTorch/CUDA port of mmdti_tpu for one NVIDIA H100.
+
+Serving slice: ``MolServe(config, state_dict, device="cuda").predict(smiles)``
+runs host featurization, bucketed collation, the MMModel forward with the
+hand-written Hopper kernels (ops/hopper_*.py, csrc/*.cu) and
+post-processing.  The package imports torch and never jax.
+"""
+
+from mmdti_tpu_torch.api.serve_api import MolServe  # noqa: F401

@@ -1,0 +1,81 @@
+"""Bidirectional BERT cross-attention fusion (port of
+mmdti_tpu/models/crossmodal.py).
+
+Q from stream-1, K/V from stream-2, additive -10000 mask over stream-2 keys,
+post-LN residual blocks with a GELU FFN; two such encoders run in both
+directions.  Inference only: dropout is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from mmdti_tpu_torch.configs.architectures import CrossModalConfig
+from mmdti_tpu_torch.models.layers import Dense, FusedLN, get_activation_fn
+from mmdti_tpu_torch.ops.attention import masked_attention
+
+_MASK_FILL = -10000.0
+
+
+class BertCrossAttentionLayer(nn.Module):
+    def __init__(self, cfg: CrossModalConfig, dtype=torch.float32, use_kernels=True):
+        super().__init__()
+        E = cfg.hidden_size
+        self.cfg = cfg
+        self.compute_dtype = dtype
+        self.use_kernels = use_kernels
+        self.act = get_activation_fn(cfg.hidden_act)
+        self.query = Dense(E, E, dtype)
+        self.key = Dense(E, E, dtype)
+        self.value = Dense(E, E, dtype)
+        self.attn_output = Dense(E, E, dtype)
+        self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.intermediate = Dense(E, cfg.intermediate_size, dtype)
+        self.output = Dense(cfg.intermediate_size, E, dtype)
+        self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+
+    def forward(self, s1, s2, s2_key_mask_bias):
+        ctx = masked_attention(
+            self.query(s1), self.key(s2), self.value(s2), s2_key_mask_bias,
+            num_heads=self.cfg.num_attention_heads, use_kernels=self.use_kernels,
+        )
+        attn_out = self.attn_LayerNorm(self.attn_output(ctx) + s1,
+                                       out_dtype=self.compute_dtype)
+        out = self.output(self.act(self.intermediate(attn_out)))
+        return self.output_LayerNorm(out + attn_out, out_dtype=self.compute_dtype)
+
+
+class BertCrossEncoder(nn.Module):
+    def __init__(self, cfg: CrossModalConfig, dtype=torch.float32, use_kernels=True):
+        super().__init__()
+        self.cfg = cfg
+        for i in range(cfg.num_layers):
+            self.add_module(f"layer_{i}", BertCrossAttentionLayer(cfg, dtype, use_kernels))
+
+    def forward(self, s1, s2, s2_key_mask_bias):
+        x = s1
+        for i in range(self.cfg.num_layers):
+            x = getattr(self, f"layer_{i}")(x, s2, s2_key_mask_bias)
+        return x
+
+
+class CrossAttentionModel(nn.Module):
+    """Both directions.  stream_a = 3D-graph token stream with its mask,
+    stream_b = SMILES token stream with its mask.  Returns
+    (a_attends_to_b [B,Na,E], b_attends_to_a [B,Nb,E])."""
+
+    def __init__(self, cfg: CrossModalConfig, dtype=torch.float32, use_kernels=True):
+        super().__init__()
+        self.graph_attention = BertCrossEncoder(cfg, dtype, use_kernels)
+        self.text_attention = BertCrossEncoder(cfg, dtype, use_kernels)
+
+    def forward(self, stream_a, stream_b, a_mask, b_mask):
+        def key_mask_bias(mask):
+            return (1.0 - mask.float()) * _MASK_FILL
+
+        # stream-b queries attend over stream-a keys (mask on a)
+        b_to_a = self.graph_attention(stream_b, stream_a, key_mask_bias(a_mask))
+        # stream-a queries attend over stream-b keys (mask on b)
+        a_to_b = self.text_attention(stream_a, stream_b, key_mask_bias(b_mask))
+        return a_to_b, b_to_a
