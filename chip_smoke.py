@@ -1,22 +1,37 @@
 #!/usr/bin/env python3
-"""Smoke run of the mmdti_tpu_torch serving slice on one CUDA card (H100).
+"""Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice
+and the train step.
 
     python3 chip_smoke.py
 
 Phases, one result line each; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the three Hopper kernels from mmdti_tpu_torch/csrc with nvcc;
+2. build the Hopper kernels from mmdti_tpu_torch/csrc with nvcc;
 3. each kernel against its plain PyTorch version on the card, fp32 (TF32
-   off) and bf16, at the flagship shapes, with padded keys; max error beside
-   its tolerance, and the kernel's time beside the plain version's (CUDA
-   events, median of 25 launches after warmup);
+   off) and bf16, at the flagship shapes, with padded keys: the attention
+   forwards without and with dropout (0.1, same seed; the keep fraction is
+   printed beside 0.9), the three backwards (dropout 0 and 0.1, with and
+   without the logits cotangent for pair-bias).  Each line has the max
+   error beside its tolerance, the kernel's time, the plain version's, the
+   PyTorch library call's where one computes the same function (SDPA for
+   the masked forward), and the bound: the least time the card could take
+   for the same bytes and operations (CUDA events, median of 25 launches);
 4. a flagship-width MolServe on the card (weights drawn from a seeded
    torch.Generator) answers requests of 1, 8 and 20 SMILES; prints the
    per-request p50, the kernel launch counts of that run (gbf 1, pair-bias
-   15, masked 8 per forward) and the largest logit difference between the
-   kernel path and the same weights on the plain path;
-5. one JSON line per kernel summary, then {"ok": true, "device": ...}.
+   15, masked 8 per forward, no backward) and the largest logit difference
+   between the kernel path and the same weights on the plain path;
+5. train: the flagship model (bf16 compute, bf16 pair logits) on a batch of
+   32 molecules featurized and collated on the host (N=L=64), regression
+   (MSE + InfoNCE + ct_regress): (a) one step's loss and gradients, dropout
+   off, on the kernel path against the plain path; (b) 30 steps with
+   dropout on, each loss finite and the last below the first; (c) step time
+   p50, mols/s and launches per step (exactly gbf 1/1, pair-bias 15/15,
+   masked 8/8 forward/backward), a torch.profiler summary of 3 steps and
+   the launches of one clip + Adam update;
+   (d) one step at the top atom bucket N=280 with its peak memory;
+6. one JSON line with every kernel's summary, then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -46,11 +61,61 @@ TOL = {  # (atol, rtol) per precision; bf16 as tests/test_pallas.py:69-73
     "fp32": {"out": (1e-4, 0.0), "logits": (1e-4, 0.0)},
     "bf16": {"out": (2e-2, 0.0), "logits": (5e-2, 1e-2)},
 }
+# gradients: the forward's output bound, scaled by the largest magnitude of
+# the plain gradient (each is a sum over a whole row or column of scores)
+GRAD_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 LOGITS_TOL = 2e-2  # kernel vs plain path, flagship logits (bf16 compute)
+# train step, kernel vs plain path, bf16: largest |dg| / max|g| over the
+# parameters (phase_train).  The plain path rounds the probabilities to bf16
+# before PV and the kernels do not, so the paths differ by bf16 resolution
+# (~4e-3) per layer, compounded through the 23 attention layers of the
+# backward; a wrong gradient differs by order 1
+TRAIN_GRAD_TOL = 1e-1
+TRAIN_LOSS_TOL = 2e-2
+DROPOUT = 0.1
+TRAIN_STEPS = 30
+# H100 SXM datasheet peaks: HBM bytes/s; dense FLOP/s by
+# operand type (fp32 runs outside the tensor cores, TF32 being off)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+BYTES = {"bf16": 2, "fp32": 4}
+
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "gbf_proj": ("mmdti_tpu_torch/csrc/gbf_proj.cu", "mmdti_tpu/ops/pallas_gbf.py:117"),
+    "gbf_proj_bwd": ("mmdti_tpu_torch/csrc/gbf_proj.cu", "mmdti_tpu/ops/pallas_gbf.py:141"),
+    "pair_bias_attention": ("mmdti_tpu_torch/csrc/pair_bias_attention.cu",
+                            "mmdti_tpu/ops/pallas_attention.py:166"),
+    "pair_bias_attention_bwd": ("mmdti_tpu_torch/csrc/pair_bias_attention.cu",
+                                "mmdti_tpu/ops/pallas_attention.py:192"),
+    "masked_attention": ("mmdti_tpu_torch/csrc/masked_attention.cu",
+                         "mmdti_tpu/ops/pallas_attention.py:590"),
+    "masked_attention_bwd": ("mmdti_tpu_torch/csrc/masked_attention.cu",
+                             "mmdti_tpu/ops/pallas_attention.py:619"),
+}
 
 
 class Failed(RuntimeError):
     pass
+
+
+def _counters():
+    from mmdti_tpu_torch.ops import hopper_attention as ha
+    from mmdti_tpu_torch.ops import hopper_gbf as hg
+
+    return {"gbf_proj": hg.gbf_pair_bias_cuda, "gbf_proj_bwd": hg.gbf_pair_bias_bwd_cuda,
+            "pair_bias_attention": ha.pair_bias_attention_cuda,
+            "pair_bias_attention_bwd": ha.pair_bias_attention_bwd_cuda,
+            "masked_attention": ha.masked_attention_cuda,
+            "masked_attention_bwd": ha.masked_attention_bwd_cuda}
+
+
+def _reset_counts():
+    for c in _counters().values():
+        c.launches = 0
+
+
+def _read_counts():
+    return {k: c.launches for k, c in _counters().items()}
 
 
 def _time_ms(fn, iters=25, warmup=3):
@@ -70,6 +135,14 @@ def _time_ms(fn, iters=25, warmup=3):
     return statistics.median(times)
 
 
+def _bound(nbytes, flops, prec):
+    """(ms, what bounds it): the larger of bytes over HBM rate and FLOPs
+    over the peak rate of the precision."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[prec] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _err(got, want, atol, rtol):
     """(max abs error over finite entries, ok) with matching -inf patterns."""
     import torch
@@ -83,6 +156,15 @@ def _err(got, want, atol, rtol):
     diff = (got[fin] - want[fin]).abs()
     ok = bool((diff <= atol + rtol * want[fin].abs()).all())
     return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def _grad_errs(names, got, want, prec):
+    errs = {}
+    for n, g, w in zip(names, got, want):
+        tol = GRAD_TOL[prec] * max(1.0, float(w.float().abs().max()))
+        e, ok = _err(g, w, tol, 0.0)
+        errs[n] = (e, tol, ok)
+    return errs
 
 
 def phase_card():
@@ -100,7 +182,7 @@ def phase_build():
     t0 = time.perf_counter()
     paths = _build.build_all()
     secs = time.perf_counter() - t0
-    print(f"build: {len(paths)} kernels in {secs:.1f} s ({_build.BUILD_DIR})", flush=True)
+    print(f"build: {len(paths)} libraries in {secs:.1f} s ({_build.BUILD_DIR})", flush=True)
     for name in paths:
         with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
             regs = [ln.strip() for ln in f if "registers" in ln]
@@ -114,57 +196,102 @@ def _padded_lengths(gen, B, N):
     return torch.randint(max(2, N // 2), N + 1, (B,), generator=gen)
 
 
+class _Recorder:
+    """Prints one line per case and keeps, per kernel, the largest error and
+    the numbers of its main case (B=32 at the N=L=64 train shape, bf16,
+    dropout on where the kernel takes it)."""
+
+    def __init__(self):
+        self.summary, self.failures = {}, []
+
+    def __call__(self, kernel, case, prec, errs, ms, plain_ms, library_ms, bound, main,
+                 extra=None):
+        line = {"kernel": kernel, "case": case, "precision": prec, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], **(extra or {})}
+        for what, (err, tol, ok) in errs.items():
+            line[f"{what}_max_abs_err"] = err
+            line[f"{what}_tol"] = tol
+            if not ok:
+                self.failures.append(f"{kernel} {case} {prec} {what}: err {err} tol {tol}")
+        print("kernel: " + json.dumps(line), flush=True)
+        s = self.summary.setdefault(kernel, {"max_abs_err": 0.0})
+        s["max_abs_err"] = max(s["max_abs_err"], *(e for e, _, _ in errs.values()))
+        if main:
+            s.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
+                     bound_by=bound[1])
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version; returns per-kernel summaries."""
     import torch
+    import torch.nn.functional as F
 
+    from mmdti_tpu_torch.ops import dropout as drop
     from mmdti_tpu_torch.ops import hopper_attention as ha
     from mmdti_tpu_torch.ops import hopper_gbf as hg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(1234)
-    summary = {}
-    failures = []
-
-    def record(kernel, case, prec, errs, ms, plain_ms, main_shape):
-        line = {"kernel": kernel, "case": case, "precision": prec, "ms": ms,
-                "plain_ms": plain_ms}
-        for what, (err, tol, ok) in errs.items():
-            line[f"{what}_max_abs_err"] = err
-            line[f"{what}_tol"] = tol
-            if not ok:
-                failures.append(f"{kernel} {case} {prec} {what}: err {err} tol {tol}")
-        print("kernel: " + json.dumps(line), flush=True)
-        s = summary.setdefault(kernel, {"max_abs_err": 0.0})
-        s["max_abs_err"] = max(s["max_abs_err"], *(e for e, _, _ in errs.values()))
-        if main_shape and prec == "bf16":
-            s["ms"], s["plain_ms"] = ms, plain_ms
+    seed = torch.tensor([20261016], dtype=torch.int32, device=dev)
+    record = _Recorder()
+    precisions = (("fp32", torch.float32), ("bf16", torch.bfloat16))
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
+
+    def keep_fraction(B, H, Nq, Nk):
+        return float(drop.keep_mask(int(seed), DROPOUT, B, H, Nq, Nk, device=dev).float().mean())
 
     # ---- pair-bias attention: B=32, H=64, D=8 ----------------------------
     B, H, D = 32, 64, 8
     for N in (64, 280):
         lens = _padded_lengths(gen, B, N)
         pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
-        q, k, v = (randn(B, N, H * D) for _ in range(3))
+        q, k, v, g_out = (randn(B, N, H * D) for _ in range(4))
         bias = randn(B, H, N, N).masked_fill(pad[:, None, None, :], float("-inf"))
-        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        g_logits = randn(B, H, N, N)
+        kf = keep_fraction(B, H, N, N)
+        for prec, dt in precisions:
+            s, p = BYTES[prec], BYTES[prec]
             args = [t.to(dt).contiguous() for t in (q, k, v, bias)]
-            out, logits = ha.pair_bias_attention_cuda(*args, H)
-            want_o, want_l = ha.pair_bias_attention_plain(*args, H, dt)
-            torch.cuda.synchronize()
-            errs = {}
-            for what, got, want in (("out", out, want_o), ("logits", logits, want_l)):
-                atol, rtol = TOL[prec][what]
-                e, ok = _err(got, want, atol, rtol)
-                errs[what] = (e, atol if not rtol else [atol, rtol], ok)
-            ms = _time_ms(lambda: ha.pair_bias_attention_cuda(*args, H))
-            pms = _time_ms(lambda: ha.pair_bias_attention_plain(*args, H, dt))
-            record("pair_bias_attention", f"B={B} N={N} H={H} D={D}", prec, errs, ms, pms,
-                   N == 64)
+            fwd_bound = _bound(4 * B * N * H * D * s + 2 * B * H * N * N * p,
+                               4 * B * H * N * N * D, prec)
+            for rate in (0.0, DROPOUT):
+                sd = seed if rate else None
+                out, logits = ha.pair_bias_attention_cuda(*args, H, sd, rate)
+                want_o, want_l = ha.pair_bias_attention_plain(*args, H, dt, sd, rate)
+                torch.cuda.synchronize()
+                errs = {}
+                for what, got, want in (("out", out, want_o), ("logits", logits, want_l)):
+                    atol, rtol = TOL[prec][what]
+                    e, ok = _err(got, want, atol, rtol)
+                    errs[what] = (e, atol if not rtol else [atol, rtol], ok)
+                ms = _time_ms(lambda: ha.pair_bias_attention_cuda(*args, H, sd, rate))
+                pms = _time_ms(lambda: ha.pair_bias_attention_plain(*args, H, dt, sd, rate),
+                               iters=10)
+                record("pair_bias_attention", f"B={B} N={N} H={H} D={D} dropout={rate}", prec,
+                       errs, ms, pms, None, fwd_bound, N == 64 and prec == "bf16" and rate > 0,
+                       {"keep_fraction": kf, "keep_expected": 1 - DROPOUT} if rate else None)
+            go = g_out.to(dt)
+            for rate in (0.0, DROPOUT):
+                sd = seed if rate else None
+                for gl in (g_logits.to(dt), None):
+                    n_pair = 3 if gl is not None else 2
+                    bwd_bound = _bound(7 * B * N * H * D * s + n_pair * B * H * N * N * p,
+                                       8 * B * H * N * N * D, prec)
+                    bargs = (*args[:3], want_l, go, gl, H, sd, rate)
+                    got = ha.pair_bias_attention_bwd_cuda(*bargs)
+                    want = ha.pair_bias_attention_bwd_plain(*bargs)
+                    torch.cuda.synchronize()
+                    errs = _grad_errs(("dq", "dk", "dv", "dbias"), got, want, prec)
+                    ms = _time_ms(lambda: ha.pair_bias_attention_bwd_cuda(*bargs))
+                    pms = _time_ms(lambda: ha.pair_bias_attention_bwd_plain(*bargs), iters=10)
+                    record("pair_bias_attention_bwd",
+                           f"B={B} N={N} H={H} D={D} dropout={rate} g_logits={gl is not None}",
+                           prec, errs, ms, pms, None, bwd_bound,
+                           N == 64 and prec == "bf16" and rate > 0 and gl is not None)
 
     # ---- fused Gaussian + gbf_proj: K=Kh=128, H=64 ------------------------
     K, Hh = 128, 64
@@ -172,11 +299,14 @@ def phase_kernels(dev):
     stds = torch.rand(K, generator=gen).mul(3).to(dev)
     w1, w2 = randn(K, K) * 0.02, randn(Hh, K) * 0.02
     b1, b2 = randn(K) * 0.02, randn(Hh) * 0.02
+    std = stds.abs() + 1e-5
     for N in (64, 280):
         lens = _padded_lengths(gen, B, N)
         pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
         u = (torch.rand(B, N, N, generator=gen) * 6).to(dev)
-        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        g = randn(B, Hh, N, N)
+        P = B * N * N
+        for prec, dt in precisions:
             args = (u, means, stds, w1, b1, w2, b2, pad)
             kw = dict(activation="gelu_tanh", pair_dtype=dt, compute_dtype=dt)
             got = hg.gbf_pair_bias_fused(*args, **kw)
@@ -185,9 +315,21 @@ def phase_kernels(dev):
             atol, rtol = TOL[prec]["out"]
             e, ok = _err(got, want, atol, rtol)
             ms = _time_ms(lambda: hg.gbf_pair_bias_fused(*args, **kw))
-            pms = _time_ms(lambda: hg.gbf_pair_bias_plain(*args, **kw))
-            record("gbf_proj", f"B={B} N={N} K={K} H={Hh}", prec,
-                   {"out": (e, atol, ok)}, ms, pms, N == 64)
+            pms = _time_ms(lambda: hg.gbf_pair_bias_plain(*args, **kw), iters=10)
+            record("gbf_proj", f"B={B} N={N} K={K} H={Hh}", prec, {"out": (e, atol, ok)}, ms,
+                   pms, None, _bound(P * (4 + Hh * BYTES[prec]), 2 * P * (K * K + K * Hh), prec),
+                   N == 64 and prec == "bf16")
+            bargs = (u, means, std, w1, b1, w2, g.to(dt), pad, "gelu_tanh", dt)
+            got = hg.gbf_pair_bias_bwd_cuda(*bargs)
+            want = hg.gbf_pair_bias_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            errs = _grad_errs(("du", "dmeans", "dstd", "dw1", "db1", "dw2", "db2"), got, want,
+                              prec)
+            ms = _time_ms(lambda: hg.gbf_pair_bias_bwd_cuda(*bargs))
+            pms = _time_ms(lambda: hg.gbf_pair_bias_bwd_plain(*bargs), iters=10)
+            record("gbf_proj_bwd", f"B={B} N={N} K={K} H={Hh} padded keys", prec, errs, ms, pms,
+                   None, _bound(P * (8 + Hh * BYTES[prec]), 2 * P * (3 * K * K + 2 * K * Hh),
+                                prec), N == 64 and prec == "bf16")
 
     # ---- masked attention: ChemBERTa (H=8, D=64) and cross-modal (H=16, D=32)
     cases = [
@@ -199,22 +341,47 @@ def phase_kernels(dev):
     for label, Hm, Dm, Nq, Nk, fill in cases:
         lens = _padded_lengths(gen, B, Nk)
         mask = ((torch.arange(Nk)[None, :] >= lens[:, None]).float() * fill).to(dev)
-        q = randn(B, Nq, Hm * Dm)
+        q, g_out = randn(B, Nq, Hm * Dm), randn(B, Nq, Hm * Dm)
         k, v = randn(B, Nk, Hm * Dm), randn(B, Nk, Hm * Dm)
-        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        kf = keep_fraction(B, Hm, Nq, Nk)
+        main_shape = label == "chemberta" and Nq == 64
+        for prec, dt in precisions:
+            s = BYTES[prec]
             args = [t.to(dt).contiguous() for t in (q, k, v)] + [mask]
-            got = ha.masked_attention_cuda(*args, Hm)
-            want = ha.masked_attention_plain(*args, Hm)
-            torch.cuda.synchronize()
-            atol, rtol = TOL[prec]["out"]
-            e, ok = _err(got, want, atol, rtol)
-            ms = _time_ms(lambda: ha.masked_attention_cuda(*args, Hm))
-            pms = _time_ms(lambda: ha.masked_attention_plain(*args, Hm))
-            record("masked_attention", f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm}",
-                   prec, {"out": (e, atol, ok)}, ms, pms, label == "chemberta" and Nq == 64)
-    if failures:
-        raise Failed("kernel mismatch: " + "; ".join(failures))
-    return summary
+            heads = [t.view(B, -1, Hm, Dm).transpose(1, 2) for t in args[:3]]
+            sdpa_mask = mask.to(dt)[:, None, None, :]
+            tokens = 2 * B * Nq * Hm * Dm + 2 * B * Nk * Hm * Dm
+            for rate in (0.0, DROPOUT):
+                sd = seed if rate else None
+                got = ha.masked_attention_cuda(*args, Hm, sd, rate)
+                want = ha.masked_attention_plain(*args, Hm, sd, rate)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[prec]["out"]
+                e, ok = _err(got, want, atol, rtol)
+                ms = _time_ms(lambda: ha.masked_attention_cuda(*args, Hm, sd, rate))
+                pms = _time_ms(lambda: ha.masked_attention_plain(*args, Hm, sd, rate), iters=10)
+                lms = _time_ms(lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=sdpa_mask, dropout_p=rate))
+                record("masked_attention", f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm} "
+                       f"dropout={rate}", prec, {"out": (e, atol, ok)}, ms, pms, lms,
+                       _bound(tokens * s + 4 * B * Nk, 4 * B * Hm * Nq * Nk * Dm, prec),
+                       main_shape and prec == "bf16" and rate > 0,
+                       {"keep_fraction": kf, "keep_expected": 1 - DROPOUT} if rate else None)
+                bargs = (*args, g_out.to(dt), Hm, sd, rate)
+                got = ha.masked_attention_bwd_cuda(*bargs)
+                want = ha.masked_attention_bwd_plain(*bargs)
+                torch.cuda.synchronize()
+                errs = _grad_errs(("dq", "dk", "dv"), got, want, prec)
+                ms = _time_ms(lambda: ha.masked_attention_bwd_cuda(*bargs))
+                pms = _time_ms(lambda: ha.masked_attention_bwd_plain(*bargs), iters=10)
+                record("masked_attention_bwd", f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm} "
+                       f"dropout={rate}", prec, errs, ms, pms, None,
+                       _bound(2 * tokens * s - B * Nq * Hm * Dm * s + 4 * B * Nk,
+                              10 * B * Hm * Nq * Nk * Dm, prec),
+                       main_shape and prec == "bf16" and rate > 0)
+    if record.failures:
+        raise Failed("kernel mismatch: " + "; ".join(record.failures))
+    return record.summary
 
 
 def phase_serve(dev):
@@ -227,8 +394,6 @@ def phase_serve(dev):
     from mmdti_tpu_torch.chem.dictionary import Dictionary
     from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
     from mmdti_tpu_torch.models.mm_model import build_model
-    from mmdti_tpu_torch.ops import hopper_attention as ha
-    from mmdti_tpu_torch.ops import hopper_gbf as hg
 
     cfg = {"task": "regression", "compute_dtype": "bfloat16"}  # flagship widths
     d = Dictionary.load()
@@ -248,11 +413,7 @@ def phase_serve(dev):
         server.predict(smi)
         cold_ms[n] = (time.perf_counter() - t0) * 1e3
 
-    counters = {"gbf_proj": hg.gbf_pair_bias_cuda,
-                "pair_bias_attention": ha.pair_bias_attention_cuda,
-                "masked_attention": ha.masked_attention_cuda}
-    for c in counters.values():
-        c.launches = 0
+    _reset_counts()
     lat, outs = {}, {}
     for n, smi in requests.items():
         times = []
@@ -261,13 +422,14 @@ def phase_serve(dev):
             outs[n] = server.predict(smi)
             times.append((time.perf_counter() - t0) * 1e3)
         lat[n] = statistics.median(times)
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = _read_counts()
 
     forwards = REPEATS * len(REQUESTS)
     ucfg = server.model.unimol_cfg
     per_fwd = {"gbf_proj": 1, "pair_bias_attention": ucfg.encoder_layers,
                "masked_attention": server.model.bert.cfg.num_hidden_layers
-               + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers}
+               + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers,
+               "gbf_proj_bwd": 0, "pair_bias_attention_bwd": 0, "masked_attention_bwd": 0}
     for n, out in outs.items():
         if out["predict"].shape != (n, 1) or not np.isfinite(out["predict"]).all():
             raise Failed(f"predict({n}) gave {out['predict']!r}")
@@ -275,8 +437,8 @@ def phase_serve(dev):
     # kernel path vs plain path, same weights, same collated 20-SMILES batch
     feats, n = server._device_feats(server._featurize(requests[20]))
     with torch.inference_mode():
-        got = server.model(**feats, logits_only=True)["logits"][:n]
-        want = plain.model(**feats, logits_only=True)["logits"][:n]
+        got = server.model(**feats, outputs="logits")["logits"][:n]
+        want = plain.model(**feats, outputs="logits")["logits"][:n]
     diff = float((got - want).abs().max())
     plain_pred = plain.predict(requests[20])["predict"]
     pred_diff = float(np.abs(outs[20]["predict"] - plain_pred).max())
@@ -294,9 +456,210 @@ def phase_serve(dev):
     }), flush=True)
     for k, per in per_fwd.items():
         if launches[k] != per * forwards:
-            raise Failed(f"{k}: {launches[k]} launches, expected {per} x {forwards}")
+            raise Failed(f"serve {k}: {launches[k]} launches, expected {per} x {forwards}")
     if not (diff <= LOGITS_TOL and pred_diff <= LOGITS_TOL):
         raise Failed(f"kernel path differs from plain path: logits {diff}, predict {pred_diff}")
+    return launches
+
+
+def _train_batch(dev, atom_pad, smiles_pad, B=32):
+    """B molecules of SMILES_20 featurized (host conformers) and collated to
+    N=atom_pad atoms and L=smiles_pad tokens, on the device."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch.chem.conformer import ConformerGen
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.data.batching import BatchCollator
+
+    smiles = (SMILES_20 * (B // len(SMILES_20) + 1))[:B]
+    conf = ConformerGen()
+    feats = conf.transform(smiles)
+    for f, s in zip(feats, smiles):
+        f["smile"] = s
+    coll = BatchCollator(SmilesTokenizer(), pad_idx=conf.dictionary.pad(), pad_mode="fixed",
+                         atom_pad=atom_pad, smiles_pad=smiles_pad)
+    batch, _ = coll([(f, np.zeros(1, np.float32)) for f in feats])
+    keys = ("src_tokens", "src_distance", "src_edge_type", "input_ids", "attention_mask")
+    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys}
+
+
+def _profile_steps(step, args, n=3):
+    """torch.profiler over n train steps: device time per step, kernels per
+    step, the share of the port's own kernels, the top kernels by time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    ours = ("attention_rows_kernel", "attention_bwd_rows_kernel", "attention_bwd_cols_kernel",
+            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel")
+    own_us = sum(e.self_device_time_total for e in kernels if any(o in e.key for o in ours))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {
+        "steps": n,
+        "device_ms_per_step": total_us / n / 1e3,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / n,
+        "port_kernels_ms_per_step": own_us / n / 1e3,
+        "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
+                         "calls_per_step": e.count / n} for e in top],
+    }
+
+
+def _profile_optimizer(opt):
+    """Kernel launches and wall time of one clip + Adam update, taken with
+    zero gradients (the momentum still moves the parameters, as a step
+    would)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    grads = {n: torch.zeros_like(p) for n, p in opt.params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.apply(grads)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        opt.apply(grads)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"parameter_tensors": len(opt.params), "kernel_launches": launches,
+            "wall_ms": host_ms}
+
+
+def phase_train(dev):
+    """The flagship train step on the card; returns the launch counts of
+    the 30-step run."""
+    import torch
+
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.models.mm_model import build_model
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import build_train_loss, build_train_step
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+
+    def flagship(use_kernels):
+        return build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                           compute_dtype="bfloat16", use_kernels=use_kernels,
+                           unimol_overrides={"pair_dtype": "bfloat16"})
+
+    model = flagship(True)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+    plain = flagship(False)
+    plain.load_state_dict(model.state_dict())
+    model.to(dev)
+    plain.to(dev)
+    B = 32
+    feats = _train_batch(dev, 64, 64, B)
+    labels = torch.randn(B, 1, generator=torch.Generator().manual_seed(1)).to(dev)
+    weights = torch.ones(B, 1, device=dev)
+    ucfg = model.unimol_cfg
+    n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+    print(f"train: flagship layers={ucfg.encoder_layers} E={ucfg.embed_dim} "
+          f"H={ucfg.attention_heads} K={ucfg.gaussian_kernels}, bf16 compute, pair "
+          f"{ucfg.pair_dtype}, batch B={B} N={feats['src_tokens'].shape[1]} "
+          f"L={feats['input_ids'].shape[1]}, regression MSE + 0.1 InfoNCE + 0.1 ct_regress",
+          flush=True)
+
+    # (a) one step's loss and gradients, dropout off, kernel vs plain path
+    train_loss = build_train_loss(zoo.mse_loss, "regression")
+
+    def loss_and_grads(m):
+        total, _ = train_loss(m, feats, labels, weights, None)
+        names, params = zip(*m.named_parameters())
+        return float(total.detach()), dict(zip(names, torch.autograd.grad(total, params)))
+
+    lk, gk = loss_and_grads(model)
+    lp, gp = loss_and_grads(plain)
+    # each parameter's largest difference over its gradient's max, floored
+    # at 1e-3 of the whole gradient's max: a gradient that is zero in exact
+    # arithmetic (the attention key biases') holds only rounding noise
+    floor = 1e-3 * max(float(g.float().abs().max()) for g in gp.values())
+    rel = {}
+    for name, g in gp.items():
+        if not torch.isfinite(gk[name]).all():
+            raise Failed(f"train: kernel-path gradient of {name} is not finite")
+        scale = max(float(g.float().abs().max()), floor)
+        rel[name] = float((gk[name].float() - g.float()).abs().max()) / scale
+    worst = max(rel, key=rel.get)
+    print("train: " + json.dumps({
+        "check": "kernel vs plain path, dropout off", "loss_kernel": lk, "loss_plain": lp,
+        "loss_abs_diff": abs(lk - lp), "loss_tol": TRAIN_LOSS_TOL,
+        "max_rel_grad_diff": rel[worst], "worst_param": worst,
+        "median_rel_grad_diff": statistics.median(rel.values()), "grad_tol": TRAIN_GRAD_TOL,
+    }), flush=True)
+    if not (abs(lk - lp) <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
+        raise Failed(f"train: kernel path differs from plain path: loss {lk} vs {lp}, "
+                     f"{worst} grad rel diff {rel[worst]}")
+    del plain, gk, gp
+
+    # (b) 30 steps, dropout on, one fixed batch; (c) their times and launches
+    opt = FusedAdam(dict(model.named_parameters()), 1e-4, TRAIN_STEPS, warmup_ratio=0.1,
+                    max_norm=1.0)
+    step = build_train_step(model, opt, zoo.mse_loss, "regression")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    _reset_counts()
+    losses, events = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(step(feats, labels, weights, gen)["loss"])
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _read_counts()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    p50 = statistics.median(step_ms)
+    per_step = {"gbf_proj": 1, "gbf_proj_bwd": 1,
+                "pair_bias_attention": ucfg.encoder_layers,
+                "pair_bias_attention_bwd": ucfg.encoder_layers,
+                "masked_attention": n_masked, "masked_attention_bwd": n_masked}
+    print("train: " + json.dumps({
+        "steps": TRAIN_STEPS, "dropout": "on", "first_loss": losses[0], "last_loss": losses[-1],
+        "losses": losses, "step_ms_p50": p50, "step_ms_min": min(step_ms),
+        "step_ms_max": max(step_ms), "mols_per_s": B / p50 * 1e3,
+        "host_wall_s": wall_s, "launches": launches, "launches_per_step_expected": per_step,
+    }), flush=True)
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise Failed(f"train: non-finite loss in {losses}")
+    if not losses[-1] < losses[0]:
+        raise Failed(f"train: loss did not fall: first {losses[0]}, last {losses[-1]}")
+    for k, per in per_step.items():
+        if launches[k] != per * TRAIN_STEPS:
+            raise Failed(f"train {k}: {launches[k]} launches, expected {per} x {TRAIN_STEPS}")
+    print("train: profile " + json.dumps(_profile_steps(step, (feats, labels, weights, gen))),
+          flush=True)
+    print("train: optimizer " + json.dumps(_profile_optimizer(opt)), flush=True)
+
+    # (d) one step at the top atom bucket
+    feats280 = _train_batch(dev, 280, 64, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    loss280 = float(step(feats280, labels, weights, gen)["loss"])
+    b.record()
+    torch.cuda.synchronize()
+    print("train: " + json.dumps({
+        "step": "top atom bucket", "B": B, "N": 280, "L": 64, "loss": loss280,
+        "step_ms": a.elapsed_time(b),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+    }), flush=True)
+    if not loss280 == loss280 or abs(loss280) == float("inf"):
+        raise Failed(f"train: N=280 step gave loss {loss280}")
     return launches
 
 
@@ -318,20 +681,16 @@ def main() -> int:
     phase_card()
     phase_build()
     summary = phase_kernels(dev)
-    launches = phase_serve(dev)
+    phase_serve(dev)
+    launches = phase_train(dev)
 
-    sources = {
-        "pair_bias_attention": ("mmdti_tpu_torch/csrc/pair_bias_attention.cu",
-                                "mmdti_tpu/ops/pallas_attention.py:166"),
-        "masked_attention": ("mmdti_tpu_torch/csrc/masked_attention.cu",
-                             "mmdti_tpu/ops/pallas_attention.py:590"),
-        "gbf_proj": ("mmdti_tpu_torch/csrc/gbf_proj.cu", "mmdti_tpu/ops/pallas_gbf.py:117"),
-    }
+    for name, n in launches.items():
+        if n == 0:
+            raise Failed(f"{name} was not launched on the train path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": summary[name]["max_abs_err"],
-         "ms": summary[name]["ms"], "plain_ms": summary[name]["plain_ms"]}
-        for name, (src, rep) in sources.items()
+         "launches": launches[name], **summary[name]}
+        for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,7 @@ def load_resident_model(
 
     @torch.inference_mode()
     def _forward(feats: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return activation(model(**feats, logits_only=True)["logits"])
+        return activation(model(**feats, outputs="logits")["logits"])
 
     return ResidentModel(model=model, forward=_forward, output_dim=output_dim)
 

@@ -13,7 +13,10 @@
 // q/out are token-major [B, Nq, H*D], k/v [B, Nk, H*D], heads contiguous on
 // the last dim — the layout the encoders produce, so no head transpose ever
 // reaches device memory.  The epilogue functor Epi adds the per-score bias
-// (pair bias or key mask) and may store the logits.
+// (pair bias or key mask) and may store the logits.  Attention dropout
+// (dropout.cuh) zeroes dropped probabilities after the row sum is taken and
+// folds 1/(1 - rate) into the row constant, as the TPU kernels'
+// _softmax_factored does; the stored logits stay pre-dropout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +25,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "dropout.cuh"
 
 namespace mmdti {
 
@@ -58,11 +63,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// At most 51 registers a thread, so that 5 blocks fit an SM: at N=280 shared
+// memory also allows 5, and the dropout branch would otherwise push the D=8
+// variant to 56 registers and 4 blocks.
 template <typename T, int D, class Epi>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 5)
 attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out, Epi epi,
-                      int Nq, int Nk, int H, float scale) {
+                      DropoutArgs drop, int Nq, int Nk, int H, float scale) {
   static_assert(D == 8 || D == 16 || D == 32 || D == 64, "head dim");
   // pass 2 lane layout: for D < 32 the warp splits into G groups of D lanes,
   // group g sums keys g, g+G, ...; for D >= 32 each lane owns D/32 dims
@@ -116,7 +124,9 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncwarp();
 
-  // ---- softmax over each full row (warp-local) ------------------------------
+  // ---- softmax over each full row (warp-local), then dropout ---------------
+  const bool dropping = drop.seed != nullptr;
+  const uint32_t key = dropping ? dropout_key(drop, b * H + h) : 0u;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int rr = warp * kRowsPerWarp + r;
@@ -126,13 +136,22 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m = warp_max(m);
     if (!isfinite(m)) m = 0.f;  // fully-masked row guard (as the TPU kernel)
     float sum = 0.f;
-    for (int j = lane; j < Nk; j += 32) {
-      const float p = expf(row[j] - m);
-      row[j] = p;
-      sum += p;
+    if (dropping) {  // block-uniform: the loop without dropout hashes nothing
+      const uint32_t ij0 = (uint32_t)(row0 + rr) * (uint32_t)Nk;
+      for (int j = lane; j < Nk; j += 32) {
+        const float p = expf(row[j] - m);
+        sum += p;
+        row[j] = dropout_keep(key, ij0 + j, drop.threshold) ? p : 0.f;
+      }
+    } else {
+      for (int j = lane; j < Nk; j += 32) {
+        const float p = expf(row[j] - m);
+        row[j] = p;
+        sum += p;
+      }
     }
     sum = warp_sum(sum);
-    if (lane == 0) inv_s[rr] = 1.f / fmaxf(sum, 1e-30f);
+    if (lane == 0) inv_s[rr] = (1.f / fmaxf(sum, 1e-30f)) * (dropping ? drop.scale : 1.f);
   }
 
   // ---- pass 2: out = (p v) / rowsum -----------------------------------------
@@ -187,8 +206,8 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Launch on `stream`; returns the launch's cudaError_t (0 on success).
 template <typename T, int D, class Epi>
 cudaError_t launch_attention_rows(const void* q, const void* k, const void* v, void* out,
-                                  Epi epi, int B, int Nq, int Nk, int H, float scale,
-                                  cudaStream_t stream) {
+                                  Epi epi, DropoutArgs drop, int B, int Nq, int Nk, int H,
+                                  float scale, cudaStream_t stream) {
   const size_t smem = attention_smem_bytes(D, Nk);
   if (smem > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
   auto kernel = attention_rows_kernel<T, D, Epi>;
@@ -202,7 +221,7 @@ cudaError_t launch_attention_rows(const void* q, const void* k, const void* v, v
   dim3 grid((Nq + kRows - 1) / kRows, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), epi, Nq, Nk, H, scale);
+      static_cast<T*>(out), epi, drop, Nq, Nk, H, scale);
   return cudaGetLastError();
 }
 

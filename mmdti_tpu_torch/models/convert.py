@@ -14,7 +14,8 @@ This defines the port's names for every flax scope, including the ones the
 JAX converter has no unicore/HF names for: ``cross_modal_module.*``,
 ``infonce.*`` and ``classification_head.*`` are their flax paths joined
 with dots.  Arrays are numpy on the flax side and torch tensors on the
-port's side; values are copied exactly.
+port's side; values are copied exactly.  The same rule carries optax's Adam
+moments (trees shaped like the params) into train/optim.py's AdamState.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from mmdti_tpu_torch.train.optim import AdamState
 
 # flax nn.Embed scopes: their "weight" is an embedding table, not a kernel
 EMBEDDING_SCOPES = frozenset(
@@ -51,6 +54,20 @@ def flax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             name = "weight"
         sd[".".join([*scope, name])] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
+
+
+def adam_state_from_optax(mu: Mapping[str, Any], nu: Mapping[str, Any], count: int,
+                          schedule_count: int, mu_dtype=torch.bfloat16) -> AdamState:
+    """optax's ScaleByAdamState (``mu`` and ``nu`` as nested dicts of arrays
+    shaped like the flax params, ``count``) and the schedule's count ->
+    train/optim.py's AdamState under the port's parameter names, with mu
+    stored in ``mu_dtype``."""
+    return AdamState(
+        count=int(count),
+        mu={k: v.to(mu_dtype) for k, v in flax_params_to_state_dict(mu).items()},
+        nu=flax_params_to_state_dict(nu),
+        schedule_count=int(schedule_count),
+    )
 
 
 def state_dict_to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

@@ -37,19 +37,28 @@ class GaussianLayer(nn.Module):
         with ``return_affine=True`` the affine distance u = mul*dist + bias
         [B,N,N] (the fused kernel's input).
 
-        With ``tokens`` [B,N] the table entry is selected by the token outer
-        product t_i*V + t_j, as the JAX layer does (its one-hot matmuls pick
-        exactly that entry); at padded rows and columns this differs from
-        ``edge_type``, which the collator fills with the pad index there.
-        Without ``tokens`` the entry is gathered by ``edge_type``."""
+        With ``tokens`` [B,N] the table entry is the one of the token outer
+        product t_i*V + t_j, selected as the JAX layer selects it: by two
+        one-hot matmuls (exact in fp32), whose backward is two more matmuls.
+        A gather's scatter-add backward serialises on the repeated entries
+        (every padded pair hits the same one): on an H100 it took a quarter
+        of the flagship train step's device time.  At padded rows and columns the
+        token entry differs from ``edge_type``, which the collator fills
+        with the pad index there.  Without ``tokens`` the entry is gathered
+        by ``edge_type``."""
         V = int(round(self.edge_types ** 0.5))
         if tokens is not None and V * V == self.edge_types:
-            t = tokens.long()
-            idx = t[:, :, None] * V + t[:, None, :]
+            p = torch.nn.functional.one_hot(tokens.long(), V).float()   # [B,N,V]
+            pt = p.transpose(1, 2)
+
+            def select(table):                                          # -> [B,N,N]
+                return torch.matmul(torch.matmul(p, table.view(V, V).float()), pt)
+
+            m, b = select(self.mul), select(self.bias)
         else:
             idx = edge_type.long()
-        m = self.mul.view(-1)[idx].float()
-        b = self.bias.view(-1)[idx].float()
+            m = self.mul.view(-1)[idx].float()
+            b = self.bias.view(-1)[idx].float()
         x = m * dist.float() + b                                   # [B,N,N]
         if return_affine:
             return x

@@ -3,6 +3,12 @@
 Parameters are fp32; a module built with ``dtype=torch.bfloat16`` casts its
 input and weights to bf16 for the product, as flax's ``nn.Dense(dtype=...)``
 does.  LayerNorm always computes in fp32.
+
+Dropout is explicit, as in flax: every forward that drops takes a
+``generator`` (a ``torch.Generator`` on the tensors' device), and None means
+deterministic.  ``nn.Dropout`` takes no generator, so ``dropout`` below
+draws its own mask; ``draw_seed`` draws the int32 seed of one attention
+call's keep mask (ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -22,6 +28,25 @@ ACT2FN = {
     "tanh": torch.tanh,
     "linear": lambda x: x,
 }
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate and scale the kept
+    values by 1/(1 - rate); the identity when ``generator`` is None."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_seed(generator: Optional[torch.Generator], rate: float) -> Optional[torch.Tensor]:
+    """One int32 seed on the generator's device for an attention call's
+    dropout, or None when that call does not drop."""
+    if generator is None or rate <= 0.0:
+        return None
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
 
 
 def get_activation_fn(name: str) -> Callable:
@@ -101,18 +126,21 @@ class NonLinearHead(nn.Module):
 
 
 class ClassificationHead(nn.Module):
-    """dense -> act -> out_proj (reference: models/mm_model.py:44-84; the
-    pooler dropout is a training-time op and is not ported)."""
+    """dropout -> dense -> act -> dropout -> out_proj (reference:
+    models/mm_model.py:44-84)."""
 
     def __init__(self, input_dim: int, inner_dim: int, num_classes: int,
-                 activation_fn: str = "tanh", dtype=torch.float32):
+                 activation_fn: str = "tanh", dtype=torch.float32,
+                 pooler_dropout: float = 0.0):
         super().__init__()
         self.act = get_activation_fn(activation_fn)
+        self.pooler_dropout = pooler_dropout
         self.dense = Dense(input_dim, inner_dim, dtype)
         self.out_proj = Dense(inner_dim, num_classes, dtype)
 
-    def forward(self, x):
-        return self.out_proj(self.act(self.dense(x)))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = self.act(self.dense(dropout(x, self.pooler_dropout, generator)))
+        return self.out_proj(dropout(x, self.pooler_dropout, generator))
 
 
 @torch.no_grad()

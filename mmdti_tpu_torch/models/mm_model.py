@@ -1,4 +1,4 @@
-"""MM-DTI flagship model (port of mmdti_tpu/models/mm_model.py), forward only.
+"""MM-DTI flagship model (port of mmdti_tpu/models/mm_model.py).
 
   atom tokens --embed--> Uni-Mol encoder biased by Gaussian(distance, tokens)
   SMILES ids  --------> ChemBERTa (RoBERTa) encoder
@@ -11,7 +11,9 @@ is flax ``encoder/layers_3/in_proj``), so models/convert.py moves weights
 between the two by rule.  ``use_kernels=True`` routes the Gaussian pair
 bias and every attention through ops/hopper_*.py (the Hopper kernels on
 CUDA tensors, their plain versions on CPU tensors); ``False`` takes the
-plain oracle path everywhere, the counterpart of the JAX XLA path.
+plain oracle path everywhere, the counterpart of the JAX XLA path.  Both
+paths are differentiable; on the kernel path every attention and the
+Gaussian bias run their own backward kernels.
 """
 
 from __future__ import annotations
@@ -41,11 +43,12 @@ from mmdti_tpu_torch.ops.attention import merge_padding_into_bias
 
 
 def unimol_3d_stream(mdl: "MMModel", src_tokens, src_distance, src_edge_type,
-                     pair_outputs: bool = True):
+                     pair_outputs: bool = True, generator=None):
     """Token embedding, Gaussian pair bias and the Uni-Mol encoder; returns
     (encoder outputs, padding_mask, atom_mask).  ``mdl`` holds the
     submodules under their flax names (embed_tokens / gbf / gbf_proj /
-    encoder); ``pair_outputs`` is passed on to the encoder."""
+    encoder); ``pair_outputs`` and ``generator`` are passed on to the
+    encoder."""
     padding_mask = src_tokens == mdl.atom_pad_idx
     atom_mask = (~padding_mask).long()
     x = mdl.embed_tokens(src_tokens)
@@ -61,7 +64,7 @@ def unimol_3d_stream(mdl: "MMModel", src_tokens, src_distance, src_edge_type,
         bias = merge_padding_into_bias(
             bias.permute(0, 3, 1, 2).float(), padding_mask, pair_dtype=pair_dtype
         )
-    enc = mdl.encoder(x, bias, padding_mask, pair_outputs=pair_outputs)
+    enc = mdl.encoder(x, bias, padding_mask, pair_outputs=pair_outputs, generator=generator)
     return enc, padding_mask, atom_mask
 
 
@@ -104,7 +107,7 @@ class MMModel(nn.Module):
         self.cross_modal_module = CrossAttentionModel(cross_cfg, dtype, use_kernels)
         self.classification_head = ClassificationHead(
             cross_cfg.hidden_size, ucfg.embed_dim, output_dim,
-            ucfg.pooler_activation_fn, dtype,
+            ucfg.pooler_activation_fn, dtype, pooler_dropout=ucfg.pooler_dropout,
         )
 
     def reset_parameters_like_flax(self, generator: torch.Generator) -> "MMModel":
@@ -119,20 +122,40 @@ class MMModel(nn.Module):
         src_edge_type: torch.Tensor,    # [B,N,N] int
         input_ids: torch.Tensor,        # [B,L] int SMILES tokens
         attention_mask: torch.Tensor,   # [B,L] {0,1}
-        logits_only: bool = False,
+        outputs: str = "all",
+        deterministic: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
-        """The JAX model's output dict.  ``logits_only=True`` is the serving
-        call: it returns {"logits"} and skips what the JAX serving forward
-        lets XLA drop — InfoNCE, the encoder's norm terms, final logits and
-        the [B,N,N,H] delta-pair tensor."""
+        """The JAX model's output dict, or the part of it a caller reads:
+
+        * ``outputs="all"``: every entry (what the parity tests compare);
+        * ``outputs="train"``: logits, pooled, infonce_loss and cls_repr —
+          what the train and eval steps read; the encoder's norm terms,
+          final logits and the [B,N,N,H] delta-pair tensor, which the JAX
+          train step lets XLA drop, are not computed;
+        * ``outputs="logits"``: the serving call, {"logits"} only (no
+          InfoNCE either).
+
+        ``deterministic=False`` applies every dropout of the JAX model,
+        drawn from ``generator`` (a torch.Generator on the inputs' device);
+        one generator state gives one result, bit for bit on one device."""
+        if outputs not in ("all", "train", "logits"):
+            raise ValueError(f"outputs must be 'all', 'train' or 'logits', got {outputs!r}")
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("deterministic=False needs a generator for the dropout masks")
         enc, padding_mask, atom_mask = unimol_3d_stream(
-            self, src_tokens, src_distance, src_edge_type, pair_outputs=not logits_only
+            self, src_tokens, src_distance, src_edge_type,
+            pair_outputs=outputs == "all", generator=generator,
         )
         encoder_rep = enc["rep"]                                  # [B,N,E]
-        bert_rep = self.bert(input_ids, attention_mask)           # [B,L,E]
+        bert_rep = self.bert(input_ids, attention_mask, generator)  # [B,L,E]
+        if outputs != "logits":
+            infonce_loss = self.infonce(encoder_rep, bert_rep, generator)
 
         a_to_b, b_to_a = self.cross_modal_module(
-            encoder_rep, bert_rep, atom_mask, attention_mask
+            encoder_rep, bert_rep, atom_mask, attention_mask, generator
         )
         a_to_b = a_to_b * atom_mask[..., None].to(a_to_b.dtype)
         b_to_a = b_to_a * attention_mask[..., None].to(b_to_a.dtype)
@@ -141,17 +164,21 @@ class MMModel(nn.Module):
             atom_mask.sum(dim=1, keepdim=True) + attention_mask.sum(dim=1, keepdim=True)
         ).float()
         pooled = fused.sum(dim=1).float() / denom                 # [B,E] fp32
-        logits = self.classification_head(pooled.to(self.compute_dtype)).float()
-        if logits_only:
+        logits = self.classification_head(pooled.to(self.compute_dtype), generator).float()
+        if outputs == "logits":
             return {"logits": logits}
-
-        return {
+        out = {
             "logits": logits,
             "pooled": pooled,
-            "infonce_loss": self.infonce(encoder_rep, bert_rep),
+            "infonce_loss": infonce_loss,
+            "cls_repr": encoder_rep[:, 0, :],
+        }
+        if outputs == "train":
+            return out
+        return {
+            **out,
             "encoder_rep": encoder_rep,
             "bert_rep": bert_rep,
-            "cls_repr": encoder_rep[:, 0, :],
             "atom_mask": atom_mask,
             "pair_logits": enc["pair_logits"],
             "x_norm": enc["x_norm"],

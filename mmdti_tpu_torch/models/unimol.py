@@ -5,8 +5,9 @@ Embedding LayerNorm, N pre-LN layers each consuming the incoming pair bias
 and emitting its pre-softmax logits as the outgoing bias, final LayerNorm,
 token/pair norm terms and the delta-pair representation.  Softmax and
 logits accumulate in fp32 while the projections run in the compute dtype;
-the threaded [B,H,N,N] logits are stored in ``cfg.pair_dtype``.
-Inference only: dropout is not ported.
+the threaded [B,H,N,N] logits are stored in ``cfg.pair_dtype``.  With a
+``generator`` the forward applies the embedding, attention, activation and
+residual dropouts of the JAX encoder (models/layers.py).
 """
 
 from __future__ import annotations
@@ -17,7 +18,13 @@ import torch
 from torch import nn
 
 from mmdti_tpu_torch.configs.architectures import UniMolEncoderConfig
-from mmdti_tpu_torch.models.layers import Dense, LayerNormFP32, get_activation_fn
+from mmdti_tpu_torch.models.layers import (
+    Dense,
+    LayerNormFP32,
+    draw_seed,
+    dropout,
+    get_activation_fn,
+)
 from mmdti_tpu_torch.ops.attention import pair_bias_attention
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,18 +50,22 @@ class PairBiasEncoderLayer(nn.Module):
         self.fc1 = Dense(E, cfg.ffn_embed_dim, dtype)
         self.fc2 = Dense(cfg.ffn_embed_dim, E, dtype)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, generator: Optional[torch.Generator] = None):
         """x [B,N,E], bias [B,H,N,N] -> (x', new_bias)."""
+        cfg = self.cfg
         residual = x
         q, k, v = self.in_proj(self.self_attn_layer_norm(x)).chunk(3, dim=-1)
         attn, new_bias = pair_bias_attention(
-            q, k, v, bias, num_heads=self.cfg.attention_heads,
-            pair_dtype=torch_dtype(self.cfg.pair_dtype), use_kernels=self.use_kernels,
+            q, k, v, bias, num_heads=cfg.attention_heads,
+            pair_dtype=torch_dtype(cfg.pair_dtype), dropout_rate=cfg.attention_dropout,
+            seed=draw_seed(generator, cfg.attention_dropout),
+            deterministic=generator is None, use_kernels=self.use_kernels,
         )
-        x = residual + self.out_proj(attn)
+        x = residual + dropout(self.out_proj(attn), cfg.dropout, generator)
         residual = x
-        x = self.fc2(self.act(self.fc1(self.final_layer_norm(x))))
-        return residual + x, new_bias
+        x = self.act(self.fc1(self.final_layer_norm(x)))
+        x = self.fc2(dropout(x, cfg.activation_dropout, generator))
+        return residual + dropout(x, cfg.dropout, generator), new_bias
 
 
 def _norm_loss(x, eps=1e-10, tolerance=1.0):
@@ -87,6 +98,7 @@ class UniMolEncoder(nn.Module):
         attn_bias: torch.Tensor,               # [B,H,N,N] pair bias, -inf at pad keys
         padding_mask: Optional[torch.Tensor],  # [B,N] bool, True at pads
         pair_outputs: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """``attn_bias`` arrives with the padding already merged in (the
         fused gbf kernel writes it so).  The JAX encoder merges here
@@ -96,14 +108,14 @@ class UniMolEncoder(nn.Module):
         ``pair_outputs=False`` returns only ``rep``: the norm terms, the
         final logits and the [B,N,N,H] delta-pair tensor are not computed."""
         cfg = self.cfg
-        x = self.emb_layer_norm(emb)
+        x = dropout(self.emb_layer_norm(emb), cfg.emb_dropout, generator)
         if padding_mask is not None:
             x = x * (1.0 - padding_mask[..., None].to(x.dtype))
 
         input_bias = attn_bias.to(torch_dtype(cfg.pair_dtype))
         bias = input_bias
         for i in range(cfg.encoder_layers):
-            x, bias = getattr(self, f"layers_{i}")(x, bias)
+            x, bias = getattr(self, f"layers_{i}")(x, bias, generator)
 
         if not pair_outputs:
             return {"rep": self.final_layer_norm(x) if not cfg.post_ln else x}

@@ -28,21 +28,33 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # entry point -> argtypes; restype is c_int (a cudaError_t) for all
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "pair_bias_attention": {
-        # q, k, v, bias, out, logits, B, N, H, D, qkv_bf16, pair_bf16, stream
-        "mmdti_pair_bias_attention_fwd": (_P,) * 6 + (_I,) * 6 + (_P,),
+        # q, k, v, bias, out, logits, seed, threshold, drop_scale, B, N, H, D,
+        # qkv_bf16, pair_bf16, stream
+        "mmdti_pair_bias_attention_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 6 + (_P,),
+        # q, k, v, logits, g_out, g_logits, dq, dk, dv, dbias, stats, seed,
+        # threshold, drop_scale, B, N, H, D, qkv_bf16, pair_bf16, stream
+        "mmdti_pair_bias_attention_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 6 + (_P,),
     },
     "masked_attention": {
-        # q, k, v, mask, out, B, Nq, Nk, H, D, qkv_bf16, stream
-        "mmdti_masked_attention_fwd": (_P,) * 5 + (_I,) * 6 + (_P,),
+        # q, k, v, mask, out, seed, threshold, drop_scale, B, Nq, Nk, H, D,
+        # qkv_bf16, stream
+        "mmdti_masked_attention_fwd": (_P,) * 6 + (_U, _F) + (_I,) * 6 + (_P,),
+        # q, k, v, mask, g_out, dq, dk, dv, stats, seed, threshold, drop_scale,
+        # B, Nq, Nk, H, D, qkv_bf16, stream
+        "mmdti_masked_attention_bwd": (_P,) * 10 + (_U, _F) + (_I,) * 6 + (_P,),
     },
     "gbf_proj": {
         # u, means, stds, w1, b1, w2, b2, pad, out, B, N, K, Kh, H,
         # compute_bf16, pair_bf16, act, sqrt_2pi, stream
         "mmdti_gbf_proj_fwd": (_P,) * 9 + (_I,) * 8 + (_F, _P),
+        # u, means, stds, w1, b1, w2, pad, g, du, grads, partials, max_blocks,
+        # B, N, K, Kh, H, compute_bf16, pair_bf16, act, sqrt_2pi, stream
+        "mmdti_gbf_proj_bwd": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     },
 }
 

@@ -7,6 +7,8 @@ that has only torch and the CUDA toolkit:
 Without a CUDA device every test here skips.  Tolerances: fp32 atol 1e-4
 (TF32 off; the sums run in another order); bf16 atol 2e-2 on outputs and
 rtol 1e-2 / atol 5e-2 on the stored logits, as tests/test_pallas.py:69-73.
+Gradients are held to the same bounds scaled by the largest magnitude of
+the plain version's gradient (they are sums over a whole row or column).
 """
 
 import numpy as np
@@ -113,3 +115,107 @@ def test_launchers_reject_what_the_kernels_do_not_take(cuda):
         hg.gbf_pair_bias_cuda(u, k16, k16 + 1, torch.zeros(16, 16, device=cuda), k16,
                               torch.zeros(8, 16, device=cuda), torch.zeros(8, device=cuda),
                               None, "gelu_tanh", torch.float32, torch.float32)
+
+
+def _grad_tol(dtype, want):
+    return (1e-4 if dtype == torch.float32 else 2e-2) * max(1.0, float(want.float().abs().max()))
+
+
+def _seed(cuda, value=1234):
+    return torch.tensor([value], dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_forwards_drop_what_the_plain_versions_drop(cuda, dtype):
+    B, H, D, N, rate = 2, 8, 16, 40, 0.2
+    rng = np.random.RandomState(3)
+    q, k, v = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, dtype) for _ in range(3))
+    bias = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype)
+    seed = _seed(cuda)
+    out, _ = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, rate)
+    want, _ = ha.pair_bias_attention_plain(q, k, v, bias, H, dtype, seed, rate)
+    torch.testing.assert_close(out.float(), want.float(), atol=_tol(dtype), rtol=0)
+    mask = torch.zeros(B, N, device=cuda)
+    got = ha.masked_attention_cuda(q, k, v, mask, H, seed, rate)
+    want = ha.masked_attention_plain(q, k, v, mask, H, seed, rate)
+    torch.testing.assert_close(got.float(), want.float(), atol=_tol(dtype), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("with_g_logits", [True, False])
+def test_pair_bias_backward_kernel_matches_plain(cuda, dtype, rate, with_g_logits):
+    B, H, D, N = 2, 64, 8, 72
+    rng = np.random.RandomState(4)
+    q, k, v, g = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, dtype) for _ in range(4))
+    logits = rng.randn(B, H, N, N).astype(np.float32)
+    logits[1, :, :, N - 9:] = -np.inf
+    logits = _t(logits, cuda, dtype)
+    gl = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype) if with_g_logits else None
+    seed = _seed(cuda)
+    before = ha.pair_bias_attention_bwd_cuda.launches
+    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, g, gl, H, seed, rate)
+    assert ha.pair_bias_attention_bwd_cuda.launches == before + 1
+    want = ha.pair_bias_attention_bwd_plain(q, k, v, logits, g, gl, H, seed, rate)
+    again = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, g, gl, H, seed, rate)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)  # deterministic
+        torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(dtype, b), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("H,D,Nq,Nk", [(8, 64, 40, 40), (16, 32, 40, 72), (8, 16, 9, 130)])
+def test_masked_backward_kernel_matches_plain(cuda, dtype, rate, H, D, Nq, Nk):
+    B = 2
+    rng = np.random.RandomState(5)
+    q, g = (_t(rng.randn(B, Nq, H * D).astype(np.float32), cuda, dtype) for _ in range(2))
+    k, v = (_t(rng.randn(B, Nk, H * D).astype(np.float32), cuda, dtype) for _ in range(2))
+    mask = np.zeros((B, Nk), np.float32)
+    mask[0, Nk - 5:] = -10000.0
+    mask = _t(mask, cuda)
+    seed = _seed(cuda, 77)
+    got = ha.masked_attention_bwd_cuda(q, k, v, mask, g, H, seed, rate)
+    want = ha.masked_attention_bwd_plain(q, k, v, mask, g, H, seed, rate)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(dtype, b), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
+@pytest.mark.parametrize("H", [64, 96])
+def test_gbf_backward_kernel_matches_plain(cuda, dtype, act, H):
+    B, N, K = 2, 24, 128
+    rng = np.random.RandomState(6)
+    means, std = rng.uniform(0, 3, K), rng.uniform(0.5, 3, K)
+    w1, b1 = 0.1 * rng.randn(K, K), 0.1 * rng.randn(K)
+    w2 = 0.1 * rng.randn(H, K)
+    u = rng.rand(B, N, N) * 6
+    args = [_t(x.astype(np.float32), cuda) for x in (u, means, std, w1, b1, w2)]
+    g = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype)
+    pad = np.zeros((B, N), bool)
+    pad[1, 20:] = True
+    pad = _t(pad, cuda)
+    before = hg.gbf_pair_bias_bwd_cuda.launches
+    got = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, dtype)
+    assert hg.gbf_pair_bias_bwd_cuda.launches == before + 1
+    want = hg.gbf_pair_bias_bwd_plain(*args, g, pad, act, dtype)
+    again = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, dtype)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, c)  # deterministic
+        torch.testing.assert_close(a, b, atol=_grad_tol(dtype, b), rtol=0)
+
+
+def test_differentiable_ops_launch_the_backward_kernels(cuda):
+    B, H, D, N = 2, 4, 16, 16
+    rng = np.random.RandomState(7)
+    q, k, v = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda).requires_grad_()
+               for _ in range(3))
+    bias = _t(rng.randn(B, H, N, N).astype(np.float32), cuda).requires_grad_()
+    counters = (ha.pair_bias_attention_bwd_cuda, ha.masked_attention_bwd_cuda)
+    before = [c.launches for c in counters]
+    out, _ = ha.pair_bias_attention_fused(q, k, v, bias, num_heads=H)
+    out2 = ha.masked_attention_fused(out, k, v, torch.zeros(B, N, device=cuda), num_heads=H)
+    out2.sum().backward()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v, bias))

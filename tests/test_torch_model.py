@@ -84,13 +84,13 @@ def flax_setup():
     return params, inputs, jax.tree.map(np.asarray, out)
 
 
-def _port(params, use_kernels, logits_only=False):
+def _port(params, use_kernels, outputs="all"):
     model = _build(jax_side=False, use_kernels=use_kernels)
     model.load_state_dict(flax_params_to_state_dict(params), strict=True)
     model.eval()
     with torch.no_grad():
         out = model(**{k: torch.from_numpy(v) for k, v in _inputs().items()},
-                    logits_only=logits_only)
+                    outputs=outputs)
     return {k: (v.numpy() if torch.is_tensor(v) else v) for k, v in out.items()}
 
 
@@ -125,7 +125,7 @@ def test_pair_logits_match_flax(flax_setup, port_outputs, use_kernels):
 
 def test_logits_only_skips_the_rest_and_agrees(flax_setup):
     params, _, want = flax_setup
-    got = _port(params, use_kernels=True, logits_only=True)
+    got = _port(params, use_kernels=True, outputs="logits")
     assert set(got) == {"logits"}
     np.testing.assert_allclose(got["logits"], want["logits"], atol=ATOL)
 

@@ -249,8 +249,27 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA"):
             ha.masked_attention_cuda(_tt(q), _tt(k), _tt(v), _tt(mask), 2)
 
-    def test_dropout_is_refused(self):
-        q, k, v, _, _, bias = _pair_inputs(H=2, N=8, D=4)
-        with pytest.raises(NotImplementedError):
-            ha.pair_bias_attention_fused(_tt(q), _tt(k), _tt(v), _tt(bias), num_heads=2,
-                                         dropout_rate=0.1, deterministic=False)
+    def test_dropout_replays_its_mask_in_backward(self):
+        """On CPU tensors the differentiable op runs the plain forward and
+        the plain backward; with dropout on, its gradients equal autograd
+        through the plain forward on the same seed, so the backward drops
+        the probabilities the forward dropped."""
+        H, rate = 2, 0.3
+        q, k, v, _, _, bias = _pair_inputs(H=H, N=8, D=4)
+        seed = torch.tensor([12345], dtype=torch.int32)
+        g = torch.from_numpy(np.random.RandomState(9).randn(*q.shape).astype(np.float32))
+
+        def grads(fn):
+            ins = [_tt(t).requires_grad_() for t in (q, k, v)]
+            out, _ = fn(*ins)
+            (out * g).sum().backward()
+            return [t.grad for t in ins]
+
+        got = grads(lambda *a: ha.pair_bias_attention_fused(
+            *a, _tt(bias), num_heads=H, dropout_rate=rate, seed=seed, deterministic=False))
+        want = grads(lambda *a: ha.pair_bias_attention_plain(
+            *a, _tt(bias), H, seed=seed, dropout_rate=rate))
+        no_drop = grads(lambda *a: ha.pair_bias_attention_plain(*a, _tt(bias), H))
+        for a, b, c in zip(got, want, no_drop):
+            torch.testing.assert_close(a, b, atol=ATOL, rtol=0)
+            assert not torch.allclose(a, c, atol=1e-3)

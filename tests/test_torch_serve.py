@@ -1,7 +1,7 @@
 """mmdti_tpu_torch serving slice on the CPU: host featurization equals the
 JAX package's, MolServe.predict equals the flax model on the same weights
-(atol 1e-4, fp32), and the slice imports nothing of JAX or the JAX
-package's host dependencies."""
+(atol 1e-4, fp32), and the port (serving and one train step) imports
+nothing of JAX or the JAX package's host dependencies."""
 
 import os
 import subprocess
@@ -144,8 +144,21 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
                         chemberta_overrides=cfg["chemberta_overrides"],
                         crossmodal_overrides=cfg["crossmodal_overrides"])
     model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
-    out = MolServe(cfg, model.state_dict(), device="cpu").predict(["CCO", "c1ccccc1"])
+    server = MolServe(cfg, model.state_dict(), device="cpu")
+    out = server.predict(["CCO", "c1ccccc1"])
     assert out["predict"].shape == (2, 1) and np.isfinite(out["predict"]).all()
+
+    # one train step, dropout on, on the served model's weights
+    from mmdti_tpu_torch.losses.zoo import mse_loss
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import build_train_step
+
+    feats, _ = server._device_feats(server._featurize(["CCO", "c1ccccc1"]))
+    opt = FusedAdam(dict(server.model.named_parameters()), 1e-4, 10)
+    step = build_train_step(server.model, opt, mse_loss, "regression")
+    labels = torch.zeros(feats["src_tokens"].shape[0], 1)
+    metrics = step(feats, labels, None, torch.Generator().manual_seed(0))
+    assert all(torch.isfinite(v) for v in metrics.values()), metrics
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("PORT_ONLY_OK")
