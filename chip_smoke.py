@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice
-and the train step.
+"""Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
+the train step, and fit-and-predict through MolTrain/MolPredict.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ Phases, one result line each; any failure exits non-zero:
    off) and bf16, at the flagship shapes, with padded keys: the attention
    forwards without and with dropout (0.1, same seed; the keep fraction is
    printed beside 0.9), the three backwards (dropout 0 and 0.1, with and
-   without the logits cotangent for pair-bias).  Each line has the max
+   without the logits cotangent for pair-bias), and the LayerNorm forward
+   and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
+   eps 1e-5 and 1e-12; repeated backwards must give bit-equal dscale and
+   dbias).  Each line has the max
    error beside its tolerance, the kernel's time, the plain version's, the
    PyTorch library call's where one computes the same function (SDPA for
    the masked forward), and the bound: the least time the card could take
@@ -31,7 +34,16 @@ Phases, one result line each; any failure exits non-zero:
    masked 8/8 forward/backward), a torch.profiler summary of 3 steps and
    the launches of one clip + Adam update;
    (d) one step at the top atom bucket N=280 with its peak memory;
-6. one JSON line with every kernel's summary, then {"ok": true, ...}.
+6. fit, with MMDTI_PALLAS_LN=1 for this phase only: the 400-molecule
+   synthetic regression set (seed 0), scaffold-split (seed 0), then
+   MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
+   3 epochs, dropout, InfoNCE, CT, sample weights, FDS) and
+   MolPredict.predict(test); prints the featurization and per-epoch
+   seconds, the LayerNorm launch counts (forward, backward and reduce,
+   checked against the 49 LayerNorms of a forward), the artifacts, the
+   reloaded predictions against the fit's own, the kernel path against the
+   plain path on the same checkpoint, and the test RMSE (a record);
+7. one JSON line with every kernel's summary, then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -91,7 +103,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                          "mmdti_tpu/ops/pallas_attention.py:590"),
     "masked_attention_bwd": ("mmdti_tpu_torch/csrc/masked_attention.cu",
                              "mmdti_tpu/ops/pallas_attention.py:619"),
+    "layer_norm": ("mmdti_tpu_torch/csrc/layer_norm.cu", "mmdti_tpu/ops/pallas_ln.py:110"),
+    "layer_norm_bwd": ("mmdti_tpu_torch/csrc/layer_norm.cu", "mmdti_tpu/ops/pallas_ln.py:123"),
 }
+TRAIN_KERNELS = tuple(KERNELS)[:6]   # launched by phase 5; the LayerNorms by phase 6
+# LayerNorm (atol, rtol): fp32 as tests/test_pallas_ln.py:45-52; a bf16
+# output may round one bf16 step (2^-8 of its value) either side of the plain one
+LN_FWD_TOL = {"fp32": (2e-5, 0.0), "bf16": (2e-2, 1e-2)}
+FIT_MOLECULES, FIT_EPOCHS = 400, 3
 
 
 class Failed(RuntimeError):
@@ -101,12 +120,15 @@ class Failed(RuntimeError):
 def _counters():
     from mmdti_tpu_torch.ops import hopper_attention as ha
     from mmdti_tpu_torch.ops import hopper_gbf as hg
+    from mmdti_tpu_torch.ops import hopper_ln as hl
 
     return {"gbf_proj": hg.gbf_pair_bias_cuda, "gbf_proj_bwd": hg.gbf_pair_bias_bwd_cuda,
             "pair_bias_attention": ha.pair_bias_attention_cuda,
             "pair_bias_attention_bwd": ha.pair_bias_attention_bwd_cuda,
             "masked_attention": ha.masked_attention_cuda,
-            "masked_attention_bwd": ha.masked_attention_bwd_cuda}
+            "masked_attention_bwd": ha.masked_attention_bwd_cuda,
+            "layer_norm": hl.layer_norm_cuda, "layer_norm_bwd": hl.layer_norm_bwd_cuda,
+            "layer_norm_bwd_reduce": hl.layer_norm_bwd_reduce_cuda}
 
 
 def _reset_counts():
@@ -133,6 +155,22 @@ def _time_ms(fn, iters=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _device_ms(fn, n=20):
+    """Device time per call: the CUDA kernels' own time in a torch.profiler
+    window of n calls, over n (the host's issue time left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
 
 
 def _bound(nbytes, flops, prec):
@@ -379,9 +417,95 @@ def phase_kernels(dev):
                        _bound(2 * tokens * s - B * Nq * Hm * Dm * s + 4 * B * Nk,
                               10 * B * Hm * Nq * Nk * Dm, prec),
                        main_shape and prec == "bf16" and rate > 0)
+    _layer_norm_cases(dev, gen, record)
     if record.failures:
         raise Failed("kernel mismatch: " + "; ".join(record.failures))
     return record.summary
+
+
+def _layer_norm_cases(dev, gen, record):
+    """LayerNorm forward and backward against their plain versions; the
+    library yardstick is F.layer_norm in x's dtype (its variance is the
+    two-pass one), forward alone and forward plus backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from mmdti_tpu_torch.ops import hopper_ln as hl
+
+    dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    E = 512
+    for T in (2048, 8960):      # B=32 at N=64 and at the top atom bucket N=280
+        x0 = torch.randn(T, E, generator=gen).to(dev)
+        gy0 = torch.randn(T, E, generator=gen).to(dev)
+        w = (torch.rand(E, generator=gen) + 0.5).to(dev)
+        b = (torch.randn(E, generator=gen) * 0.1).to(dev)
+        for xp, xd in dts:
+            x = x0.to(xd)
+            for yp, yd in dts:
+                gy = gy0.to(yd)
+                coarse = "bf16" if "bf16" in (xp, yp) else "fp32"
+                for eps in (1e-5, 1e-12):
+                    case = f"T={T} E={E} x={xp} y={yp} eps={eps}"
+                    main = T == 2048 and xp == yp == "bf16" and eps == 1e-5
+                    y = hl.layer_norm_cuda(x, w, b, eps, yd)
+                    want = hl.layer_norm_plain(x, w, b, eps, yd)
+                    torch.cuda.synchronize()
+                    atol, rtol = LN_FWD_TOL[yp]
+                    e, ok = _err(y, want, atol, rtol)
+                    ms = _time_ms(lambda: hl.layer_norm_cuda(x, w, b, eps, yd))
+                    pms = _time_ms(lambda: hl.layer_norm_plain(x, w, b, eps, yd), iters=10)
+                    wl, bl = w.to(xd), b.to(xd)
+                    lms = _time_ms(lambda: F.layer_norm(x, (E,), wl, bl, eps))
+                    sx, sy = BYTES[xp], BYTES[yp]
+                    dev_ms = {}
+                    if eps == 1e-5:
+                        dev_ms = {
+                            "device_ms": _device_ms(lambda: hl.layer_norm_cuda(x, w, b, eps, yd)),
+                            "plain_device_ms": _device_ms(
+                                lambda: hl.layer_norm_plain(x, w, b, eps, yd)),
+                            "library_device_ms": _device_ms(
+                                lambda: F.layer_norm(x, (E,), wl, bl, eps))}
+                    record("layer_norm", case, f"x {xp} y {yp}", {"y": (e, [atol, rtol], ok)}, ms,
+                           pms, lms,
+                           _bound(T * E * (sx + sy) + 2 * E * 4, 8 * T * E, "fp32"), main,
+                           dev_ms)
+
+                    got = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+                    again = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+                    ref = hl.layer_norm_bwd_plain(x, w, gy, eps)
+                    torch.cuda.synchronize()
+                    errs = {}
+                    for name, g, r in zip(("dx", "dscale", "dbias"), got, ref):
+                        gtol = LN_FWD_TOL[coarse][0] * max(1.0, float(r.float().abs().max()))
+                        e, ok = _err(g, r, gtol, 0.0)
+                        errs[name] = (e, gtol, ok)
+                    bit_equal = all(torch.equal(g, a) for g, a in zip(got, again))
+                    if not bit_equal:
+                        record.failures.append(f"layer_norm_bwd {case}: repeated calls differ")
+                    ms = _time_ms(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps))
+                    pms = _time_ms(lambda: hl.layer_norm_bwd_plain(x, w, gy, eps), iters=10)
+                    xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, wl, bl))
+                    gyx = gy.to(xd)
+                    lms = _time_ms(lambda: torch.autograd.grad(
+                        F.layer_norm(xr, (E,), wr, br, eps), (xr, wr, br), gyx))
+
+                    def ours_fwd_bwd():
+                        hl.layer_norm_cuda(x, w, b, eps, yd)
+                        hl.layer_norm_bwd_cuda(x, w, gy, eps)
+
+                    extra = {"repeat_bit_equal": bit_equal, "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
+                             "library_is": "F.layer_norm forward + autograd backward"}
+                    if eps == 1e-5:
+                        extra.update(
+                            device_ms=_device_ms(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps)),
+                            fwd_bwd_device_ms=_device_ms(ours_fwd_bwd),
+                            plain_device_ms=_device_ms(
+                                lambda: hl.layer_norm_bwd_plain(x, w, gy, eps)),
+                            library_device_ms=_device_ms(lambda: torch.autograd.grad(
+                                F.layer_norm(xr, (E,), wr, br, eps), (xr, wr, br), gyx)))
+                    record("layer_norm_bwd", case, f"x {xp} y {yp}", errs, ms, pms, lms,
+                           _bound(T * E * (2 * sx + sy) + 3 * E * 4, 14 * T * E, "fp32"), main,
+                           extra)
 
 
 def phase_serve(dev):
@@ -663,6 +787,116 @@ def phase_train(dev):
     return launches
 
 
+def phase_fit(dev):
+    """MolTrain.fit -> MolPredict at the flagship width and depth with the
+    LayerNorm kernels engaged; returns the launch counts of the phase."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolTrain
+    from mmdti_tpu_torch.chem.conformer import ConformerGen
+    from mmdti_tpu_torch.data.reader import read_csv, write_csv
+    from mmdti_tpu_torch.finetune import make_synthetic_dataset
+    from mmdti_tpu_torch.models.layers import FusedLN
+    from mmdti_tpu_torch.splits import random_scaffold_split
+
+    work = os.path.join(REPO, "build", "chip_smoke_fit")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data = os.path.join(work, "synthetic.csv")
+    make_synthetic_dataset(data, n=FIT_MOLECULES, seed=0)
+    paths = {}
+    for name, table in zip(("train", "val", "test"), random_scaffold_split(data, 0)):
+        paths[name] = os.path.join(work, f"{name}.csv")
+        write_csv(table, paths[name])
+    sizes = {k: len(read_csv(p)["smiles"]) for k, p in paths.items()}
+    t0 = time.perf_counter()
+    ConformerGen().transform(list(read_csv(data)["smiles"]))
+    featurize_s = time.perf_counter() - t0
+    print(f"fit: {FIT_MOLECULES} molecules, split {sizes}; host featurization of all of them "
+          f"{featurize_s:.2f} s (the fit and each predict featurize their sets again)",
+          flush=True)
+
+    exp = os.path.join(work, "exp")
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    os.environ["MMDTI_PALLAS_LN"] = "1"
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        clf = MolTrain(task="regression", epochs=FIT_EPOCHS, learning_rate=1e-4, batch_size=32,
+                       early_stopping=20, metrics="mse", smiles_col="smiles", save_path=exp,
+                       target_cols=["measured"], using_infonce=True, using_ct=True,
+                       raw_data=paths["train"], seed=42, use_weight=True, fds=True, fds_num=30,
+                       fds_raw_path=paths["train"], fds_col_data="measured",
+                       target_anomaly_check="filter", device=dev.type)
+        clf.fit(paths["train"], paths["val"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts = _read_counts()
+        test_pred = MolPredict(load_model=exp).predict(paths["test"],
+                                                      save_path=os.path.join(work, "out"))
+        launches = _read_counts()
+        val_pred = MolPredict(load_model=exp).predict(paths["val"])
+        plain = MolPredict(load_model=exp)
+        plain.config["use_pallas"] = False
+        val_plain = plain.predict(paths["val"])
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN")
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+
+    model = clf.model.model
+    ucfg = model.unimol_cfg
+    per_forward = sum(1 for m in model.modules()
+                      if isinstance(m, FusedLN) and m.use_kernels and m.weight.numel() % 128 == 0)
+    steps = sizes["train"] // 32
+    with open(os.path.join(exp, "history_0.json")) as f:
+        history = json.load(f)
+    epochs_run = len(history)
+    train_steps = steps * epochs_run
+    truth = np.asarray(read_csv(paths["test"])["measured"], np.float64)
+    rmse = float(np.sqrt(np.mean((truth - test_pred.reshape(-1)) ** 2)))
+    reload_diff = float(np.abs(val_pred - clf.cv_pred).max())
+    plain_diff = float(np.abs(val_pred - val_plain).max())
+    print("fit: " + json.dumps({
+        "model": {"layers": ucfg.encoder_layers, "E": ucfg.embed_dim, "H": ucfg.attention_heads,
+                  "compute": "bf16", "pair": ucfg.pair_dtype, "batch": 32},
+        "epochs": epochs_run, "steps_per_epoch": steps, "fit_wall_s": fit_s,
+        "epoch_wall_s": [row["seconds"] for row in history],
+        "epoch_val_s": [row["val_seconds"] for row in history],
+        "val_mse": [row["val_mse"] for row in history],
+        "layer_norms_per_forward": per_forward,
+        "fit_launches": {k: fit_counts[k] for k in ("layer_norm", "layer_norm_bwd",
+                                                    "layer_norm_bwd_reduce")},
+        "fit_ln_backward_per_step": fit_counts["layer_norm_bwd"] / train_steps,
+        "fit_ln_forward_per_step_incl_eval": fit_counts["layer_norm"] / train_steps,
+        "artifacts": sorted(os.listdir(exp)),
+        "predict_files": sorted(os.listdir(os.path.join(work, "out"))),
+        "reload_vs_fit_max_abs_diff": reload_diff,
+        "kernel_vs_plain_max_abs_diff": plain_diff, "plain_tol": LOGITS_TOL,
+        "test_rmse_seed0": rmse,
+    }), flush=True)
+    if reload_diff != 0.0:
+        raise Failed(f"fit: MolPredict's reload differs from the fit's predictions by "
+                     f"{reload_diff}")
+    if not plain_diff <= LOGITS_TOL:
+        raise Failed(f"fit: kernel path differs from plain path by {plain_diff}")
+    if not np.isfinite(test_pred).all() or not np.isfinite(rmse):
+        raise Failed(f"fit: test predictions not finite (rmse {rmse})")
+    want = {"layer_norm_bwd": per_forward * train_steps,
+            "layer_norm_bwd_reduce": per_forward * train_steps}
+    for k, n in want.items():
+        if fit_counts[k] != n:
+            raise Failed(f"fit {k}: {fit_counts[k]} launches, expected {n}")
+    if fit_counts["layer_norm"] % per_forward or fit_counts["layer_norm"] <= want[
+            "layer_norm_bwd"]:
+        raise Failed(f"fit layer_norm: {fit_counts['layer_norm']} launches")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "mmdti_tpu_torch")):
         print("chip_smoke.py needs the mmdti_tpu_torch package beside it", file=sys.stderr)
@@ -678,20 +912,23 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = torch.device("cuda", 0)
 
-    phase_card()
+    card = phase_card()
     phase_build()
     summary = phase_kernels(dev)
     phase_serve(dev)
-    launches = phase_train(dev)
+    train_launches = phase_train(dev)
+    fit_launches = phase_fit(dev)
 
+    launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
         if n == 0:
-            raise Failed(f"{name} was not launched on the train path")
+            raise Failed(f"{name} was not launched on its path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **summary[name]}
         for name, (src, rep) in KERNELS.items()
     ]
+    print(card, flush=True)   # again beside the summary, for readers of the tail
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """PyTorch/CUDA port of mmdti_tpu for one NVIDIA H100.
 
-Serving: ``MolServe(config, state_dict, device="cuda").predict(smiles)``
-runs host featurization, bucketed collation, the MMModel forward with the
-hand-written Hopper kernels (ops/hopper_*.py, csrc/*.cu) and
-post-processing.  Training: train/steps.py's train step runs the forward
-with dropout, the task + InfoNCE + CT loss, the backward through the
-kernels' backward twins, and train/optim.py's clip + Adam.  The package
-imports torch and never jax.
+Training and prediction: ``MolTrain(..., device="cuda").fit(train, val)``
+writes an experiment dir (config.yaml, target_scaler.ss, model_0.ckpt in
+the JAX package's flax-msgpack format, history_0.json) and
+``MolPredict(load_model=dir).predict(data)`` reads it back.  Serving:
+``MolServe(config, state_dict, device="cuda").predict(smiles)``.  The
+model runs the hand-written Hopper kernels (ops/hopper_*.py, csrc/*.cu) on
+CUDA tensors and their plain versions on CPU tensors; the LayerNorm kernels
+engage under MMDTI_PALLAS_LN=1.  The package imports torch and never jax.
 """
 
+from mmdti_tpu_torch.api.predict_api import MolPredict  # noqa: F401
 from mmdti_tpu_torch.api.serve_api import MolServe  # noqa: F401
+from mmdti_tpu_torch.api.train_api import MolTrain  # noqa: F401

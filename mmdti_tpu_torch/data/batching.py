@@ -1,6 +1,8 @@
-"""Batch collation with static-shape padding.
+"""Dataset, loader and batch collation with static-shape padding.
 
-Port of mmdti_tpu.data.batching.BatchCollator with host pair features only:
+Port of mmdti_tpu.data.batching: ``MolDataset``, ``MolDataLoader`` (the
+same numpy shuffle, so both packages see the same batches for one seed),
+``dataset_pad_lengths`` and ``BatchCollator`` with host pair features only:
 pad src_tokens with the dictionary pad index, src_distance with 0.0,
 src_edge_type with the pad index, tokenize the SMILES strings into
 input_ids/attention_mask, and return (features, labels).  'bucket' mode pads
@@ -21,6 +23,23 @@ from mmdti_tpu_torch.utils.padding import (
     pad_1d_tokens,
     pad_2d,
 )
+
+
+class MolDataset:
+    """(features, labels) pairs; features are the per-sample dicts produced by
+    ConformerGen with 'smile' and 'weights' attached."""
+
+    def __init__(self, features: Sequence[Dict[str, Any]], labels=None):
+        self.features = list(features)
+        if labels is None:
+            labels = np.zeros((len(self.features), 1), dtype=np.float32)
+        self.labels = np.asarray(labels)
+
+    def __len__(self) -> int:
+        return len(self.features)
+
+    def __getitem__(self, idx: int):
+        return self.features[idx], self.labels[idx]
 
 
 class BatchCollator:
@@ -102,3 +121,76 @@ class BatchCollator:
 
         labels = np.stack([np.asarray(s[1]) for s in samples])
         return batch, labels
+
+
+class MolDataLoader:
+    """Shuffling, drop-last-capable batch iterator (numpy RNG)."""
+
+    def __init__(
+        self,
+        dataset: MolDataset,
+        batch_size: int,
+        collate_fn: BatchCollator,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 42,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _epoch_order(self) -> np.ndarray:
+        """One epoch's sample order (advances the shuffle RNG)."""
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx
+
+    def __iter__(self):
+        idx = self._epoch_order()
+        nb = len(self)
+        for b in range(nb):
+            sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
+            yield self.collate_fn([self.dataset[i] for i in sel])
+
+
+def dataset_pad_lengths(
+    features: Sequence[Dict[str, Any]],
+    tokenizer,
+    pad_multiple: int = 16,
+    extra_datasets: Sequence[Sequence[Dict[str, Any]]] = (),
+) -> Tuple[int, int]:
+    """Dataset-wide (atom, smiles) pad targets, rounded up to pad_multiple.
+
+    Computed across train+val so both loops share one static shape.
+    """
+    def up(n):
+        return int(-(-n // pad_multiple) * pad_multiple)
+
+    all_feats = list(features)
+    for ds in extra_datasets:
+        all_feats.extend(ds)
+    atom = max(len(f["src_tokens"]) for f in all_feats)
+    if any("smile" not in f for f in all_feats):
+        # MOF features carry no SMILES stream — there is nothing to tokenize
+        # and the collator never consults smiles_pad without a 'smile' key
+        return up(atom), 0
+    # One batched tokenizer call per chunk (not one per sample), with
+    # truncation on — so the pad target is what encode() will actually emit
+    # (both tokenizers pad each chunk to its longest row, so the padded width
+    # IS the chunk's max encoded length).
+    smiles = [f["smile"] for f in all_feats]
+    smi = 1
+    for i in range(0, len(smiles), 4096):
+        enc = tokenizer(smiles[i : i + 4096], truncation=True)
+        smi = max(smi, int(np.asarray(enc["input_ids"]).shape[1]))
+    return up(atom), up(smi)

@@ -34,7 +34,7 @@ def roberta_position_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Ten
 
 
 class RobertaEmbeddings(nn.Module):
-    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32):
+    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True):
         super().__init__()
         E = cfg.hidden_size
         self.cfg = cfg
@@ -42,7 +42,7 @@ class RobertaEmbeddings(nn.Module):
         self.word_embeddings = Embed(cfg.vocab_size, E, dtype)
         self.position_embeddings = Embed(cfg.max_position_embeddings, E, dtype)
         self.token_type_embeddings = Embed(cfg.type_vocab_size, E, dtype)
-        self.LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
 
     def forward(self, input_ids, generator: Optional[torch.Generator] = None):
         pos_ids = roberta_position_ids(input_ids, self.cfg.pad_token_id)
@@ -67,10 +67,10 @@ class RobertaLayer(nn.Module):
         self.attn_key = Dense(E, E, dtype)
         self.attn_value = Dense(E, E, dtype)
         self.attn_output = Dense(E, E, dtype)
-        self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
         self.intermediate = Dense(E, cfg.intermediate_size, dtype)
         self.output = Dense(cfg.intermediate_size, E, dtype)
-        self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
 
     def forward(self, x, key_mask_bias, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
@@ -91,7 +91,7 @@ class ChemBerta(nn.Module):
     def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = RobertaEmbeddings(cfg, dtype)
+        self.embeddings = RobertaEmbeddings(cfg, dtype, use_kernels)
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", RobertaLayer(cfg, dtype, use_kernels))
 

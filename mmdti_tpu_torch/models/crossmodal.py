@@ -39,10 +39,10 @@ class BertCrossAttentionLayer(nn.Module):
         self.key = Dense(E, E, dtype)
         self.value = Dense(E, E, dtype)
         self.attn_output = Dense(E, E, dtype)
-        self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
         self.intermediate = Dense(E, cfg.intermediate_size, dtype)
         self.output = Dense(cfg.intermediate_size, E, dtype)
-        self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps)
+        self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
 
     def forward(self, s1, s2, s2_key_mask_bias, generator: Optional[torch.Generator] = None):
         cfg = self.cfg

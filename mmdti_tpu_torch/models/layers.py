@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mmdti_tpu_torch.ops.hopper_ln import layer_norm_fused, layer_norm_plain, ln_kernel_enabled
+
 ACT2FN = {
     # exact (erf) gelu: unicore's TransformerEncoderLayer and HF BERT/RoBERTa
     "gelu": F.gelu,
@@ -81,30 +83,31 @@ class Embed(nn.Embedding):
 
 class FusedLN(nn.Module):
     """fp32 LayerNorm with the fast variance of the JAX package:
-    var = max(E[x^2] - E[x]^2, 0), epsilon inside the rsqrt."""
+    var = max(E[x^2] - E[x]^2, 0), epsilon inside the rsqrt.  A module
+    built with ``use_kernels`` runs ops/hopper_ln.py's kernels where
+    ``ln_kernel_enabled`` holds (MMDTI_PALLAS_LN=1, read at every call, and
+    a supported shape) and the plain formula otherwise."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5, use_kernels: bool = False):
         super().__init__()
         self.epsilon = epsilon
+        self.use_kernels = use_kernels
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        od = x.dtype if out_dtype is None else out_dtype
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        y = (xf - mu) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
-        return y.to(od)
+        if ln_kernel_enabled(self.use_kernels, x.shape):
+            return layer_norm_fused(x, self.weight, self.bias, self.epsilon, out_dtype)
+        return layer_norm_plain(x, self.weight, self.bias, self.epsilon, out_dtype)
 
 
 class LayerNormFP32(nn.Module):
     """LayerNorm computed in fp32 regardless of the compute dtype, cast back
     (holds its parameters under ``ln`` like the flax module)."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5, use_kernels: bool = False):
         super().__init__()
-        self.ln = FusedLN(features, epsilon)
+        self.ln = FusedLN(features, epsilon, use_kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln(x, out_dtype=x.dtype)

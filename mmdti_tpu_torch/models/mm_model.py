@@ -18,7 +18,8 @@ Gaussian bias run their own backward kernels.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,8 +27,10 @@ from torch import nn
 from mmdti_tpu_torch.configs.architectures import (
     ChemBertaConfig,
     CrossModalConfig,
+    FDSConfig,
     UniMolEncoderConfig,
 )
+from mmdti_tpu_torch.losses.fds import fds_smooth
 from mmdti_tpu_torch.losses.infonce import InfoNCE
 from mmdti_tpu_torch.models.chemberta import ChemBerta
 from mmdti_tpu_torch.models.crossmodal import CrossAttentionModel
@@ -79,6 +82,9 @@ class MMModel(nn.Module):
         atom_pad_idx: int = 1,
         dtype=torch.float32,
         use_kernels: bool = True,
+        fds_cfg: Optional[FDSConfig] = None,
+        task: str = "regression",
+        use_fds: bool = False,
     ):
         super().__init__()
         if unimol_cfg.kernel != "gaussian":
@@ -88,6 +94,10 @@ class MMModel(nn.Module):
         ucfg = unimol_cfg
         self.unimol_cfg = ucfg
         self.atom_pad_idx = atom_pad_idx
+        self.output_dim = output_dim
+        self.fds_cfg = fds_cfg or FDSConfig(feature_dim=ucfg.embed_dim)
+        self.task = task
+        self.use_fds = use_fds
         self.compute_dtype = dtype
         self.use_kernels = use_kernels
         self.embed_tokens = Embed(atom_vocab_size, ucfg.embed_dim, dtype)
@@ -125,6 +135,10 @@ class MMModel(nn.Module):
         outputs: str = "all",
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
+        fds_state: Optional[Dict[str, torch.Tensor]] = None,
+        net_target: Optional[torch.Tensor] = None,
+        epoch: float = 0.0,
+        fds_bucket: Tuple[float, float] = (0.0, 1.0),
     ) -> Dict[str, Any]:
         """The JAX model's output dict, or the part of it a caller reads:
 
@@ -138,7 +152,13 @@ class MMModel(nn.Module):
 
         ``deterministic=False`` applies every dropout of the JAX model,
         drawn from ``generator`` (a torch.Generator on the inputs' device);
-        one generator state gives one result, bit for bit on one device."""
+        one generator state gives one result, bit for bit on one device.
+
+        A regression model built with ``use_fds`` recalibrates the pooled
+        features by their target's bucket before the head on a train
+        forward (``deterministic=False``) that gets ``fds_state`` and
+        ``net_target`` (losses/fds.py::fds_smooth, from ``epoch`` on
+        ``fds_cfg.start_smooth``); "pooled" stays the pre-smoothing value."""
         if outputs not in ("all", "train", "logits"):
             raise ValueError(f"outputs must be 'all', 'train' or 'logits', got {outputs!r}")
         if deterministic:
@@ -164,7 +184,12 @@ class MMModel(nn.Module):
             atom_mask.sum(dim=1, keepdim=True) + attention_mask.sum(dim=1, keepdim=True)
         ).float()
         pooled = fused.sum(dim=1).float() / denom                 # [B,E] fp32
-        logits = self.classification_head(pooled.to(self.compute_dtype), generator).float()
+        head_in = pooled
+        if (self.use_fds and self.task == "regression" and fds_state is not None
+                and net_target is not None and not deterministic):
+            head_in = fds_smooth(fds_state, pooled, net_target, epoch, fds_bucket[0],
+                                 fds_bucket[1], self.fds_cfg)
+        logits = self.classification_head(head_in.to(self.compute_dtype), generator).float()
         if outputs == "logits":
             return {"logits": logits}
         out = {
@@ -196,9 +221,12 @@ def build_model(
     unimol_overrides: Optional[dict] = None,
     chemberta_overrides: Optional[dict] = None,
     crossmodal_overrides: Optional[dict] = None,
+    task: str = "regression",
+    use_fds: bool = False,
+    fds_num: int = 20,
 ) -> MMModel:
     """Assemble the flagship model from task-level options (same overrides
-    as mmdti_tpu.models.mm_model.build_model)."""
+    and FDS options as mmdti_tpu.models.mm_model.build_model)."""
     ucfg = UniMolEncoderConfig(**(unimol_overrides or {}))
     ccfg = ChemBertaConfig(
         **{"vocab_size": smiles_vocab_size, **(chemberta_overrides or {})}
@@ -215,5 +243,8 @@ def build_model(
         atom_pad_idx=atom_pad_idx,
         dtype=torch_dtype(compute_dtype),
         use_kernels=use_kernels,
+        fds_cfg=dataclasses.replace(FDSConfig(), bucket_num=fds_num, feature_dim=ucfg.embed_dim),
+        task=task,
+        use_fds=use_fds,
     )
 

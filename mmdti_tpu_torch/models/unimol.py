@@ -43,10 +43,10 @@ class PairBiasEncoderLayer(nn.Module):
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.act = get_activation_fn(cfg.activation_fn)
-        self.self_attn_layer_norm = LayerNormFP32(E)
+        self.self_attn_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         self.in_proj = Dense(E, 3 * E, dtype)
         self.out_proj = Dense(E, E, dtype)
-        self.final_layer_norm = LayerNormFP32(E)
+        self.final_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         self.fc1 = Dense(E, cfg.ffn_embed_dim, dtype)
         self.fc2 = Dense(cfg.ffn_embed_dim, E, dtype)
 
@@ -84,13 +84,14 @@ class UniMolEncoder(nn.Module):
         super().__init__()
         E = cfg.embed_dim
         self.cfg = cfg
-        self.emb_layer_norm = LayerNormFP32(E)
+        self.emb_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         for i in range(cfg.encoder_layers):
             self.add_module(f"layers_{i}", PairBiasEncoderLayer(cfg, dtype, use_kernels))
         if not cfg.post_ln:
-            self.final_layer_norm = LayerNormFP32(E)
+            self.final_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         if cfg.delta_pair_repr_norm_loss >= 0:
-            self.final_head_layer_norm = LayerNormFP32(cfg.attention_heads)
+            self.final_head_layer_norm = LayerNormFP32(cfg.attention_heads,
+                                                       use_kernels=use_kernels)
 
     def forward(
         self,

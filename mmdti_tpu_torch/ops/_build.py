@@ -56,6 +56,14 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # B, N, K, Kh, H, compute_bf16, pair_bf16, act, sqrt_2pi, stream
         "mmdti_gbf_proj_bwd": (_P,) * 11 + (_I,) * 9 + (_F, _P),
     },
+    "layer_norm": {
+        # x, scale, bias, y, T, E, eps, x_bf16, y_bf16, stream
+        "mmdti_layer_norm_fwd": (_P,) * 4 + (_I, _I, _F, _I, _I, _P),
+        # x, scale, gy, dx, partials, nblocks, T, E, eps, x_bf16, y_bf16, stream
+        "mmdti_layer_norm_bwd": (_P,) * 5 + (_I,) * 3 + (_F, _I, _I, _P),
+        # partials, out, nblocks, E, stream
+        "mmdti_layer_norm_bwd_reduce": (_P, _P, _I, _I, _P),
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

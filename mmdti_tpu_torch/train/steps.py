@@ -23,17 +23,18 @@ from mmdti_tpu_torch.train.optim import FusedAdam
 def build_train_loss(loss_fn: Callable, task: str, use_infonce: bool = True,
                      use_ct: bool = True, use_weight: bool = True, alpha: float = 1.0,
                      beta: float = 0.1, ct_w: float = 0.2):
-    """``train_loss(model, feats, labels, weights, generator) -> (total,
-    metrics)``: the forward (dropout on when ``generator`` is given) and
+    """``train_loss(model, feats, labels, weights, generator, **model_kw) ->
+    (total, metrics)``: the forward (dropout on when ``generator`` is given;
+    ``model_kw`` go to the model, e.g. the FDS state) and
     ``alpha * task + beta * InfoNCE + beta * CT``.  The metrics are 0-dim
     tensors (loss, m_loss, infonce_loss, ct_loss) left on the device."""
     ct_fn = CT_REGISTRY.get(task) if use_ct else None
 
     def train_loss(model, feats: Mapping[str, torch.Tensor], labels: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None, **model_kw):
         out = model(**feats, outputs="train", deterministic=generator is None,
-                    generator=generator)
+                    generator=generator, **model_kw)
         task_loss = loss_fn(out["logits"], labels)
         total = alpha * task_loss
         infonce = out["infonce_loss"]
@@ -58,15 +59,17 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
 
     ``feats`` holds the model's five input tensors; ``generator`` (a
     torch.Generator on their device) draws every dropout mask of the step,
-    and None runs the step without dropout."""
+    and None runs the step without dropout; ``model_kw`` go to the model
+    (the FDS state, net_target, epoch and buckets of the fit loop)."""
     train_loss = build_train_loss(loss_fn, task, **loss_kw)
     names = list(optimizer.params)
     params = [optimizer.params[n] for n in names]
 
     def train_step(feats: Mapping[str, torch.Tensor], labels: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        total, metrics = train_loss(model, feats, labels, weights, generator)
+                   generator: Optional[torch.Generator] = None,
+                   **model_kw) -> Dict[str, torch.Tensor]:
+        total, metrics = train_loss(model, feats, labels, weights, generator, **model_kw)
         grads = torch.autograd.grad(total, params, allow_unused=True)
         optimizer.apply(dict(zip(names, grads)))
         return metrics

@@ -219,3 +219,45 @@ def test_differentiable_ops_launch_the_backward_kernels(cuda):
     out2.sum().backward()
     assert [c.launches for c in counters] == [b + 1 for b in before]
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v, bias))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("y_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,E,eps", [(2048, 512, 1e-5), (24, 136, 1e-12), (40, 1024, 1e-5)])
+def test_layer_norm_kernels_match_plain(cuda, x_dtype, y_dtype, T, E, eps):
+    from mmdti_tpu_torch.ops import hopper_ln as hl
+
+    rng = np.random.RandomState(8)
+    x = _t(rng.randn(T, E).astype(np.float32), cuda, x_dtype)
+    w = _t((rng.rand(E) + 0.5).astype(np.float32), cuda)
+    b = _t((0.1 * rng.randn(E)).astype(np.float32), cuda)
+    gy = _t(rng.randn(T, E).astype(np.float32), cuda, y_dtype)
+    before = (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches,
+              hl.layer_norm_bwd_reduce_cuda.launches)
+    y = hl.layer_norm_cuda(x, w, b, eps, y_dtype)
+    got = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+    assert (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches,
+            hl.layer_norm_bwd_reduce_cuda.launches) == tuple(n + 1 for n in before)
+    assert y.dtype == y_dtype and got[0].dtype == x_dtype
+    tol = 2e-5 if y_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), hl.layer_norm_plain(x, w, b, eps, y_dtype).float(),
+                               atol=tol, rtol=0)
+    want = hl.layer_norm_bwd_plain(x, w, gy, eps)
+    again = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+    for a, c, r in zip(got, want, again):
+        assert torch.equal(a, r)  # deterministic: no atomics
+        torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(x_dtype, c), rtol=0)
+
+
+def test_layer_norm_takes_parameter_views_at_any_offset(cuda):
+    """The optimizer keeps parameters as views into one flat buffer, so
+    scale and bias may start at any float offset."""
+    from mmdti_tpu_torch.ops import hopper_ln as hl
+
+    E = 512
+    rng = np.random.RandomState(9)
+    flat = _t(rng.randn(2 * E + 1).astype(np.float32), cuda)
+    w, b = flat[1:E + 1], flat[E + 1:]
+    x = _t(rng.randn(64, E).astype(np.float32), cuda)
+    torch.testing.assert_close(hl.layer_norm_cuda(x, w, b, 1e-5, torch.float32),
+                               hl.layer_norm_plain(x, w, b, 1e-5), atol=2e-5, rtol=0)
