@@ -12,7 +12,12 @@ Phases, one result line each; any failure exits non-zero:
    off) and bf16, at the flagship shapes, with padded keys: the attention
    forwards without and with dropout (0.1, same seed; the keep fraction is
    printed beside 0.9), the three backwards (dropout 0 and 0.1, with and
-   without the logits cotangent for pair-bias), and the LayerNorm forward
+   without the logits cotangent for pair-bias; bf16 masked attention runs
+   the tensor-core route, whose forward also returns the row stats and
+   whose backward is held both to its own plain version and to the
+   recompute oracle, repeated calls bit-equal, with profiler device times
+   beside SDPA's forward and forward + autograd backward), and the
+   LayerNorm forward
    and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
    eps 1e-5 and 1e-12; repeated backwards must give bit-equal dscale and
    dbias).  Each line has the max
@@ -28,12 +33,16 @@ Phases, one result line each; any failure exits non-zero:
 5. train: the flagship model (bf16 compute, bf16 pair logits) on a batch of
    32 molecules featurized and collated on the host (N=L=64), regression
    (MSE + InfoNCE + ct_regress): (a) one step's loss and gradients, dropout
-   off, on the kernel path against the plain path; (b) 30 steps with
+   off, on the kernel path against the plain path, at L=64 and at the top
+   SMILES bucket L=512, every masked launch on the tensor-core route; (b)
+   30 steps with
    dropout on, each loss finite and the last below the first; (c) step time
    p50, mols/s and launches per step (exactly gbf 1/1, pair-bias 15/15,
-   masked 8/8 forward/backward), a torch.profiler summary of 3 steps and
-   the launches of one clip + Adam update;
-   (d) one step at the top atom bucket N=280 with its peak memory;
+   masked 8/8 forward/backward, all on the tensor-core route), a
+   torch.profiler summary of 3 steps and the launches of one clip + Adam
+   update; (d) one step at the top atom bucket N=280 with its peak memory;
+   (e) one step at N=64, L=512: masked launches per route, device time, the
+   masked kernels' share of it and peak memory;
 6. fit, with MMDTI_PALLAS_LN=1 for this phase only: the 400-molecule
    synthetic regression set (seed 0), scaffold-split (seed 0), then
    MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
@@ -134,10 +143,18 @@ def _counters():
 def _reset_counts():
     for c in _counters().values():
         c.launches = 0
+        for route in getattr(c, "routes", {}):
+            c.routes[route] = 0
 
 
 def _read_counts():
     return {k: c.launches for k, c in _counters().items()}
+
+
+def _read_routes():
+    """Launches per route of the masked launchers: "mma" (bf16, tensor
+    cores) and "rows" (fp32)."""
+    return {k: dict(c.routes) for k, c in _counters().items() if hasattr(c, "routes")}
 
 
 def _time_ms(fn, iters=25, warmup=3):
@@ -370,6 +387,9 @@ def phase_kernels(dev):
                                 prec), N == 64 and prec == "bf16")
 
     # ---- masked attention: ChemBERTa (H=8, D=64) and cross-modal (H=16, D=32)
+    # bf16 runs the tensor-core route (its forward also returns the row
+    # stats, and its backward starts from out and the stats); fp32 the row
+    # kernels.  Both backwards are also held to the recompute oracle.
     cases = [
         ("chemberta", 8, 64, 64, 64, torch.finfo(torch.float32).min),
         ("chemberta", 8, 64, 512, 512, torch.finfo(torch.float32).min),
@@ -385,38 +405,100 @@ def phase_kernels(dev):
         main_shape = label == "chemberta" and Nq == 64
         for prec, dt in precisions:
             s = BYTES[prec]
+            mma = prec == "bf16"
             args = [t.to(dt).contiguous() for t in (q, k, v)] + [mask]
-            heads = [t.view(B, -1, Hm, Dm).transpose(1, 2) for t in args[:3]]
+            go = g_out.to(dt)
+            leaves = [t.detach().clone().requires_grad_() for t in args[:3]]
+            heads = [t.view(B, -1, Hm, Dm).transpose(1, 2) for t in leaves]
+            go_heads = go.view(B, Nq, Hm, Dm).transpose(1, 2)
             sdpa_mask = mask.to(dt)[:, None, None, :]
             tokens = 2 * B * Nq * Hm * Dm + 2 * B * Nk * Hm * Dm
+            # backward bytes: the function's own, q, g_out, dq and k, v, dk, dv
+            # and the mask (not the out and row stats the mma route reads)
+            bwd_bytes = (2 * tokens - B * Nq * Hm * Dm) * s + 4 * B * Nk
+            case = f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm}"
             for rate in (0.0, DROPOUT):
                 sd = seed if rate else None
-                got = ha.masked_attention_cuda(*args, Hm, sd, rate)
-                want = ha.masked_attention_plain(*args, Hm, sd, rate)
+
+                def fwd():
+                    return ha.masked_attention_cuda(*args, Hm, sd, rate)
+
+                def plain_fwd():
+                    return ha.masked_attention_plain(*args, Hm, sd, rate)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(*heads, attn_mask=sdpa_mask,
+                                                          dropout_p=rate)
+
+                def sdpa_fwd_bwd():
+                    return torch.autograd.grad(sdpa(), leaves, go_heads)
+
+                got, stats = fwd()
+                want, want_stats = plain_fwd()
                 torch.cuda.synchronize()
                 atol, rtol = TOL[prec]["out"]
                 e, ok = _err(got, want, atol, rtol)
-                ms = _time_ms(lambda: ha.masked_attention_cuda(*args, Hm, sd, rate))
-                pms = _time_ms(lambda: ha.masked_attention_plain(*args, Hm, sd, rate), iters=10)
-                lms = _time_ms(lambda: F.scaled_dot_product_attention(
-                    *heads, attn_mask=sdpa_mask, dropout_p=rate))
-                record("masked_attention", f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm} "
-                       f"dropout={rate}", prec, {"out": (e, atol, ok)}, ms, pms, lms,
+                errs = {"out": (e, atol, ok)}
+                if mma:   # the row stats: guarded max (abs) and 1/rowsum (rel)
+                    e, ok = _err(stats[..., 0], want_stats[..., 0], 1e-3, 0.0)
+                    errs["stats_max"] = (e, 1e-3, ok)
+                    rel = float(((stats[..., 1] - want_stats[..., 1]).abs()
+                                 / want_stats[..., 1]).max())
+                    errs["stats_inv_rel"] = (rel, 1e-3, rel <= 1e-3)
+                ms = _time_ms(fwd)
+                pms = _time_ms(plain_fwd, iters=10)
+                with torch.no_grad():
+                    lms = _time_ms(sdpa)
+                extra = {"route": ha.masked_route(dt)}
+                if rate:
+                    extra.update(keep_fraction=kf, keep_expected=1 - DROPOUT)
+                if mma:
+                    with torch.no_grad():
+                        extra.update(device_ms=_device_ms(fwd), library_device_ms=_device_ms(sdpa))
+                record("masked_attention", f"{case} dropout={rate}", prec, errs, ms, pms, lms,
                        _bound(tokens * s + 4 * B * Nk, 4 * B * Hm * Nq * Nk * Dm, prec),
-                       main_shape and prec == "bf16" and rate > 0,
-                       {"keep_fraction": kf, "keep_expected": 1 - DROPOUT} if rate else None)
-                bargs = (*args, g_out.to(dt), Hm, sd, rate)
-                got = ha.masked_attention_bwd_cuda(*bargs)
-                want = ha.masked_attention_bwd_plain(*bargs)
+                       main_shape and mma and rate > 0, extra)
+
+                # the backward from the plain forward's out and stats
+                bargs = (*args, want, want_stats, go, Hm, sd, rate)
+
+                def bwd():
+                    return ha.masked_attention_bwd_cuda(*bargs)
+
+                def plain_bwd():
+                    if mma:
+                        return ha.masked_attention_stats_bwd_plain(*bargs)
+                    return ha.masked_attention_bwd_plain(*args, go, Hm, sd, rate)
+
+                def ours_fwd_bwd():
+                    o, st = fwd()
+                    return ha.masked_attention_bwd_cuda(*args, o, st, go, Hm, sd, rate)
+
+                got = bwd()
+                again = bwd()
+                oracle = ha.masked_attention_bwd_plain(*args, go, Hm, sd, rate)
                 torch.cuda.synchronize()
-                errs = _grad_errs(("dq", "dk", "dv"), got, want, prec)
-                ms = _time_ms(lambda: ha.masked_attention_bwd_cuda(*bargs))
-                pms = _time_ms(lambda: ha.masked_attention_bwd_plain(*bargs), iters=10)
-                record("masked_attention_bwd", f"{label} B={B} Nq={Nq} Nk={Nk} H={Hm} D={Dm} "
-                       f"dropout={rate}", prec, errs, ms, pms, None,
-                       _bound(2 * tokens * s - B * Nq * Hm * Dm * s + 4 * B * Nk,
-                              10 * B * Hm * Nq * Nk * Dm, prec),
-                       main_shape and prec == "bf16" and rate > 0)
+                errs = _grad_errs(("dq", "dk", "dv"), got, oracle, prec)
+                if mma:
+                    errs.update({f"{n}_vs_stats_plain": e for n, e in _grad_errs(
+                        ("dq", "dk", "dv"), got, plain_bwd(), prec).items()})
+                bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+                if not bit_equal:
+                    record.failures.append(f"masked_attention_bwd {case} {prec}: repeated "
+                                           f"calls differ")
+                ms = _time_ms(bwd)
+                pms = _time_ms(plain_bwd, iters=10)
+                lms = _time_ms(sdpa_fwd_bwd)
+                extra = {"route": ha.masked_route(dt), "repeat_bit_equal": bit_equal,
+                         "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
+                         "library_is": "SDPA forward + autograd backward"}
+                if mma:
+                    extra.update(device_ms=_device_ms(bwd),
+                                 fwd_bwd_device_ms=_device_ms(ours_fwd_bwd),
+                                 library_device_ms=_device_ms(sdpa_fwd_bwd))
+                record("masked_attention_bwd", f"{case} dropout={rate}", prec, errs, ms, pms,
+                       lms, _bound(bwd_bytes, 10 * B * Hm * Nq * Nk * Dm, prec),
+                       main_shape and mma and rate > 0, extra)
     _layer_norm_cases(dev, gen, record)
     if record.failures:
         raise Failed("kernel mismatch: " + "; ".join(record.failures))
@@ -622,14 +704,16 @@ def _profile_steps(step, args, n=3):
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in kernels)
     ours = ("attention_rows_kernel", "attention_bwd_rows_kernel", "attention_bwd_cols_kernel",
-            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel")
+            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "masked_mma_")
     own_us = sum(e.self_device_time_total for e in kernels if any(o in e.key for o in ours))
+    masked_us = sum(e.self_device_time_total for e in kernels if "masked_mma_" in e.key)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "steps": n,
         "device_ms_per_step": total_us / n / 1e3,
         "kernel_launches_per_step": sum(e.count for e in kernels) / n,
         "port_kernels_ms_per_step": own_us / n / 1e3,
+        "masked_mma_kernels_ms_per_step": masked_us / n / 1e3,
         "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
                          "calls_per_step": e.count / n} for e in top],
     }
@@ -695,37 +779,13 @@ def phase_train(dev):
           f"L={feats['input_ids'].shape[1]}, regression MSE + 0.1 InfoNCE + 0.1 ct_regress",
           flush=True)
 
-    # (a) one step's loss and gradients, dropout off, kernel vs plain path
+    # (a) one step's loss and gradients, dropout off, kernel vs plain path,
+    # at N=L=64 and at the top SMILES bucket L=512 (N=64)
     train_loss = build_train_loss(zoo.mse_loss, "regression")
-
-    def loss_and_grads(m):
-        total, _ = train_loss(m, feats, labels, weights, None)
-        names, params = zip(*m.named_parameters())
-        return float(total.detach()), dict(zip(names, torch.autograd.grad(total, params)))
-
-    lk, gk = loss_and_grads(model)
-    lp, gp = loss_and_grads(plain)
-    # each parameter's largest difference over its gradient's max, floored
-    # at 1e-3 of the whole gradient's max: a gradient that is zero in exact
-    # arithmetic (the attention key biases') holds only rounding noise
-    floor = 1e-3 * max(float(g.float().abs().max()) for g in gp.values())
-    rel = {}
-    for name, g in gp.items():
-        if not torch.isfinite(gk[name]).all():
-            raise Failed(f"train: kernel-path gradient of {name} is not finite")
-        scale = max(float(g.float().abs().max()), floor)
-        rel[name] = float((gk[name].float() - g.float()).abs().max()) / scale
-    worst = max(rel, key=rel.get)
-    print("train: " + json.dumps({
-        "check": "kernel vs plain path, dropout off", "loss_kernel": lk, "loss_plain": lp,
-        "loss_abs_diff": abs(lk - lp), "loss_tol": TRAIN_LOSS_TOL,
-        "max_rel_grad_diff": rel[worst], "worst_param": worst,
-        "median_rel_grad_diff": statistics.median(rel.values()), "grad_tol": TRAIN_GRAD_TOL,
-    }), flush=True)
-    if not (abs(lk - lp) <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
-        raise Failed(f"train: kernel path differs from plain path: loss {lk} vs {lp}, "
-                     f"{worst} grad rel diff {rel[worst]}")
-    del plain, gk, gp
+    feats512 = _train_batch(dev, 64, 512, B)
+    _compare_paths(model, plain, train_loss, feats, labels, weights, n_masked)
+    _compare_paths(model, plain, train_loss, feats512, labels, weights, n_masked)
+    del plain
 
     # (b) 30 steps, dropout on, one fixed batch; (c) their times and launches
     opt = FusedAdam(dict(model.named_parameters()), 1e-4, TRAIN_STEPS, warmup_ratio=0.1,
@@ -744,6 +804,7 @@ def phase_train(dev):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = _read_counts()
+    routes = _read_routes()
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
     p50 = statistics.median(step_ms)
@@ -756,6 +817,7 @@ def phase_train(dev):
         "losses": losses, "step_ms_p50": p50, "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "mols_per_s": B / p50 * 1e3,
         "host_wall_s": wall_s, "launches": launches, "launches_per_step_expected": per_step,
+        "masked_routes": routes,
     }), flush=True)
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise Failed(f"train: non-finite loss in {losses}")
@@ -764,6 +826,7 @@ def phase_train(dev):
     for k, per in per_step.items():
         if launches[k] != per * TRAIN_STEPS:
             raise Failed(f"train {k}: {launches[k]} launches, expected {per} x {TRAIN_STEPS}")
+    _check_mma_routes(routes, n_masked * TRAIN_STEPS, "train")
     print("train: profile " + json.dumps(_profile_steps(step, (feats, labels, weights, gen))),
           flush=True)
     print("train: optimizer " + json.dumps(_profile_optimizer(opt)), flush=True)
@@ -784,7 +847,78 @@ def phase_train(dev):
     }), flush=True)
     if not loss280 == loss280 or abs(loss280) == float("inf"):
         raise Failed(f"train: N=280 step gave loss {loss280}")
+
+    # (e) one step at the top SMILES bucket L=512 (N=64): launches per
+    # route, device time and the masked kernels' share of it, peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    loss512 = float(step(feats512, labels, weights, gen)["loss"])
+    b.record()
+    torch.cuda.synchronize()
+    counts512, routes512 = _read_counts(), _read_routes()
+    peak512 = torch.cuda.max_memory_allocated(dev)
+    prof512 = _profile_steps(step, (feats512, labels, weights, gen), n=2)
+    print("train: " + json.dumps({
+        "step": "top SMILES bucket", "B": B, "N": 64, "L": 512, "loss": loss512,
+        "step_ms": a.elapsed_time(b), "max_memory_allocated_bytes": peak512,
+        "masked_launches": {k: counts512[k] for k in ("masked_attention",
+                                                      "masked_attention_bwd")},
+        "masked_routes": routes512, "profile": prof512,
+    }), flush=True)
+    if not loss512 == loss512 or abs(loss512) == float("inf"):
+        raise Failed(f"train: L=512 step gave loss {loss512}")
+    _check_mma_routes(routes512, n_masked, "train L=512")
     return launches
+
+
+def _check_mma_routes(routes, n, what):
+    """Every masked launch of a bf16 run went to the tensor-core route."""
+    for k in ("masked_attention", "masked_attention_bwd"):
+        if routes[k] != {"mma": n, "rows": 0}:
+            raise Failed(f"{what} {k}: routes {routes[k]}, expected {n} on mma")
+
+
+def _compare_paths(model, plain, train_loss, feats, labels, weights, n_masked):
+    """One step's loss and gradients, dropout off, on the kernel path
+    against the plain path; the kernel path's masked launches must all take
+    the tensor-core route."""
+    import torch
+
+    def loss_and_grads(m):
+        total, _ = train_loss(m, feats, labels, weights, None)
+        names, params = zip(*m.named_parameters())
+        return float(total.detach()), dict(zip(names, torch.autograd.grad(total, params)))
+
+    _reset_counts()
+    lk, gk = loss_and_grads(model)
+    routes = _read_routes()
+    lp, gp = loss_and_grads(plain)
+    # each parameter's largest difference over its gradient's max, floored
+    # at 1e-3 of the whole gradient's max: a gradient that is zero in exact
+    # arithmetic (the attention key biases') holds only rounding noise
+    floor = 1e-3 * max(float(g.float().abs().max()) for g in gp.values())
+    rel = {}
+    for name, g in gp.items():
+        if not torch.isfinite(gk[name]).all():
+            raise Failed(f"train: kernel-path gradient of {name} is not finite")
+        scale = max(float(g.float().abs().max()), floor)
+        rel[name] = float((gk[name].float() - g.float()).abs().max()) / scale
+    worst = max(rel, key=rel.get)
+    shape = {"N": feats["src_tokens"].shape[1], "L": feats["input_ids"].shape[1]}
+    print("train: " + json.dumps({
+        "check": "kernel vs plain path, dropout off", **shape, "loss_kernel": lk,
+        "loss_plain": lp, "loss_abs_diff": abs(lk - lp), "loss_tol": TRAIN_LOSS_TOL,
+        "max_rel_grad_diff": rel[worst], "worst_param": worst,
+        "median_rel_grad_diff": statistics.median(rel.values()), "grad_tol": TRAIN_GRAD_TOL,
+        "masked_routes": routes,
+    }), flush=True)
+    if not (abs(lk - lp) <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
+        raise Failed(f"train {shape}: kernel path differs from plain path: loss {lk} vs {lp}, "
+                     f"{worst} grad rel diff {rel[worst]}")
+    _check_mma_routes(routes, n_masked, f"train {shape} check")
 
 
 def phase_fit(dev):

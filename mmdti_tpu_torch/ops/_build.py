@@ -41,12 +41,18 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "mmdti_pair_bias_attention_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 6 + (_P,),
     },
     "masked_attention": {
-        # q, k, v, mask, out, seed, threshold, drop_scale, B, Nq, Nk, H, D,
-        # qkv_bf16, stream
-        "mmdti_masked_attention_fwd": (_P,) * 6 + (_U, _F) + (_I,) * 6 + (_P,),
+        # fp32 route (row kernels)
+        # q, k, v, mask, out, seed, threshold, drop_scale, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_fwd": (_P,) * 6 + (_U, _F) + (_I,) * 5 + (_P,),
         # q, k, v, mask, g_out, dq, dk, dv, stats, seed, threshold, drop_scale,
-        # B, Nq, Nk, H, D, qkv_bf16, stream
-        "mmdti_masked_attention_bwd": (_P,) * 10 + (_U, _F) + (_I,) * 6 + (_P,),
+        # B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_bwd": (_P,) * 10 + (_U, _F) + (_I,) * 5 + (_P,),
+        # bf16 route (tensor cores)
+        # q, k, v, mask, out, stats, seed, threshold, drop_scale, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_mma_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 5 + (_P,),
+        # q, k, v, mask, out, g_out, stats, rsum, dq, dk, dv, seed, threshold,
+        # drop_scale, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_mma_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 5 + (_P,),
     },
     "gbf_proj": {
         # u, means, stds, w1, b1, w2, b2, pad, out, B, N, K, Kh, H,

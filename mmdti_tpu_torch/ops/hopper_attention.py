@@ -10,7 +10,9 @@ with their plain PyTorch versions.
 * ``masked_attention_fused`` replaces ``_masked_fwd_kernel`` and
   ``_masked_bwd_kernel``: BERT-style attention with an additive per-key mask
   [B, Nk] (ChemBERTa and the cross-modal layers, Nq != Nk allowed).  CUDA
-  source: csrc/masked_attention.cu.
+  source: csrc/masked_attention.cu, two routes by dtype: bf16 runs
+  flash-style tensor-core kernels whose forward also returns row stats
+  for the backward ("mma"), fp32 runs the row kernels ("rows").
 
 Both take token-major q/k/v [B, L, H*D] (heads contiguous on the last dim)
 and return token-major outputs.  Each is a ``torch.autograd.Function``
@@ -23,7 +25,8 @@ Attention dropout draws its keep mask from ops/dropout.py's pure function of
 plain versions drop the same probabilities; ``seed`` is one int32 in a
 tensor on the inputs' device.
 
-Each ``*_cuda`` launcher counts its launches in ``<fn>.launches``.
+Each ``*_cuda`` launcher counts its launches in ``<fn>.launches``; the
+masked launchers also count them per route in ``<fn>.routes``.
 """
 
 from __future__ import annotations
@@ -46,12 +49,17 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(1, 2).reshape(B, L, H * D)
 
 
+def guarded_max(logits: torch.Tensor) -> torch.Tensor:
+    """Row max [..., 1] with a non-finite max replaced by 0 (the TPU
+    kernels' fully-masked-row guard, pallas_attention.py:68-76)."""
+    m = logits.amax(dim=-1, keepdim=True)
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
 def guarded_softmax_parts(logits: torch.Tensor):
     """(p_un, inv_s): unnormalised fp32 probabilities and the row constant
-    1/rowsum, with the fully-masked-row guard (pallas_attention.py:68-76)."""
-    m = logits.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = torch.exp(logits - m)
+    1/rowsum, with the fully-masked-row guard."""
+    p = torch.exp(logits - guarded_max(logits))
     return p, 1.0 / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
@@ -328,26 +336,39 @@ def _masked_logits(qh, kh, mask, D):
     return torch.matmul(qh * D ** -0.5, kh.transpose(-1, -2)) + mask.float()[:, None, None, :]
 
 
+def masked_route(dtype) -> str:
+    """The kernel route of a masked-attention call: "mma" (tensor-core
+    kernels) for bf16 q/k/v, "rows" (FMA row kernels) for fp32."""
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "rows"
+    raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+
+
 def masked_attention_plain(q, k, v, mask, num_heads: int, seed=None,
                            dropout_rate: float = 0.0):
-    """Plain version of the masked forward kernel.
+    """Plain version of the forward kernels, whole rows at once.
 
     q [B,Nq,H*D], k/v [B,Nk,H*D], mask [B,Nk] additive fp32 ->
-    out [B,Nq,H*D] in q.dtype."""
+    (out [B,Nq,H*D] in q.dtype, stats [B,H,Nq,2] fp32): stats holds each
+    row's guarded max and 1/rowsum, which the "mma" route's forward also
+    returns for its backward."""
     H = num_heads
     B, Nq, E = q.shape
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
+    logits = _masked_logits(qh, kh, mask, D)
     keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
-    return merge_heads(guarded_softmax_pv(_masked_logits(qh, kh, mask, D), vh, keep,
-                                          dropout_rate)).to(q.dtype)
+    out = merge_heads(guarded_softmax_pv(logits, vh, keep, dropout_rate)).to(q.dtype)
+    return out, torch.cat([guarded_max(logits), guarded_softmax_parts(logits)[1]], dim=-1)
 
 
 def masked_attention_bwd_plain(q, k, v, mask, g_out, num_heads: int, seed=None,
                                dropout_rate: float = 0.0):
-    """Plain version of the masked backward kernel: recomputes the logits
-    from q, k and the mask and replays the dropout mask.  Returns (dq, dk,
-    dv); the mask gets no gradient."""
+    """Plain version of the fp32 (row) backward kernels, and the oracle of
+    both routes: recomputes the logits from q, k and the mask and replays
+    the dropout mask.  Returns (dq, dk, dv); the mask gets no gradient."""
     H = num_heads
     B, Nq, E = q.shape
     D = E // H
@@ -359,6 +380,33 @@ def masked_attention_bwd_plain(q, k, v, mask, g_out, num_heads: int, seed=None,
     return merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
 
 
+def masked_attention_stats_bwd_plain(q, k, v, mask, out, stats, g_out, num_heads: int,
+                                     seed=None, dropout_rate: float = 0.0):
+    """Plain version of the bf16 (tensor-core) backward kernels, whole rows
+    at once: P from the forward's stats, r = rowsum(g_out * out),
+    dS = P * (keep*c*dP - r).  Returns (dq, dk, dv) in q.dtype."""
+    H = num_heads
+    B, Nq, E = q.shape
+    D = E // H
+    qh, kh, vh, gh, oh = (split_heads(t, H).float() for t in (q, k, v, g_out, out))
+    logits = _masked_logits(qh, kh, mask, D)
+    p = torch.exp(logits - stats[..., :1]) * stats[..., 1:]
+    r = (gh * oh).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    pd = p
+    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
+    if keep is not None:
+        c = drop.keep_scale(dropout_rate)
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        dp = torch.where(keep, dp * c, zero)
+        pd = torch.where(keep, p * c, zero)
+    ds = p * (dp - r)
+    dq = torch.matmul(ds, kh) * D ** -0.5
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * D ** -0.5
+    dv = torch.matmul(pd.transpose(-1, -2), gh)
+    return tuple(merge_heads(t).to(q.dtype) for t in (dq, dk, dv))
+
+
 def _check_mask(mask, B, Nk):
     if mask.shape != (B, Nk):
         raise ValueError(f"masked attention: mask {tuple(mask.shape)}, expected {(B, Nk)}")
@@ -366,61 +414,108 @@ def _check_mask(mask, B, Nk):
         raise TypeError(f"mask must be float32, got {mask.dtype}")
 
 
+def _require_aligned(tensors, names):
+    """The tensor-core kernels load rows with 16-byte cp.async: each
+    tensor's data must start on 16 bytes."""
+    for t, n in zip(tensors, names):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{n} must start on a 16-byte boundary for the bf16 kernels")
+
+
 def masked_attention_cuda(q, k, v, mask, num_heads: int, seed=None,
                           dropout_rate: float = 0.0):
-    """Launch csrc/masked_attention.cu's forward."""
+    """Launch csrc/masked_attention.cu's forward on the route of q's dtype.
+    Returns (out, stats): stats [B,H,Nq,2] fp32 on the "mma" route, None on
+    the "rows" route."""
     _require_cuda((q, k, v, mask), ("q", "k", "v", "mask"))
     B, Nq, Nk, D = _check_heads(q, k, v, num_heads, "masked attention")
     _check_mask(mask, B, Nk)
+    route = masked_route(q.dtype)
     seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
-    out = torch.empty_like(q)
     lib = _build.load("masked_attention")
-    rc = lib.mmdti_masked_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        seed_p, thr, scale, B, Nq, Nk, num_heads, D, _dtype_flag(q, "q"), _stream(q),
-    )
-    _build.check(rc, f"masked_attention (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, D={D})")
+    stats = None
+    if route == "mma":
+        _require_aligned((q, k, v), ("q", "k", "v"))
+        out = torch.empty_like(q)
+        stats = torch.empty((B, num_heads, Nq, 2), dtype=torch.float32, device=q.device)
+        rc = lib.mmdti_masked_attention_mma_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+    else:
+        out = torch.empty_like(q)
+        rc = lib.mmdti_masked_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+    _build.check(rc, f"masked_attention {route} (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, "
+                     f"D={D})")
     masked_attention_cuda.launches += 1
-    return out
+    masked_attention_cuda.routes[route] += 1
+    return out, stats
 
 
 masked_attention_cuda.launches = 0
+masked_attention_cuda.routes = {"mma": 0, "rows": 0}
 
 
-def masked_attention_bwd_cuda(q, k, v, mask, g_out, num_heads: int, seed=None,
+def masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, num_heads: int, seed=None,
                               dropout_rate: float = 0.0):
-    """Launch csrc/masked_attention.cu's backward (two kernels)."""
-    _require_cuda((q, k, v, mask, g_out), ("q", "k", "v", "mask", "g_out"))
+    """Launch csrc/masked_attention.cu's backward (two kernels) on the route
+    of q's dtype.  The "mma" route reads the forward's out and stats and
+    needs g_out; the "rows" route recomputes the logits, ignores out and
+    stats, and takes g_out None (zero gradients)."""
+    _require_cuda((q, k, v, mask, out, stats, g_out),
+                  ("q", "k", "v", "mask", "out", "stats", "g_out"))
     B, Nq, Nk, D = _check_heads(q, k, v, num_heads, "masked attention")
     _check_mask(mask, B, Nk)
     if g_out is not None and (g_out.shape != q.shape or g_out.dtype != q.dtype):
         raise ValueError("g_out must match q in shape and dtype")
+    route = masked_route(q.dtype)
     seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty((B, num_heads, Nq, 3), dtype=torch.float32, device=q.device)
     lib = _build.load("masked_attention")
-    rc = lib.mmdti_masked_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), _ptr(g_out),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), seed_p, thr, scale,
-        B, Nq, Nk, num_heads, D, _dtype_flag(q, "q"), _stream(q),
-    )
-    _build.check(rc, f"masked_attention_bwd (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, D={D})")
+    if route == "mma":
+        if g_out is None or out is None or stats is None:
+            raise ValueError("the bf16 masked backward needs g_out, out and stats")
+        if out.shape != q.shape or stats.shape != (B, num_heads, Nq, 2):
+            raise ValueError(f"masked backward: out {tuple(out.shape)}, stats "
+                             f"{tuple(stats.shape)} for q {tuple(q.shape)}")
+        _require_aligned((q, k, v, out, g_out), ("q", "k", "v", "out", "g_out"))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        rsum = torch.empty((B, num_heads, Nq), dtype=torch.float32, device=q.device)
+        rc = lib.mmdti_masked_attention_mma_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            g_out.data_ptr(), stats.data_ptr(), rsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+    else:
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        ws = torch.empty((B, num_heads, Nq, 3), dtype=torch.float32, device=q.device)
+        rc = lib.mmdti_masked_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), _ptr(g_out),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), seed_p, thr, scale,
+            B, Nq, Nk, num_heads, D, _stream(q))
+    _build.check(rc, f"masked_attention_bwd {route} (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, "
+                     f"D={D})")
     masked_attention_bwd_cuda.launches += 1
+    masked_attention_bwd_cuda.routes[route] += 1
     return dq, dk, dv
 
 
 masked_attention_bwd_cuda.launches = 0
+masked_attention_bwd_cuda.routes = {"mma": 0, "rows": 0}
 
 
 class MaskedAttention(torch.autograd.Function):
     """The masked kernel pair as one differentiable op: apply(q, k, v, mask,
-    num_heads, seed, dropout_rate) -> out.  The mask gets no gradient."""
+    num_heads, seed, dropout_rate) -> out.  bf16 takes the "mma" route and
+    saves out and the row stats for the backward; fp32 takes the "rows"
+    route, whose backward recomputes everything.  CPU tensors run each
+    route's plain versions.  The mask gets no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, num_heads, seed, dropout_rate):
         fwd = masked_attention_plain if q.device.type == "cpu" else masked_attention_cuda
-        out = fwd(q, k, v, mask, num_heads, seed, dropout_rate)
-        ctx.save_for_backward(q, k, v, mask)
+        out, stats = fwd(q, k, v, mask, num_heads, seed, dropout_rate)
+        saved = (out, stats) if masked_route(q.dtype) == "mma" else ()
+        ctx.save_for_backward(q, k, v, mask, *saved)
         ctx.num_heads, ctx.seed, ctx.dropout_rate = num_heads, seed, dropout_rate
         ctx.set_materialize_grads(False)
         return out
@@ -429,10 +524,16 @@ class MaskedAttention(torch.autograd.Function):
     def backward(ctx, g_out):
         if g_out is None:
             return (None,) * 7
-        q, k, v, mask = ctx.saved_tensors
-        bwd = masked_attention_bwd_plain if q.device.type == "cpu" else masked_attention_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, mask, g_out.to(q.dtype).contiguous(), ctx.num_heads,
-                         ctx.seed, ctx.dropout_rate)
+        q, k, v, mask, *saved = ctx.saved_tensors
+        g_out = g_out.to(q.dtype).contiguous()
+        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate)
+        if q.device.type != "cpu":
+            out, stats = saved or (None, None)
+            dq, dk, dv = masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, *rest)
+        elif saved:
+            dq, dk, dv = masked_attention_stats_bwd_plain(q, k, v, mask, *saved, g_out, *rest)
+        else:
+            dq, dk, dv = masked_attention_bwd_plain(q, k, v, mask, g_out, *rest)
         return dq, dk, dv, None, None, None, None
 
 

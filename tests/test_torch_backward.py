@@ -134,7 +134,7 @@ def test_masked_bwd_matches_autograd_of_plain_forward():
     got = _torch_grads(lambda q, k, v: ha.masked_attention_fused(q, k, v, _tt(mask),
                                                                  num_heads=H),
                        (q, k, v), (g_out,))
-    want = _torch_grads(lambda q, k, v: ha.masked_attention_plain(q, k, v, _tt(mask), H),
+    want = _torch_grads(lambda q, k, v: ha.masked_attention_plain(q, k, v, _tt(mask), H)[0],
                         (q, k, v), (g_out,))
     _close(got, want, "qkv", atol=ATT_ATOL)
 

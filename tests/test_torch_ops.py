@@ -134,7 +134,7 @@ class TestMaskedAttention:
             *(_heads(jnp.asarray(t), H) for t in (q, k, v)),
             jnp.asarray(mask)[:, None, None, :],
         )
-        got = ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), H)
+        got, _ = ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), H)
         np.testing.assert_allclose(got.numpy(), _tokens(np.asarray(want)), atol=ATOL)
 
     def test_plain_matches_pallas_interpret(self, interpret_mode):
@@ -144,7 +144,7 @@ class TestMaskedAttention:
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
             jnp.asarray(mask)[:, None, :], num_heads=H,
         )
-        got = ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), H)
+        got, _ = ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), H)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
     def test_oracle_path_matches_xla_oracle(self):
@@ -232,7 +232,7 @@ class TestDispatch:
         q, k, v, mask = _masked_inputs(H=2, Nq=8, Nk=12, D=4)
         assert torch.equal(
             ha.masked_attention_fused(_tt(q), _tt(k), _tt(v), _tt(mask), num_heads=2),
-            ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), 2),
+            ha.masked_attention_plain(_tt(q), _tt(k), _tt(v), _tt(mask), 2)[0],
         )
         p = _gbf_params()
         u = np.random.RandomState(0).rand(1, 8, 8).astype(np.float32)
