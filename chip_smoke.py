@@ -12,12 +12,14 @@ Phases, one result line each; any failure exits non-zero:
    off) and bf16, at the flagship shapes, with padded keys: the attention
    forwards without and with dropout (0.1, same seed; the keep fraction is
    printed beside 0.9), the three backwards (dropout 0 and 0.1, with and
-   without the logits cotangent for pair-bias; bf16 masked attention runs
-   the tensor-core route, whose forward also returns the row stats and
-   whose backward is held both to its own plain version and to the
-   recompute oracle, repeated calls bit-equal, with profiler device times
-   beside SDPA's forward and forward + autograd backward), and the
-   LayerNorm forward
+   without the logits cotangent for pair-bias; bf16 pair-bias and masked
+   attention run the tensor-core route, whose forward also returns the row
+   stats and whose backward is held both to its own plain version and to
+   the recompute oracle, repeated calls bit-equal, with profiler device
+   times: masked beside SDPA's forward and forward + autograd backward,
+   pair-bias beside the row kernels it replaced at the same bf16 inputs and
+   SDPA with the bias as a float mask, a partial yardstick; gbf's device
+   times too), and the LayerNorm forward
    and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
    eps 1e-5 and 1e-12; repeated backwards must give bit-equal dscale and
    dbias).  Each line has the max
@@ -28,7 +30,8 @@ Phases, one result line each; any failure exits non-zero:
 4. a flagship-width MolServe on the card (weights drawn from a seeded
    torch.Generator) answers requests of 1, 8 and 20 SMILES; prints the
    per-request p50, the kernel launch counts of that run (gbf 1, pair-bias
-   15, masked 8 per forward, no backward) and the largest logit difference
+   15, masked 8 per forward, no backward, the attention on the tensor-core
+   route) and the largest logit difference
    between the kernel path and the same weights on the plain path;
 5. train: the flagship model (bf16 compute, bf16 pair logits) on a batch of
    32 molecules featurized and collated on the host (N=L=64), regression
@@ -38,9 +41,11 @@ Phases, one result line each; any failure exits non-zero:
    30 steps with
    dropout on, each loss finite and the last below the first; (c) step time
    p50, mols/s and launches per step (exactly gbf 1/1, pair-bias 15/15,
-   masked 8/8 forward/backward, all on the tensor-core route), a
-   torch.profiler summary of 3 steps and the launches of one clip + Adam
-   update; (d) one step at the top atom bucket N=280 with its peak memory;
+   masked 8/8 forward/backward, the attention all on the tensor-core
+   route), a torch.profiler summary of 3 steps (device time, the pair-bias
+   and masked kernels' shares) and the launches of one clip + Adam update;
+   (d) one step at the top atom bucket N=280 with its peak memory, device
+   time and the pair-bias kernels' share of it;
    (e) one step at N=64, L=512: masked launches per route, device time, the
    masked kernels' share of it and peak memory;
 6. fit, with MMDTI_PALLAS_LN=1 for this phase only: the 400-molecule
@@ -120,6 +125,13 @@ TRAIN_KERNELS = tuple(KERNELS)[:6]   # launched by phase 5; the LayerNorms by ph
 # output may round one bf16 step (2^-8 of its value) either side of the plain one
 LN_FWD_TOL = {"fp32": (2e-5, 0.0), "bf16": (2e-2, 1e-2)}
 FIT_MOLECULES, FIT_EPOCHS = 400, 3
+SDPA_PAIR_IS = ("SDPA with the bias as a float attn_mask: a partial yardstick, it writes no "
+                "logits and takes no logits cotangent")
+# per-case numbers that the main case also carries into the kernels line;
+# the case's "route" (the attention's dtype route) goes there as
+# "dtype_route", since that line's "route" names the language (cuda)
+SUMMARY_EXTRAS = ("device_ms", "fwd_bwd_device_ms", "rows_device_ms", "rows_fwd_bwd_device_ms",
+                  "sdpa_device_ms", "sdpa_fwd_bwd_device_ms", "library_device_ms")
 
 
 class Failed(RuntimeError):
@@ -152,7 +164,7 @@ def _read_counts():
 
 
 def _read_routes():
-    """Launches per route of the masked launchers: "mma" (bf16, tensor
+    """Launches per route of the attention launchers: "mma" (bf16, tensor
     cores) and "rows" (fp32)."""
     return {k: dict(c.routes) for k, c in _counters().items() if hasattr(c, "routes")}
 
@@ -222,6 +234,83 @@ def _grad_errs(names, got, want, prec):
     return errs
 
 
+def _pair_stats_errs(logits, stats, want_s):
+    """The bf16 pair-bias forward's row stats: the guarded max against the
+    plain version's (abs 1e-3), and 1/rowsum against the plain sum over the
+    kernel's own stored logits (rel 1e-3)."""
+    import torch
+
+    e, ok = _err(stats[..., 0], want_s[..., 0], 1e-3, 0.0)
+    inv = 1.0 / torch.exp(logits.float() - stats[..., :1]).sum(dim=-1).clamp_min(1e-30)
+    rel = float(((stats[..., 1] - inv).abs() / inv).max())
+    return {"stats_max": (e, 1e-3, ok), "stats_inv_rel": (rel, 1e-3, rel <= 1e-3)}
+
+
+class _PairRows:
+    """The pair-bias row kernels, the route bf16 took before the tensor-core
+    kernels, launched through their C entry points at the same bf16 inputs
+    for device times beside the "mma" route (not counted as launches)."""
+
+    def __init__(self, q, k, v, bias, logits, g_out, g_logits, H, seed, rate):
+        import torch
+
+        from mmdti_tpu_torch.ops import _build
+        from mmdti_tpu_torch.ops import hopper_attention as ha
+
+        B, N, E = q.shape
+        self.lib = _build.load("pair_bias_attention")
+        self.inputs, self.bias, self.logits = (q, k, v), bias, logits
+        self.cots = (g_out, g_logits)
+        self.drop = ha._dropout_args(seed, rate, q.device)
+        self.tail = (B, N, H, E // H, 1, 1, torch.cuda.current_stream(q.device).cuda_stream)
+        self.out, self.new_logits = torch.empty_like(q), torch.empty_like(bias)
+        self.grads = [torch.empty_like(t) for t in (q, k, v, bias)]
+        self.ws = torch.empty((B, H, N, 3), dtype=torch.float32, device=q.device)
+
+    def fwd(self):
+        rc = self.lib.mmdti_pair_bias_attention_fwd(
+            *(t.data_ptr() for t in (*self.inputs, self.bias, self.out, self.new_logits)),
+            *self.drop, *self.tail)
+        if rc:
+            raise Failed(f"pair-bias row forward failed with cudaError_t {rc}")
+
+    def bwd(self, logits=None):
+        rc = self.lib.mmdti_pair_bias_attention_bwd(
+            *(t.data_ptr() for t in self.inputs), (self.logits if logits is None
+                                                   else logits).data_ptr(),
+            *(None if t is None else t.data_ptr() for t in self.cots),
+            *(t.data_ptr() for t in (*self.grads, self.ws)), *self.drop, *self.tail)
+        if rc:
+            raise Failed(f"pair-bias row backward failed with cudaError_t {rc}")
+
+    def fwd_bwd(self):
+        self.fwd()
+        self.bwd(self.new_logits)
+
+
+class _PairSdpa:
+    """SDPA with the pair bias as a float attn_mask on the same inputs."""
+
+    def __init__(self, q, k, v, bias, g_out, rate):
+        B, N, E = q.shape
+        H = bias.shape[1]
+        self.leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, bias)]
+        self.heads = [t.view(B, N, H, E // H).transpose(1, 2) for t in self.leaves[:3]]
+        self.g = g_out.view(B, N, H, E // H).transpose(1, 2)
+        self.rate = rate
+
+    def fwd(self):
+        import torch.nn.functional as F
+
+        return F.scaled_dot_product_attention(*self.heads, attn_mask=self.leaves[3],
+                                              dropout_p=self.rate)
+
+    def fwd_bwd(self):
+        import torch
+
+        return torch.autograd.grad(self.fwd(), self.leaves, self.g)
+
+
 def phase_card():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -274,7 +363,128 @@ class _Recorder:
         s["max_abs_err"] = max(s["max_abs_err"], *(e for e, _, _ in errs.values()))
         if main:
             s.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound[0],
-                     bound_by=bound[1])
+                     bound_by=bound[1], **{k: v for k, v in line.items() if k in SUMMARY_EXTRAS})
+            if "route" in line:
+                s["dtype_route"] = line["route"]
+
+
+def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
+    """Pair-bias attention forward and backward against their plain
+    versions, by default at the flagship's B=32, H=64, D=8, N=64 and 280.
+    bf16 runs the tensor-core route (its forward also returns the row
+    stats, its backward is one launch from out and the stats); fp32 the row
+    kernels.  Beside the bf16 route's device times: the row kernels at the
+    same bf16 inputs (the route it replaced) and SDPA with the bias as a
+    float attn_mask, a partial yardstick only (it writes no logits and takes
+    no logits cotangent)."""
+    import torch
+
+    from mmdti_tpu_torch.ops import dropout as drop
+    from mmdti_tpu_torch.ops import hopper_attention as ha
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    precisions = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    for N in Ns:
+        lens = _padded_lengths(gen, B, N)
+        pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
+        q, k, v, g_out = (randn(B, N, H * D) for _ in range(4))
+        bias = randn(B, H, N, N).masked_fill(pad[:, None, None, :], float("-inf"))
+        g_logits = randn(B, H, N, N)
+        kf = float(drop.keep_mask(int(seed), DROPOUT, B, H, N, N, device=dev).float().mean())
+        for prec, dt in precisions:
+            s, p = BYTES[prec], BYTES[prec]
+            mma = prec == "bf16"
+            args = [t.to(dt).contiguous() for t in (q, k, v, bias)]
+            go = g_out.to(dt)
+            fwd_bound = _bound(4 * B * N * H * D * s + 2 * B * H * N * N * p,
+                               4 * B * H * N * N * D, prec)
+            case = f"B={B} N={N} H={H} D={D}"
+            for rate in (0.0, DROPOUT):
+                sd = seed if rate else None
+
+                def fwd():
+                    return ha.pair_bias_attention_cuda(*args, H, sd, rate)
+
+                def plain_fwd():
+                    return ha.pair_bias_attention_plain(*args, H, dt, sd, rate)
+
+                out, logits, stats = fwd()
+                want_o, want_l, want_s = plain_fwd()
+                torch.cuda.synchronize()
+                errs = {}
+                for what, got, want in (("out", out, want_o), ("logits", logits, want_l)):
+                    atol, rtol = TOL[prec][what]
+                    e, ok = _err(got, want, atol, rtol)
+                    errs[what] = (e, atol if not rtol else [atol, rtol], ok)
+                if mma:
+                    errs.update(_pair_stats_errs(logits, stats, want_s))
+                ms = _time_ms(fwd)
+                pms = _time_ms(plain_fwd, iters=10)
+                extra = {"route": ha.pair_bias_route(dt, dt)}
+                if rate:
+                    extra.update(keep_fraction=kf, keep_expected=1 - DROPOUT)
+                if mma:
+                    rows = _PairRows(*args, logits, go, g_logits.to(dt), H, sd, rate)
+                    sdpa = _PairSdpa(*args, go, rate)
+                    with torch.no_grad():
+                        extra.update(device_ms=_device_ms(fwd), rows_device_ms=_device_ms(rows.fwd),
+                                     sdpa_device_ms=_device_ms(sdpa.fwd))
+                    extra["sdpa_is"] = SDPA_PAIR_IS
+                record("pair_bias_attention", f"{case} dropout={rate}", prec, errs, ms, pms, None,
+                       fwd_bound, N == 64 and mma and rate > 0, extra)
+
+                for gl in (g_logits.to(dt), None):
+                    n_pair = 3 if gl is not None else 2
+                    bwd_bound = _bound(7 * B * N * H * D * s + n_pair * B * H * N * N * p,
+                                       8 * B * H * N * N * D, prec)
+                    # the backward from the plain forward's logits (and out and stats)
+                    rest = (go, gl, H, sd, rate)
+
+                    def bwd():
+                        return ha.pair_bias_attention_bwd_cuda(*args[:3], want_l, want_o, want_s,
+                                                               *rest)
+
+                    def plain_bwd():
+                        if mma:
+                            return ha.pair_bias_attention_stats_bwd_plain(
+                                *args[:3], want_l, want_o, want_s, *rest)
+                        return ha.pair_bias_attention_bwd_plain(*args[:3], want_l, *rest)
+
+                    def ours_fwd_bwd():
+                        o, lg, st = fwd()
+                        return ha.pair_bias_attention_bwd_cuda(*args[:3], lg, o, st, *rest)
+
+                    got = bwd()
+                    again = bwd()
+                    oracle = ha.pair_bias_attention_bwd_plain(*args[:3], want_l, *rest)
+                    torch.cuda.synchronize()
+                    names = ("dq", "dk", "dv", "dbias")
+                    errs = _grad_errs(names, got, oracle, prec)
+                    if mma:
+                        errs.update({f"{n}_vs_stats_plain": e for n, e in _grad_errs(
+                            names, got, plain_bwd(), prec).items()})
+                    bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+                    if not bit_equal:
+                        record.failures.append(f"pair_bias_attention_bwd {case} {prec}: "
+                                               f"repeated calls differ")
+                    ms = _time_ms(bwd)
+                    pms = _time_ms(plain_bwd, iters=10)
+                    extra = {"route": ha.pair_bias_route(dt, dt), "repeat_bit_equal": bit_equal}
+                    if mma:
+                        rows = _PairRows(*args, want_l, go, gl, H, sd, rate)
+                        extra.update(device_ms=_device_ms(bwd),
+                                     fwd_bwd_device_ms=_device_ms(ours_fwd_bwd),
+                                     rows_device_ms=_device_ms(rows.bwd),
+                                     rows_fwd_bwd_device_ms=_device_ms(rows.fwd_bwd),
+                                     sdpa_fwd_bwd_device_ms=_device_ms(
+                                         _PairSdpa(*args, go, rate).fwd_bwd),
+                                     sdpa_is=SDPA_PAIR_IS)
+                    record("pair_bias_attention_bwd",
+                           f"{case} dropout={rate} g_logits={gl is not None}", prec, errs, ms,
+                           pms, None, bwd_bound, N == 64 and mma and rate > 0 and gl is not None,
+                           extra)
 
 
 def phase_kernels(dev):
@@ -299,57 +509,10 @@ def phase_kernels(dev):
     def keep_fraction(B, H, Nq, Nk):
         return float(drop.keep_mask(int(seed), DROPOUT, B, H, Nq, Nk, device=dev).float().mean())
 
-    # ---- pair-bias attention: B=32, H=64, D=8 ----------------------------
-    B, H, D = 32, 64, 8
-    for N in (64, 280):
-        lens = _padded_lengths(gen, B, N)
-        pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
-        q, k, v, g_out = (randn(B, N, H * D) for _ in range(4))
-        bias = randn(B, H, N, N).masked_fill(pad[:, None, None, :], float("-inf"))
-        g_logits = randn(B, H, N, N)
-        kf = keep_fraction(B, H, N, N)
-        for prec, dt in precisions:
-            s, p = BYTES[prec], BYTES[prec]
-            args = [t.to(dt).contiguous() for t in (q, k, v, bias)]
-            fwd_bound = _bound(4 * B * N * H * D * s + 2 * B * H * N * N * p,
-                               4 * B * H * N * N * D, prec)
-            for rate in (0.0, DROPOUT):
-                sd = seed if rate else None
-                out, logits = ha.pair_bias_attention_cuda(*args, H, sd, rate)
-                want_o, want_l = ha.pair_bias_attention_plain(*args, H, dt, sd, rate)
-                torch.cuda.synchronize()
-                errs = {}
-                for what, got, want in (("out", out, want_o), ("logits", logits, want_l)):
-                    atol, rtol = TOL[prec][what]
-                    e, ok = _err(got, want, atol, rtol)
-                    errs[what] = (e, atol if not rtol else [atol, rtol], ok)
-                ms = _time_ms(lambda: ha.pair_bias_attention_cuda(*args, H, sd, rate))
-                pms = _time_ms(lambda: ha.pair_bias_attention_plain(*args, H, dt, sd, rate),
-                               iters=10)
-                record("pair_bias_attention", f"B={B} N={N} H={H} D={D} dropout={rate}", prec,
-                       errs, ms, pms, None, fwd_bound, N == 64 and prec == "bf16" and rate > 0,
-                       {"keep_fraction": kf, "keep_expected": 1 - DROPOUT} if rate else None)
-            go = g_out.to(dt)
-            for rate in (0.0, DROPOUT):
-                sd = seed if rate else None
-                for gl in (g_logits.to(dt), None):
-                    n_pair = 3 if gl is not None else 2
-                    bwd_bound = _bound(7 * B * N * H * D * s + n_pair * B * H * N * N * p,
-                                       8 * B * H * N * N * D, prec)
-                    bargs = (*args[:3], want_l, go, gl, H, sd, rate)
-                    got = ha.pair_bias_attention_bwd_cuda(*bargs)
-                    want = ha.pair_bias_attention_bwd_plain(*bargs)
-                    torch.cuda.synchronize()
-                    errs = _grad_errs(("dq", "dk", "dv", "dbias"), got, want, prec)
-                    ms = _time_ms(lambda: ha.pair_bias_attention_bwd_cuda(*bargs))
-                    pms = _time_ms(lambda: ha.pair_bias_attention_bwd_plain(*bargs), iters=10)
-                    record("pair_bias_attention_bwd",
-                           f"B={B} N={N} H={H} D={D} dropout={rate} g_logits={gl is not None}",
-                           prec, errs, ms, pms, None, bwd_bound,
-                           N == 64 and prec == "bf16" and rate > 0 and gl is not None)
+    _pair_bias_cases(dev, gen, seed, record)
 
-    # ---- fused Gaussian + gbf_proj: K=Kh=128, H=64 ------------------------
-    K, Hh = 128, 64
+    # ---- fused Gaussian + gbf_proj: B=32, K=Kh=128, H=64 -------------------
+    B, K, Hh = 32, 128, 64
     means = torch.rand(K, generator=gen).mul(3).to(dev)
     stds = torch.rand(K, generator=gen).mul(3).to(dev)
     w1, w2 = randn(K, K) * 0.02, randn(Hh, K) * 0.02
@@ -371,9 +534,10 @@ def phase_kernels(dev):
             e, ok = _err(got, want, atol, rtol)
             ms = _time_ms(lambda: hg.gbf_pair_bias_fused(*args, **kw))
             pms = _time_ms(lambda: hg.gbf_pair_bias_plain(*args, **kw), iters=10)
+            extra = {"device_ms": _device_ms(lambda: hg.gbf_pair_bias_fused(*args, **kw))}
             record("gbf_proj", f"B={B} N={N} K={K} H={Hh}", prec, {"out": (e, atol, ok)}, ms,
                    pms, None, _bound(P * (4 + Hh * BYTES[prec]), 2 * P * (K * K + K * Hh), prec),
-                   N == 64 and prec == "bf16")
+                   N == 64 and prec == "bf16", extra)
             bargs = (u, means, std, w1, b1, w2, g.to(dt), pad, "gelu_tanh", dt)
             got = hg.gbf_pair_bias_bwd_cuda(*bargs)
             want = hg.gbf_pair_bias_bwd_plain(*bargs)
@@ -382,9 +546,10 @@ def phase_kernels(dev):
                               prec)
             ms = _time_ms(lambda: hg.gbf_pair_bias_bwd_cuda(*bargs))
             pms = _time_ms(lambda: hg.gbf_pair_bias_bwd_plain(*bargs), iters=10)
+            extra = {"device_ms": _device_ms(lambda: hg.gbf_pair_bias_bwd_cuda(*bargs))}
             record("gbf_proj_bwd", f"B={B} N={N} K={K} H={Hh} padded keys", prec, errs, ms, pms,
                    None, _bound(P * (8 + Hh * BYTES[prec]), 2 * P * (3 * K * K + 2 * K * Hh),
-                                prec), N == 64 and prec == "bf16")
+                                prec), N == 64 and prec == "bf16", extra)
 
     # ---- masked attention: ChemBERTa (H=8, D=64) and cross-modal (H=16, D=32)
     # bf16 runs the tensor-core route (its forward also returns the row
@@ -628,13 +793,14 @@ def phase_serve(dev):
             outs[n] = server.predict(smi)
             times.append((time.perf_counter() - t0) * 1e3)
         lat[n] = statistics.median(times)
-    launches = _read_counts()
+    launches, routes = _read_counts(), _read_routes()
 
     forwards = REPEATS * len(REQUESTS)
     ucfg = server.model.unimol_cfg
-    per_fwd = {"gbf_proj": 1, "pair_bias_attention": ucfg.encoder_layers,
-               "masked_attention": server.model.bert.cfg.num_hidden_layers
-               + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers,
+    attn = _attention_launches(ucfg.encoder_layers, server.model.bert.cfg.num_hidden_layers
+                               + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers,
+                               backward=False)
+    per_fwd = {"gbf_proj": 1, **attn,
                "gbf_proj_bwd": 0, "pair_bias_attention_bwd": 0, "masked_attention_bwd": 0}
     for n, out in outs.items():
         if out["predict"].shape != (n, 1) or not np.isfinite(out["predict"]).all():
@@ -656,13 +822,14 @@ def phase_serve(dev):
         "p50_ms": {str(k): v for k, v in lat.items()},
         "cold_first_request_ms": {str(k): v for k, v in cold_ms.items()},
         "repeats": REPEATS, "forwards": forwards, "launches": launches,
-        "launches_per_forward_expected": per_fwd,
+        "launches_per_forward_expected": per_fwd, "attention_routes": routes,
         "logits_max_abs_diff_vs_plain": diff, "predict_max_abs_diff_vs_plain": pred_diff,
         "logits_tol": LOGITS_TOL,
     }), flush=True)
     for k, per in per_fwd.items():
         if launches[k] != per * forwards:
             raise Failed(f"serve {k}: {launches[k]} launches, expected {per} x {forwards}")
+    _check_mma_routes(routes, {k: n * forwards for k, n in attn.items()}, "serve")
     if not (diff <= LOGITS_TOL and pred_diff <= LOGITS_TOL):
         raise Failed(f"kernel path differs from plain path: logits {diff}, predict {pred_diff}")
     return launches
@@ -704,9 +871,13 @@ def _profile_steps(step, args, n=3):
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in kernels)
     ours = ("attention_rows_kernel", "attention_bwd_rows_kernel", "attention_bwd_cols_kernel",
-            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "masked_mma_")
-    own_us = sum(e.self_device_time_total for e in kernels if any(o in e.key for o in ours))
-    masked_us = sum(e.self_device_time_total for e in kernels if "masked_mma_" in e.key)
+            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "masked_mma_",
+            "pair_mma_")
+
+    def device_us(*names):
+        return sum(e.self_device_time_total for e in kernels if any(o in e.key for o in names))
+
+    own_us, masked_us, pair_us = device_us(*ours), device_us("masked_mma_"), device_us("pair_mma_")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "steps": n,
@@ -714,6 +885,7 @@ def _profile_steps(step, args, n=3):
         "kernel_launches_per_step": sum(e.count for e in kernels) / n,
         "port_kernels_ms_per_step": own_us / n / 1e3,
         "masked_mma_kernels_ms_per_step": masked_us / n / 1e3,
+        "pair_mma_kernels_ms_per_step": pair_us / n / 1e3,
         "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
                          "calls_per_step": e.count / n} for e in top],
     }
@@ -783,8 +955,9 @@ def phase_train(dev):
     # at N=L=64 and at the top SMILES bucket L=512 (N=64)
     train_loss = build_train_loss(zoo.mse_loss, "regression")
     feats512 = _train_batch(dev, 64, 512, B)
-    _compare_paths(model, plain, train_loss, feats, labels, weights, n_masked)
-    _compare_paths(model, plain, train_loss, feats512, labels, weights, n_masked)
+    attn = _attention_launches(ucfg.encoder_layers, n_masked)
+    _compare_paths(model, plain, train_loss, feats, labels, weights, attn)
+    _compare_paths(model, plain, train_loss, feats512, labels, weights, attn)
     del plain
 
     # (b) 30 steps, dropout on, one fixed batch; (c) their times and launches
@@ -808,16 +981,13 @@ def phase_train(dev):
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
     p50 = statistics.median(step_ms)
-    per_step = {"gbf_proj": 1, "gbf_proj_bwd": 1,
-                "pair_bias_attention": ucfg.encoder_layers,
-                "pair_bias_attention_bwd": ucfg.encoder_layers,
-                "masked_attention": n_masked, "masked_attention_bwd": n_masked}
+    per_step = {"gbf_proj": 1, "gbf_proj_bwd": 1, **attn}
     print("train: " + json.dumps({
         "steps": TRAIN_STEPS, "dropout": "on", "first_loss": losses[0], "last_loss": losses[-1],
         "losses": losses, "step_ms_p50": p50, "step_ms_min": min(step_ms),
         "step_ms_max": max(step_ms), "mols_per_s": B / p50 * 1e3,
         "host_wall_s": wall_s, "launches": launches, "launches_per_step_expected": per_step,
-        "masked_routes": routes,
+        "attention_routes": routes,
     }), flush=True)
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise Failed(f"train: non-finite loss in {losses}")
@@ -826,7 +996,7 @@ def phase_train(dev):
     for k, per in per_step.items():
         if launches[k] != per * TRAIN_STEPS:
             raise Failed(f"train {k}: {launches[k]} launches, expected {per} x {TRAIN_STEPS}")
-    _check_mma_routes(routes, n_masked * TRAIN_STEPS, "train")
+    _check_mma_routes(routes, {k: n * TRAIN_STEPS for k, n in attn.items()}, "train")
     print("train: profile " + json.dumps(_profile_steps(step, (feats, labels, weights, gen))),
           flush=True)
     print("train: optimizer " + json.dumps(_profile_optimizer(opt)), flush=True)
@@ -840,10 +1010,11 @@ def phase_train(dev):
     loss280 = float(step(feats280, labels, weights, gen)["loss"])
     b.record()
     torch.cuda.synchronize()
+    peak280 = torch.cuda.max_memory_allocated(dev)
     print("train: " + json.dumps({
         "step": "top atom bucket", "B": B, "N": 280, "L": 64, "loss": loss280,
-        "step_ms": a.elapsed_time(b),
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+        "step_ms": a.elapsed_time(b), "max_memory_allocated_bytes": peak280,
+        "profile": _profile_steps(step, (feats280, labels, weights, gen), n=2),
     }), flush=True)
     if not loss280 == loss280 or abs(loss280) == float("inf"):
         raise Failed(f"train: N=280 step gave loss {loss280}")
@@ -866,25 +1037,34 @@ def phase_train(dev):
         "step_ms": a.elapsed_time(b), "max_memory_allocated_bytes": peak512,
         "masked_launches": {k: counts512[k] for k in ("masked_attention",
                                                       "masked_attention_bwd")},
-        "masked_routes": routes512, "profile": prof512,
+        "attention_routes": routes512, "profile": prof512,
     }), flush=True)
     if not loss512 == loss512 or abs(loss512) == float("inf"):
         raise Failed(f"train: L=512 step gave loss {loss512}")
-    _check_mma_routes(routes512, n_masked, "train L=512")
+    _check_mma_routes(routes512, attn, "train L=512")
     return launches
 
 
-def _check_mma_routes(routes, n, what):
-    """Every masked launch of a bf16 run went to the tensor-core route."""
-    for k in ("masked_attention", "masked_attention_bwd"):
+def _check_mma_routes(routes, expected, what):
+    """Every attention launch of a bf16 run went to the tensor-core route:
+    expected maps a launcher to its number of launches."""
+    for k, n in expected.items():
         if routes[k] != {"mma": n, "rows": 0}:
             raise Failed(f"{what} {k}: routes {routes[k]}, expected {n} on mma")
 
 
-def _compare_paths(model, plain, train_loss, feats, labels, weights, n_masked):
+def _attention_launches(n_pair, n_masked, backward=True):
+    """Launches per attention launcher of one forward (and backward)."""
+    per = {"pair_bias_attention": n_pair, "masked_attention": n_masked}
+    if backward:
+        per.update(pair_bias_attention_bwd=n_pair, masked_attention_bwd=n_masked)
+    return per
+
+
+def _compare_paths(model, plain, train_loss, feats, labels, weights, attn):
     """One step's loss and gradients, dropout off, on the kernel path
-    against the plain path; the kernel path's masked launches must all take
-    the tensor-core route."""
+    against the plain path; the kernel path's attention launches (attn:
+    launcher -> count) must all take the tensor-core route."""
     import torch
 
     def loss_and_grads(m):
@@ -913,12 +1093,12 @@ def _compare_paths(model, plain, train_loss, feats, labels, weights, n_masked):
         "loss_plain": lp, "loss_abs_diff": abs(lk - lp), "loss_tol": TRAIN_LOSS_TOL,
         "max_rel_grad_diff": rel[worst], "worst_param": worst,
         "median_rel_grad_diff": statistics.median(rel.values()), "grad_tol": TRAIN_GRAD_TOL,
-        "masked_routes": routes,
+        "attention_routes": routes,
     }), flush=True)
     if not (abs(lk - lp) <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
         raise Failed(f"train {shape}: kernel path differs from plain path: loss {lk} vs {lp}, "
                      f"{worst} grad rel diff {rel[worst]}")
-    _check_mma_routes(routes, n_masked, f"train {shape} check")
+    _check_mma_routes(routes, attn, f"train {shape} check")
 
 
 def phase_fit(dev):

@@ -59,18 +59,6 @@ struct KeyMaskEpilogue {
   }
 };
 
-// Calls f(std::integral_constant<int, D>{}) for a head dim the kernels take.
-template <class F>
-cudaError_t dispatch_dim(int D, F&& f) {
-  switch (D) {
-    case 8: return f(std::integral_constant<int, 8>{});
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-  }
-  return cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------------------
 // bf16 route: tensor-core kernels
 // ---------------------------------------------------------------------------
@@ -420,16 +408,6 @@ masked_mma_bwd_dkdv_kernel(MmaAttentionArgs a) {
 template <int D>
 constexpr size_t mma_smem_bytes(int tiles, int floats) {
   return sizeof(bf16) * (size_t)tiles * MmaGeom<D>::kTile + sizeof(float) * (size_t)floats;
-}
-
-// Sets the dynamic shared memory limit of `kernel` once per instantiation.
-template <class K>
-cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  done = e == cudaSuccess;
-  return e;
 }
 
 template <int D>

@@ -14,7 +14,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace mmdti {
 
@@ -131,6 +134,15 @@ __device__ __forceinline__ void load_b_t(uint32_t (&b)[4], const bf16* tile, int
   ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + n0 + (lane >> 4) * 8);
 }
 
+// A fragments of A = T^T (16 x 16): A[m][k] = T[k0 + k][m0 + m], T a
+// row-major tile with stride S, read transposed by ldmatrix: dk += dS^T Q
+// with dS staged row-major in shared memory.
+template <int S>
+__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* tile, int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_t(a, tile + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * S + m0 + ((lane >> 3) & 1) * 8);
+}
+
 // One 8-column tile of load_b_t (head dim 8).
 template <int S>
 __device__ __forceinline__ void load_b_t8(uint32_t (&b)[2], const bf16* tile, int k0, int n0) {
@@ -156,6 +168,27 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
     }
 }
 
+// out[dt] += A . T over rows [k0, k0 + 16) of T, A a 16 x 16 fragment and
+// T a tile of D columns (B = T itself).
+template <int D>
+__device__ __forceinline__ void mma_at(float (&out)[D / 8][4], const uint32_t (&a)[4],
+                                       const bf16* tile, int k0) {
+  constexpr int S = MmaGeom<D>::S;
+  if constexpr (D == 8) {
+    uint32_t b[2];
+    load_b_t8<S>(b, tile, k0, 0);
+    mma_bf16(out[0], a, b[0], b[1]);
+  } else {
+#pragma unroll
+    for (int p = 0; p < D / 16; ++p) {
+      uint32_t b[4];
+      load_b_t<S>(b, tile, k0, p * 16);
+      mma_bf16(out[2 * p], a, b[0], b[1]);
+      mma_bf16(out[2 * p + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // out[dt] += X . T over rows [k0, k0 + 8*NT) of T, X the 16 x 8NT fp32
 // accumulator x[NT][4] rounded to bf16 (its C fragments reused as A
 // fragments), T a tile of D columns: O += P V, dq += dS K, dv += P^T dO,
@@ -163,26 +196,13 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4],
 template <int D, int NT>
 __device__ __forceinline__ void mma_xt(float (&out)[D / 8][4], const float (&x)[NT][4],
                                        const bf16* tile, int k0) {
-  constexpr int S = MmaGeom<D>::S;
 #pragma unroll
   for (int kk = 0; kk < NT / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
                            pack_bf16(x[2 * kk][2], x[2 * kk][3]),
                            pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
                            pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-    if constexpr (D == 8) {
-      uint32_t b[2];
-      load_b_t8<S>(b, tile, k0 + kk * 16, 0);
-      mma_bf16(out[0], a, b[0], b[1]);
-    } else {
-#pragma unroll
-      for (int p = 0; p < D / 16; ++p) {
-        uint32_t b[4];
-        load_b_t<S>(b, tile, k0 + kk * 16, p * 16);
-        mma_bf16(out[2 * p], a, b[0], b[1]);
-        mma_bf16(out[2 * p + 1], a, b[2], b[3]);
-      }
-    }
+    mma_at<D>(out, a, tile, k0 + kk * 16);
   }
 }
 
@@ -196,6 +216,16 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[MmaGeom<D>::DP / 16][4
 
 // 2^(x log2 e): one MUFU.EX2; exp(-inf) = 0
 __device__ __forceinline__ float fast_exp(float x) { return exp2f(x * 1.4426950408889634f); }
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x as the bare MUFU.EX2 (results below 2^-126 flush to 0); 2^-inf = 0.
+// exp(x - m) = ex2_ftz(fmaf(x, kLog2e, -m * kLog2e)): one FFMA and one MUFU.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -223,6 +253,28 @@ __device__ __forceinline__ void store_rows(bf16* g, int E, const float (&acc)[D 
       *reinterpret_cast<uint32_t*>(dst + dt * 8) =
           pack_bf16(acc[dt][2 * r] * row_scale[r], acc[dt][2 * r + 1] * row_scale[r]);
   }
+}
+
+// Calls f(std::integral_constant<int, D>{}) for a head dim the kernels take.
+template <class F>
+cudaError_t dispatch_dim(int D, F&& f) {
+  switch (D) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Sets the dynamic shared memory limit of `kernel` once per instantiation.
+template <class K>
+cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = e == cudaSuccess;
+  return e;
 }
 
 }  // namespace mmdti

@@ -33,12 +33,19 @@ _F = ctypes.c_float
 # entry point -> argtypes; restype is c_int (a cudaError_t) for all
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "pair_bias_attention": {
+        # fp32 route (row kernels)
         # q, k, v, bias, out, logits, seed, threshold, drop_scale, B, N, H, D,
         # qkv_bf16, pair_bf16, stream
         "mmdti_pair_bias_attention_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 6 + (_P,),
         # q, k, v, logits, g_out, g_logits, dq, dk, dv, dbias, stats, seed,
         # threshold, drop_scale, B, N, H, D, qkv_bf16, pair_bf16, stream
         "mmdti_pair_bias_attention_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 6 + (_P,),
+        # bf16 route (tensor cores)
+        # q, k, v, bias, out, logits, stats, seed, threshold, drop_scale, B, N, H, D, stream
+        "mmdti_pair_bias_attention_mma_fwd": (_P,) * 8 + (_U, _F) + (_I,) * 4 + (_P,),
+        # q, k, v, logits, out, stats, g_out, g_logits, dq, dk, dv, dbias, seed,
+        # threshold, drop_scale, B, N, H, D, stream
+        "mmdti_pair_bias_attention_mma_bwd": (_P,) * 13 + (_U, _F) + (_I,) * 4 + (_P,),
     },
     "masked_attention": {
         # fp32 route (row kernels)

@@ -6,7 +6,10 @@ with their plain PyTorch versions.
   Uni-Mol layer's ``logits = (q*D^-1/2) k^T + bias``,
   ``out = dropout(softmax(logits)) v``, returning the pre-dropout logits in
   the pair dtype as the next layer's bias.  CUDA source:
-  csrc/pair_bias_attention.cu.
+  csrc/pair_bias_attention.cu, two routes by dtype: bf16 q/k/v with a bf16
+  pair run tensor-core kernels whose forward also returns row stats and
+  whose backward is one launch ("mma"), anything with fp32 runs the row
+  kernels ("rows").
 * ``masked_attention_fused`` replaces ``_masked_fwd_kernel`` and
   ``_masked_bwd_kernel``: BERT-style attention with an additive per-key mask
   [B, Nk] (ChemBERTa and the cross-modal layers, Nq != Nk allowed).  CUDA
@@ -25,8 +28,8 @@ Attention dropout draws its keep mask from ops/dropout.py's pure function of
 plain versions drop the same probabilities; ``seed`` is one int32 in a
 tensor on the inputs' device.
 
-Each ``*_cuda`` launcher counts its launches in ``<fn>.launches``; the
-masked launchers also count them per route in ``<fn>.routes``.
+Each ``*_cuda`` launcher counts its launches in ``<fn>.launches`` and per
+route in ``<fn>.routes``.
 """
 
 from __future__ import annotations
@@ -115,6 +118,22 @@ def _attention_bwd_core(qh, kh, vh, logits, g_h, g_logits, keep, dropout_rate, s
     return dq, dk, dv, dl
 
 
+def _stats_softmax_bwd(p, gh, oh, vh, keep, dropout_rate):
+    """The bf16 kernels' softmax backward from the forward's normalised
+    probabilities p [B,H,Nq,Nk] (fp32) and out oh: r = rowsum(g_out * out),
+    dS = p * (keep*c*dP - r) with dP = g_out v^T, and dv = (keep*c*p)^T
+    g_out.  Returns (dS, dv head-major)."""
+    r = (gh * oh).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    pd = p
+    if keep is not None:
+        c = drop.keep_scale(dropout_rate)
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        dp = torch.where(keep, dp * c, zero)
+        pd = torch.where(keep, p * c, zero)
+    return p * (dp - r), torch.matmul(pd.transpose(-1, -2), gh)
+
+
 def _dtype_flag(t: torch.Tensor, what: str) -> int:
     if t.dtype == torch.bfloat16:
         return 1
@@ -135,6 +154,14 @@ def _require_cuda(tensors, names):
             raise ValueError(f"{n} must be a CUDA tensor on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
+
+
+def _require_aligned(tensors, names):
+    """The tensor-core kernels load rows with 16-byte cp.async: each
+    tensor's data (None: absent) must start on 16 bytes."""
+    for t, n in zip(tensors, names):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{n} must start on a 16-byte boundary for the bf16 kernels")
 
 
 def _dropout_args(seed: Optional[torch.Tensor], dropout_rate: float, device):
@@ -186,28 +213,70 @@ def effective_rate(dropout_rate: float, seed, deterministic: bool) -> float:
 # ---------------------------------------------------------------------------
 
 
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block can have on the H100 (227 KB)
+
+
+def pair_bias_route(q_dtype, pair_dtype) -> str:
+    """The kernel route of a pair-bias call: "mma" (tensor-core kernels)
+    when q/k/v and the pair are both bf16, "rows" (FMA row kernels) when
+    either is fp32."""
+    for dt, what in ((q_dtype, "q"), (pair_dtype, "the pair")):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what} must be float32 or bfloat16, got {dt}")
+    return "mma" if q_dtype == pair_dtype == torch.bfloat16 else "rows"
+
+
+def pair_mma_backward_smem(N: int, D: int) -> int:
+    """Bytes of shared memory of a bf16 backward block
+    (csrc/pair_bias_attention.cu::pair_bwd_smem_bytes): one or two stage
+    buffers of four [64, max(D,16)+8] token tiles and two [64, 72] pair
+    tiles in bf16, then dq and three row stats, fp32, for ceil(N/64)*64
+    rows."""
+    T = -(-N // 64)
+    stage = 2 * (4 * 64 * (max(D, 16) + 8) + 2 * 64 * 72)
+    return (2 if T > 1 else 1) * stage + 4 * T * 64 * (D + 3)
+
+
+def check_pair_mma_backward(N: int, D: int) -> None:
+    """The bf16 backward holds dq and the row stats of all N rows in shared
+    memory: it takes N up to about 3,800 at D=8 and 448 at D=64."""
+    if pair_mma_backward_smem(N, D) > SMEM_PER_BLOCK:
+        raise ValueError(f"the bf16 pair-bias backward needs {pair_mma_backward_smem(N, D)} "
+                         f"bytes of shared memory at N={N}, D={D}; a block has "
+                         f"{SMEM_PER_BLOCK}")
+
+
 def pair_bias_attention_plain(q, k, v, bias, num_heads: int, pair_dtype=torch.float32,
                               seed=None, dropout_rate: float = 0.0):
-    """Plain version of the pair-bias forward kernel.
+    """Plain version of the pair-bias forward kernels, whole rows at once.
 
     q/k/v [B,N,H*D], bias [B,H,N,N] (-inf at padded keys) ->
-    (out [B,N,H*D] in q.dtype, logits [B,H,N,N] in pair_dtype)."""
+    (out [B,N,H*D] in q.dtype, logits [B,H,N,N] in pair_dtype,
+    stats [B,H,N,2] fp32).  stats holds each row's guarded max m of the
+    fp32 logits and 1/rowsum of exp(stored - m) over the logits as stored
+    in pair_dtype, so that exp(stored - m) * (1/rowsum) is the softmax of
+    the stored logits; the "mma" route's forward also returns it for its
+    backward."""
     H = num_heads
     B, N, E = q.shape
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
     logits = torch.matmul(qh * D ** -0.5, kh.transpose(-1, -2)) + bias.float()
     keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device)
-    out = guarded_softmax_pv(logits, vh, keep, dropout_rate)
-    return merge_heads(out).to(q.dtype), logits.to(pair_dtype)
+    out = merge_heads(guarded_softmax_pv(logits, vh, keep, dropout_rate)).to(q.dtype)
+    stored = logits.to(pair_dtype)
+    m = guarded_max(logits)
+    inv = 1.0 / torch.exp(stored.float() - m).sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out, stored, torch.cat([m, inv], dim=-1)
 
 
 def pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, num_heads: int,
                                   seed=None, dropout_rate: float = 0.0):
-    """Plain version of the pair-bias backward kernel: from the stored
-    logits, replaying the forward's dropout mask.  g_out [B,N,H*D] and
-    g_logits [B,H,N,N] may be None.  Returns (dq, dk, dv) in q.dtype and
-    dbias in logits.dtype."""
+    """Plain version of the pair-bias backward row kernels, and the oracle of
+    both routes: the softmax recomputed from the stored logits, the
+    forward's dropout mask replayed.  g_out [B,N,H*D] and g_logits
+    [B,H,N,N] may be None.  Returns (dq, dk, dv) in q.dtype and dbias in
+    logits.dtype."""
     H = num_heads
     B, N, E = q.shape
     D = E // H
@@ -220,96 +289,167 @@ def pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, num_heads: i
             merge_heads(dv).to(v.dtype), dl.to(logits.dtype))
 
 
+def pair_bias_attention_stats_bwd_plain(q, k, v, logits, out, stats, g_out, g_logits,
+                                        num_heads: int, seed=None, dropout_rate: float = 0.0):
+    """Plain version of the bf16 (tensor-core) backward kernel, whole rows
+    at once: P = exp(logits - m) * inv from the forward's stats,
+    r = rowsum(g_out * out), dL = P * (keep*c*dP - r) + g_logits.  g_out and
+    g_logits may be None.  Returns (dq, dk, dv) in q.dtype and dbias in
+    logits.dtype."""
+    H = num_heads
+    B, N, E = q.shape
+    D = E // H
+    qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
+    p = torch.exp(logits.float() - stats[..., :1]) * stats[..., 1:]
+    if g_out is None:
+        dl = torch.zeros_like(p)
+        dv = torch.zeros_like(vh)
+    else:
+        keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device)
+        dl, dv = _stats_softmax_bwd(p, split_heads(g_out, H).float(),
+                                    split_heads(out, H).float(), vh, keep, dropout_rate)
+    if g_logits is not None:
+        dl = dl + g_logits.float()
+    dq = torch.matmul(dl, kh) * D ** -0.5
+    dk = torch.matmul(dl.transpose(-1, -2), qh) * D ** -0.5
+    return (*(merge_heads(t).to(q.dtype) for t in (dq, dk, dv)), dl.to(logits.dtype))
+
+
+def _check_pair(q, k, v, pair, num_heads, what):
+    B, N, _, D = _check_heads(q, k, v, num_heads, "pair-bias attention")
+    if k.shape[1] != N or pair.shape != (B, num_heads, N, N):
+        raise ValueError(f"pair-bias attention: {what} {tuple(pair.shape)} for q {tuple(q.shape)}")
+    return B, N, D
+
+
 def pair_bias_attention_cuda(q, k, v, bias, num_heads: int, seed=None,
                              dropout_rate: float = 0.0):
-    """Launch csrc/pair_bias_attention.cu's forward.  The logits come back
-    in bias.dtype (the pair dtype)."""
+    """Launch csrc/pair_bias_attention.cu's forward on the route of the
+    dtypes.  Returns (out, logits in bias.dtype, stats): stats [B,H,N,2]
+    fp32 on the "mma" route, None on the "rows" route."""
     _require_cuda((q, k, v, bias), ("q", "k", "v", "bias"))
-    B, N, _, D = _check_heads(q, k, v, num_heads, "pair-bias attention")
+    B, N, D = _check_pair(q, k, v, bias, num_heads, "bias")
     H = num_heads
-    if k.shape[1] != N or bias.shape != (B, H, N, N):
-        raise ValueError(f"pair-bias attention: bias {tuple(bias.shape)} for q {tuple(q.shape)}")
+    route = pair_bias_route(q.dtype, bias.dtype)
     seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
     out = torch.empty_like(q)
     logits = torch.empty_like(bias)
     lib = _build.load("pair_bias_attention")
-    rc = lib.mmdti_pair_bias_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        logits.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
-        _dtype_flag(bias, "bias"), _stream(q),
-    )
-    _build.check(rc, f"pair_bias_attention (B={B}, N={N}, H={H}, D={D})")
+    stats = None
+    if route == "mma":
+        _require_aligned((q, k, v, bias), ("q", "k", "v", "bias"))
+        stats = torch.empty((B, H, N, 2), dtype=torch.float32, device=q.device)
+        rc = lib.mmdti_pair_bias_attention_mma_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            logits.data_ptr(), stats.data_ptr(), seed_p, thr, scale, B, N, H, D, _stream(q))
+    else:
+        rc = lib.mmdti_pair_bias_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            logits.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
+            _dtype_flag(bias, "bias"), _stream(q))
+    _build.check(rc, f"pair_bias_attention {route} (B={B}, N={N}, H={H}, D={D})")
     pair_bias_attention_cuda.launches += 1
-    return out, logits
+    pair_bias_attention_cuda.routes[route] += 1
+    return out, logits, stats
 
 
 pair_bias_attention_cuda.launches = 0
+pair_bias_attention_cuda.routes = {"mma": 0, "rows": 0}
 
 
-def pair_bias_attention_bwd_cuda(q, k, v, logits, g_out, g_logits, num_heads: int,
+def pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits, num_heads: int,
                                  seed=None, dropout_rate: float = 0.0):
-    """Launch csrc/pair_bias_attention.cu's backward (two kernels).  g_out
-    and g_logits may be None: the kernel then reads nothing for them."""
-    _require_cuda((q, k, v, logits, g_out, g_logits),
-                  ("q", "k", "v", "logits", "g_out", "g_logits"))
-    B, N, _, D = _check_heads(q, k, v, num_heads, "pair-bias attention")
+    """Launch csrc/pair_bias_attention.cu's backward on the route of the
+    dtypes: on "mma" one kernel that reads the forward's out and stats, on
+    "rows" two kernels that recompute everything from the logits (out and
+    stats ignored).  g_out and g_logits may be None: the kernels then read
+    nothing for them."""
+    _require_cuda((q, k, v, logits, out, stats, g_out, g_logits),
+                  ("q", "k", "v", "logits", "out", "stats", "g_out", "g_logits"))
+    B, N, D = _check_pair(q, k, v, logits, num_heads, "logits")
     H = num_heads
-    if logits.shape != (B, H, N, N):
-        raise ValueError(f"pair-bias backward: logits {tuple(logits.shape)} for q {tuple(q.shape)}")
     if g_out is not None and (g_out.shape != q.shape or g_out.dtype != q.dtype):
         raise ValueError("g_out must match q in shape and dtype")
     if g_logits is not None and (g_logits.shape != logits.shape
                                  or g_logits.dtype != logits.dtype):
         raise ValueError("g_logits must match the logits in shape and dtype")
+    route = pair_bias_route(q.dtype, logits.dtype)
     seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(logits)
-    stats = torch.empty((B, H, N, 3), dtype=torch.float32, device=q.device)
     lib = _build.load("pair_bias_attention")
-    rc = lib.mmdti_pair_bias_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(), _ptr(g_out),
-        _ptr(g_logits), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-        stats.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
-        _dtype_flag(logits, "logits"), _stream(q),
-    )
-    _build.check(rc, f"pair_bias_attention_bwd (B={B}, N={N}, H={H}, D={D})")
+    if route == "mma":
+        if out is None or stats is None:
+            raise ValueError("the bf16 pair-bias backward needs the forward's out and stats")
+        if (out.shape != q.shape or out.dtype != q.dtype or stats.shape != (B, H, N, 2)
+                or stats.dtype != torch.float32):
+            raise ValueError(f"pair-bias backward: out {tuple(out.shape)} {out.dtype}, stats "
+                             f"{tuple(stats.shape)} {stats.dtype} for q {tuple(q.shape)}")
+        check_pair_mma_backward(N, D)
+        _require_aligned((q, k, v, logits, out, g_out, g_logits),
+                         ("q", "k", "v", "logits", "out", "g_out", "g_logits"))
+        rc = lib.mmdti_pair_bias_attention_mma_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(), out.data_ptr(),
+            stats.data_ptr(), _ptr(g_out), _ptr(g_logits), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), seed_p, thr, scale, B, N, H, D, _stream(q))
+    else:
+        ws = torch.empty((B, H, N, 3), dtype=torch.float32, device=q.device)
+        rc = lib.mmdti_pair_bias_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(), _ptr(g_out),
+            _ptr(g_logits), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+            ws.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
+            _dtype_flag(logits, "logits"), _stream(q))
+    _build.check(rc, f"pair_bias_attention_bwd {route} (B={B}, N={N}, H={H}, D={D})")
     pair_bias_attention_bwd_cuda.launches += 1
+    pair_bias_attention_bwd_cuda.routes[route] += 1
     return dq, dk, dv, dbias
 
 
 pair_bias_attention_bwd_cuda.launches = 0
+pair_bias_attention_bwd_cuda.routes = {"mma": 0, "rows": 0}
 
 
 class PairBiasAttention(torch.autograd.Function):
     """The pair-bias kernel pair as one differentiable op: apply(q, k, v,
     bias, num_heads, seed, dropout_rate) -> (out, logits in bias.dtype).
-    The backward gets None for an output the loss does not read (the last
-    layer's logits) and passes it on as absent."""
+    bf16 q/k/v with a bf16 pair take the "mma" route and save out and the
+    row stats for the backward; otherwise the "rows" route, whose backward
+    recomputes everything from the logits.  CPU tensors run each route's
+    plain versions.  The backward gets None for an output the loss does not
+    read (the last layer's logits) and passes it on as absent."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, num_heads, seed, dropout_rate):
-        if q.device.type == "cpu":
-            out, logits = pair_bias_attention_plain(q, k, v, bias, num_heads, bias.dtype,
-                                                    seed, dropout_rate)
+        if q.device.type != "cpu":
+            out, logits, stats = pair_bias_attention_cuda(q, k, v, bias, num_heads, seed,
+                                                          dropout_rate)
         else:
-            out, logits = pair_bias_attention_cuda(q, k, v, bias, num_heads, seed,
-                                                   dropout_rate)
-        ctx.save_for_backward(q, k, v, logits)
+            out, logits, stats = pair_bias_attention_plain(q, k, v, bias, num_heads, bias.dtype,
+                                                           seed, dropout_rate)
+        mma = pair_bias_route(q.dtype, bias.dtype) == "mma"
+        ctx.save_for_backward(q, k, v, logits, *((out, stats) if mma else ()))
         ctx.num_heads, ctx.seed, ctx.dropout_rate = num_heads, seed, dropout_rate
         ctx.set_materialize_grads(False)
         return out, logits
 
     @staticmethod
     def backward(ctx, g_out, g_logits):
-        q, k, v, logits = ctx.saved_tensors
+        q, k, v, logits, *saved = ctx.saved_tensors
         if g_out is not None:
             g_out = g_out.to(q.dtype).contiguous()
         if g_logits is not None:
             g_logits = g_logits.to(logits.dtype).contiguous()
-        bwd = pair_bias_attention_bwd_plain if q.device.type == "cpu" else pair_bias_attention_bwd_cuda
-        dq, dk, dv, dbias = bwd(q, k, v, logits, g_out, g_logits, ctx.num_heads, ctx.seed,
-                                ctx.dropout_rate)
-        return dq, dk, dv, dbias, None, None, None
+        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate)
+        if q.device.type != "cpu":
+            out, stats = saved or (None, None)
+            grads = pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits,
+                                                 *rest)
+        elif saved:
+            grads = pair_bias_attention_stats_bwd_plain(q, k, v, logits, *saved, g_out,
+                                                        g_logits, *rest)
+        else:
+            grads = pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, *rest)
+        return (*grads, None, None, None)
 
 
 def pair_bias_attention_fused(q, k, v, bias, *, num_heads: int,
@@ -389,21 +529,11 @@ def masked_attention_stats_bwd_plain(q, k, v, mask, out, stats, g_out, num_heads
     B, Nq, E = q.shape
     D = E // H
     qh, kh, vh, gh, oh = (split_heads(t, H).float() for t in (q, k, v, g_out, out))
-    logits = _masked_logits(qh, kh, mask, D)
-    p = torch.exp(logits - stats[..., :1]) * stats[..., 1:]
-    r = (gh * oh).sum(dim=-1, keepdim=True)
-    dp = torch.matmul(gh, vh.transpose(-1, -2))
-    pd = p
+    p = torch.exp(_masked_logits(qh, kh, mask, D) - stats[..., :1]) * stats[..., 1:]
     keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
-    if keep is not None:
-        c = drop.keep_scale(dropout_rate)
-        zero = torch.zeros((), dtype=p.dtype, device=p.device)
-        dp = torch.where(keep, dp * c, zero)
-        pd = torch.where(keep, p * c, zero)
-    ds = p * (dp - r)
+    ds, dv = _stats_softmax_bwd(p, gh, oh, vh, keep, dropout_rate)
     dq = torch.matmul(ds, kh) * D ** -0.5
     dk = torch.matmul(ds.transpose(-1, -2), qh) * D ** -0.5
-    dv = torch.matmul(pd.transpose(-1, -2), gh)
     return tuple(merge_heads(t).to(q.dtype) for t in (dq, dk, dv))
 
 
@@ -412,14 +542,6 @@ def _check_mask(mask, B, Nk):
         raise ValueError(f"masked attention: mask {tuple(mask.shape)}, expected {(B, Nk)}")
     if mask.dtype != torch.float32:
         raise TypeError(f"mask must be float32, got {mask.dtype}")
-
-
-def _require_aligned(tensors, names):
-    """The tensor-core kernels load rows with 16-byte cp.async: each
-    tensor's data must start on 16 bytes."""
-    for t, n in zip(tensors, names):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{n} must start on a 16-byte boundary for the bf16 kernels")
 
 
 def masked_attention_cuda(q, k, v, mask, num_heads: int, seed=None,

@@ -9,8 +9,9 @@ Without a CUDA device every test here skips.  Tolerances: fp32 atol 1e-4
 rtol 1e-2 / atol 5e-2 on the stored logits, as tests/test_pallas.py:69-73.
 Gradients are held to the same bounds scaled by the largest magnitude of
 the plain version's gradient (they are sums over a whole row or column).
-bf16 masked attention runs the tensor-core ("mma") route, fp32 the row
-kernels; the route counters say which ran.
+bf16 attention (bf16 q/k/v, and a bf16 pair for pair-bias) runs the
+tensor-core ("mma") route, anything fp32 the row kernels; the route counters
+say which ran.
 """
 
 import numpy as np
@@ -53,7 +54,7 @@ def test_pair_bias_kernel_matches_plain(cuda, dtype, N):
     before = ha.pair_bias_attention_cuda.launches
     out, logits = ha.pair_bias_attention_fused(*args, num_heads=H, pair_dtype=dtype)
     assert ha.pair_bias_attention_cuda.launches == before + 1
-    want_o, want_l = ha.pair_bias_attention_plain(*args, H, dtype)
+    want_o, want_l, _ = ha.pair_bias_attention_plain(*args, H, dtype)
     torch.testing.assert_close(out.float(), want_o.float(), atol=_tol(dtype), rtol=0)
     assert torch.equal(torch.isneginf(logits), torch.isneginf(want_l))
     fin = torch.isfinite(want_l)
@@ -161,8 +162,8 @@ def test_attention_forwards_drop_what_the_plain_versions_drop(cuda, dtype):
     q, k, v = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, dtype) for _ in range(3))
     bias = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype)
     seed = _seed(cuda)
-    out, _ = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, rate)
-    want, _ = ha.pair_bias_attention_plain(q, k, v, bias, H, dtype, seed, rate)
+    out, _, _ = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, rate)
+    want = ha.pair_bias_attention_plain(q, k, v, bias, H, dtype, seed, rate)[0]
     torch.testing.assert_close(out.float(), want.float(), atol=_tol(dtype), rtol=0)
     mask = torch.zeros(B, N, device=cuda)
     got, _ = ha.masked_attention_cuda(q, k, v, mask, H, seed, rate)
@@ -174,22 +175,166 @@ def test_attention_forwards_drop_what_the_plain_versions_drop(cuda, dtype):
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("with_g_logits", [True, False])
 def test_pair_bias_backward_kernel_matches_plain(cuda, dtype, rate, with_g_logits):
+    """The backward from the forward kernel's logits (and, on the bf16
+    route, its out and row stats) against the recompute oracle."""
     B, H, D, N = 2, 64, 8, 72
     rng = np.random.RandomState(4)
     q, k, v, g = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, dtype) for _ in range(4))
-    logits = rng.randn(B, H, N, N).astype(np.float32)
-    logits[1, :, :, N - 9:] = -np.inf
-    logits = _t(logits, cuda, dtype)
+    bias = rng.randn(B, H, N, N).astype(np.float32)
+    bias[1, :, :, N - 9:] = -np.inf
+    bias = _t(bias, cuda, dtype)
     gl = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype) if with_g_logits else None
     seed = _seed(cuda)
+    out, logits, stats = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, rate)
     before = ha.pair_bias_attention_bwd_cuda.launches
-    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, g, gl, H, seed, rate)
+    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g, gl, H, seed, rate)
     assert ha.pair_bias_attention_bwd_cuda.launches == before + 1
     want = ha.pair_bias_attention_bwd_plain(q, k, v, logits, g, gl, H, seed, rate)
-    again = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, g, gl, H, seed, rate)
+    again = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g, gl, H, seed, rate)
     for a, b, c in zip(got, want, again):
         assert torch.equal(a, c)  # deterministic
         torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(dtype, b), rtol=0)
+
+
+# (N, rate, cotangents): tile edges of the 64-row tensor-core tiles (8, 64,
+# 65 with rows that are not 16-byte aligned) and the top atom bucket 280
+PAIR_MMA_CASES = [(N, rate, cot) for N in (8, 64, 65, 280) for rate in (0.0, 0.1)
+                  for cot in ("both", "no_g_logits", "no_g_out")]
+
+
+@pytest.mark.parametrize("N,rate,cot", PAIR_MMA_CASES)
+def test_pair_bias_mma_kernels_match_plain(cuda, N, rate, cot):
+    """bf16 q/k/v and pair: the tensor-core forward against the plain
+    version (out, logits, row stats), the one-launch backward against the
+    stats plain version and the recompute oracle, repeated backwards
+    bit-equal, every launch on the "mma" route."""
+    B, H, D = 2, 64, 8
+    bf = torch.bfloat16
+    rng = np.random.RandomState(11)
+    q, k, v, g = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, bf) for _ in range(4))
+    bias = rng.randn(B, H, N, N).astype(np.float32)
+    bias[1, :, :, max(1, N - 9):] = -np.inf
+    bias[0, :, N // 2, :] = -np.inf   # a query row that sees no key
+    bias = _t(bias, cuda, bf)
+    gl = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, bf)
+    g = None if cot == "no_g_out" else g
+    gl = None if cot == "no_g_logits" else gl
+    seed = _seed(cuda, 31) if rate else None
+    routes = dict(ha.pair_bias_attention_cuda.routes), dict(ha.pair_bias_attention_bwd_cuda.routes)
+
+    out, logits, stats = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, rate)
+    want_o, want_l, want_s = ha.pair_bias_attention_plain(q, k, v, bias, H, bf, seed, rate)
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2, rtol=0)
+    assert torch.equal(torch.isneginf(logits), torch.isneginf(want_l))
+    fin = torch.isfinite(want_l)
+    torch.testing.assert_close(logits[fin].float(), want_l[fin].float(), atol=5e-2, rtol=1e-2)
+    assert torch.equal(out[0, N // 2], torch.zeros_like(out[0, N // 2]))   # the guard
+    torch.testing.assert_close(stats[..., 0], want_s[..., 0], atol=1e-2, rtol=1e-3)
+    torch.testing.assert_close(stats[..., 1], want_s[..., 1], atol=0, rtol=1e-2)
+
+    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g, gl, H, seed, rate)
+    again = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g, gl, H, seed, rate)
+    plain = ha.pair_bias_attention_stats_bwd_plain(q, k, v, logits, out, stats, g, gl, H, seed,
+                                                   rate)
+    oracle = ha.pair_bias_attention_bwd_plain(q, k, v, logits, g, gl, H, seed, rate)
+    for a, b, c, o in zip(got, again, plain, oracle):
+        assert torch.equal(a, b)  # deterministic: no atomics
+        torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(bf, c), rtol=0)
+        torch.testing.assert_close(a.float(), o.float(), atol=_grad_tol(bf, o), rtol=0)
+    if g is None:
+        assert torch.equal(got[2], torch.zeros_like(got[2]))
+    assert ha.pair_bias_attention_cuda.routes == {**routes[0], "mma": routes[0]["mma"] + 1}
+    assert ha.pair_bias_attention_bwd_cuda.routes == {**routes[1], "mma": routes[1]["mma"] + 2}
+
+
+@pytest.mark.parametrize("qkv,pair", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.float32),
+                                      (torch.float32, torch.bfloat16)])
+def test_pair_bias_with_fp32_stays_on_the_row_kernels(cuda, qkv, pair):
+    B, H, D, N = 2, 8, 8, 40
+    rng = np.random.RandomState(12)
+    q, k, v, g = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, qkv) for _ in range(4))
+    bias = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, pair)
+    routes = dict(ha.pair_bias_attention_cuda.routes), dict(ha.pair_bias_attention_bwd_cuda.routes)
+    out, logits, stats = ha.pair_bias_attention_cuda(q, k, v, bias, H)
+    assert stats is None
+    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, None, None, g, None, H)
+    want = ha.pair_bias_attention_bwd_plain(q, k, v, logits, g, None, H)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(torch.bfloat16, b),
+                                   rtol=0)
+    assert ha.pair_bias_attention_cuda.routes == {**routes[0], "rows": routes[0]["rows"] + 1}
+    assert ha.pair_bias_attention_bwd_cuda.routes == {**routes[1], "rows": routes[1]["rows"] + 1}
+
+
+def test_bf16_attention_ops_launch_the_mma_kernels(cuda):
+    """Both differentiable ops in bf16 (a bf16 pair for pair-bias) go to the
+    tensor-core route, forward and backward, and their gradients match the
+    oracles."""
+    B, H, D, N = 2, 8, 8, 70
+    bf = torch.bfloat16
+    rng = np.random.RandomState(13)
+    q, k, v = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, bf).requires_grad_()
+               for _ in range(3))
+    bias = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, bf).requires_grad_()
+    mask = torch.zeros(B, N, device=cuda)
+    counters = (ha.pair_bias_attention_cuda, ha.pair_bias_attention_bwd_cuda,
+                ha.masked_attention_cuda, ha.masked_attention_bwd_cuda)
+    before = [c.routes["mma"] for c in counters]
+    seed = _seed(cuda, 5)
+    out, logits = ha.pair_bias_attention_fused(q, k, v, bias, num_heads=H, pair_dtype=bf,
+                                               dropout_rate=0.1, seed=seed, deterministic=False)
+    out2 = ha.masked_attention_fused(out, k, v, mask, num_heads=H)
+    g2 = _t(rng.randn(B, N, H * D).astype(np.float32), cuda, bf)
+    gl = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, bf)
+    grads = torch.autograd.grad((out2, logits), (q, k, v, bias), (g2, gl))
+    assert [c.routes["mma"] for c in counters] == [n + 1 for n in before]
+    assert all(torch.isfinite(t).all() for t in grads)
+    # the pair-bias op alone against the oracle
+    out, logits = ha.pair_bias_attention_fused(q, k, v, bias, num_heads=H, pair_dtype=bf,
+                                               dropout_rate=0.1, seed=seed, deterministic=False)
+    grads = torch.autograd.grad((out, logits), (q, k, v, bias), (g2, gl))
+    want = ha.pair_bias_attention_bwd_plain(q.detach(), k.detach(), v.detach(), logits.detach(),
+                                            g2, gl, H, seed, 0.1)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(bf, b), rtol=0)
+
+
+@pytest.mark.parametrize("D,N", [(16, 130), (32, 65), (64, 130)])
+def test_pair_bias_mma_kernels_at_other_head_dims(cuda, D, N):
+    """The other instantiated head dims of the tensor-core kernels, over
+    more than one 64-row tile, with dropout."""
+    B, H = 2, 4
+    bf = torch.bfloat16
+    rng = np.random.RandomState(14)
+    q, k, v, g = (_t(rng.randn(B, N, H * D).astype(np.float32), cuda, bf) for _ in range(4))
+    bias = rng.randn(B, H, N, N).astype(np.float32)
+    bias[1, :, :, N - 3:] = -np.inf
+    bias = _t(bias, cuda, bf)
+    gl = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, bf)
+    seed = _seed(cuda, 17)
+    out, logits, stats = ha.pair_bias_attention_cuda(q, k, v, bias, H, seed, 0.1)
+    want_o, want_l, _ = ha.pair_bias_attention_plain(q, k, v, bias, H, bf, seed, 0.1)
+    torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2, rtol=0)
+    fin = torch.isfinite(want_l)
+    torch.testing.assert_close(logits[fin].float(), want_l[fin].float(), atol=5e-2, rtol=1e-2)
+    got = ha.pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g, gl, H, seed, 0.1)
+    want = ha.pair_bias_attention_stats_bwd_plain(q, k, v, logits, out, stats, g, gl, H, seed,
+                                                  0.1)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=_grad_tol(bf, b), rtol=0)
+
+
+def test_bf16_pair_bias_backward_rejects_what_it_does_not_take(cuda):
+    B, H, D, N = 1, 2, 64, 449   # dq and the row stats outgrow shared memory
+    bf = torch.bfloat16
+    q = torch.zeros(B, N, H * D, device=cuda, dtype=bf)
+    logits = torch.zeros(B, H, N, N, device=cuda, dtype=bf)
+    stats = torch.zeros(B, H, N, 2, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ha.pair_bias_attention_bwd_cuda(q, q, q, logits, q, stats, q, None, H)
+    with pytest.raises(ValueError, match="out and stats"):
+        ha.pair_bias_attention_bwd_cuda(q, q, q, logits, None, None, q, None, H)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -79,7 +79,7 @@ class TestPairBiasAttention:
         o_x, l_x = pair_bias_attention_xla(
             *(_heads(jnp.asarray(t), H) for t in (q, k, v)), jnp.asarray(bias)
         )
-        o_t, l_t = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), H)
+        o_t, l_t, _ = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), H)
         np.testing.assert_allclose(o_t.numpy(), _tokens(np.asarray(o_x)), atol=ATOL)
         l_x = np.asarray(l_x)
         fin = np.isfinite(l_x)
@@ -92,7 +92,7 @@ class TestPairBiasAttention:
         o_p, l_p = pa.pair_bias_attention_pallas(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), num_heads=H
         )
-        o_t, l_t = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), H)
+        o_t, l_t, _ = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), H)
         np.testing.assert_allclose(o_t.numpy(), np.asarray(o_p), atol=ATOL)
         fin = np.isfinite(np.asarray(l_p))
         np.testing.assert_allclose(l_t.numpy()[fin], np.asarray(l_p)[fin], atol=ATOL)
@@ -120,7 +120,7 @@ class TestPairBiasAttention:
         """The TPU kernel's guard: a row whose keys are all -inf gives 0."""
         q, k, v, _, _, bias = _pair_inputs(H=2, N=8, D=4)
         bias[0, :, 2, :] = -np.inf
-        out, _ = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), 2)
+        out = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), 2)[0]
         assert np.isfinite(out.numpy()).all()
         np.testing.assert_array_equal(out.numpy()[0, 2], 0.0)
 
@@ -227,7 +227,7 @@ class TestDispatch:
         before = [c.launches for c in counters]
         q, k, v, _, pad, bias = _pair_inputs(H=2, N=8, D=4)
         o, l = ha.pair_bias_attention_fused(_tt(q), _tt(k), _tt(v), _tt(bias), num_heads=2)
-        o2, l2 = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), 2)
+        o2, l2, _ = ha.pair_bias_attention_plain(_tt(q), _tt(k), _tt(v), _tt(bias), 2)
         assert torch.equal(o, o2) and torch.equal(l, l2)
         q, k, v, mask = _masked_inputs(H=2, Nq=8, Nk=12, D=4)
         assert torch.equal(
@@ -261,7 +261,7 @@ class TestDispatch:
 
         def grads(fn):
             ins = [_tt(t).requires_grad_() for t in (q, k, v)]
-            out, _ = fn(*ins)
+            out = fn(*ins)[0]
             (out * g).sum().backward()
             return [t.grad for t in ins]
 
