@@ -18,34 +18,41 @@ Phases, one result line each; any failure exits non-zero:
    the recompute oracle, repeated calls bit-equal, with profiler device
    times: masked beside SDPA's forward and forward + autograd backward,
    pair-bias beside the row kernels it replaced at the same bf16 inputs and
-   SDPA with the bias as a float mask, a partial yardstick; gbf's device
-   times too), and the LayerNorm forward
+   SDPA with the bias as a float mask, a partial yardstick), the fused
+   Gaussian + gbf_proj forward and backward (fp32 on the FMA route; bf16 on
+   the tensor-core route at N=64, 280 and 65, both activations, H=64 and
+   96; device times beside the FMA kernels on the same bf16 inputs, the
+   function unfused in bf16 PyTorch and the special-function floor;
+   repeated backwards bit-equal), and the LayerNorm forward
    and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
    eps 1e-5 and 1e-12; repeated backwards must give bit-equal dscale and
    dbias).  Each line has the max
    error beside its tolerance, the kernel's time, the plain version's, the
    PyTorch library call's where one computes the same function (SDPA for
    the masked forward), and the bound: the least time the card could take
-   for the same bytes and operations (CUDA events, median of 25 launches);
+   for the same bytes and operations (CUDA events, median of 25 launches).
+   Device times come from a torch.profiler window of n calls that must
+   hold n times each kernel's launches of one call;
 4. a flagship-width MolServe on the card (weights drawn from a seeded
    torch.Generator) answers requests of 1, 8 and 20 SMILES; prints the
    per-request p50, the kernel launch counts of that run (gbf 1, pair-bias
-   15, masked 8 per forward, no backward, the attention on the tensor-core
+   15, masked 8 per forward, no backward, all three on the tensor-core
    route) and the largest logit difference
    between the kernel path and the same weights on the plain path;
 5. train: the flagship model (bf16 compute, bf16 pair logits) on a batch of
    32 molecules featurized and collated on the host (N=L=64), regression
    (MSE + InfoNCE + ct_regress): (a) one step's loss and gradients, dropout
    off, on the kernel path against the plain path, at L=64 and at the top
-   SMILES bucket L=512, every masked launch on the tensor-core route; (b)
+   SMILES bucket L=512, every gbf and attention launch on the tensor-core
+   route; (b)
    30 steps with
    dropout on, each loss finite and the last below the first; (c) step time
    p50, mols/s and launches per step (exactly gbf 1/1, pair-bias 15/15,
-   masked 8/8 forward/backward, the attention all on the tensor-core
-   route), a torch.profiler summary of 3 steps (device time, the pair-bias
-   and masked kernels' shares) and the launches of one clip + Adam update;
-   (d) one step at the top atom bucket N=280 with its peak memory, device
-   time and the pair-bias kernels' share of it;
+   masked 8/8 forward/backward, all on the tensor-core route), a
+   torch.profiler summary of 3 steps (device time, the gbf, pair-bias and
+   masked kernels' shares) and the launches of one clip + Adam update;
+   (d) one step at the top atom bucket N=280 with its routes (all on the
+   tensor cores), peak memory, device time and the kernels' shares;
    (e) one step at N=64, L=512: masked launches per route, device time, the
    masked kernels' share of it and peak memory;
 6. fit, with MMDTI_PALLAS_LN=1 for this phase only: the 400-molecule
@@ -53,7 +60,8 @@ Phases, one result line each; any failure exits non-zero:
    MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
    3 epochs, dropout, InfoNCE, CT, sample weights, FDS) and
    MolPredict.predict(test); prints the featurization and per-epoch
-   seconds, the LayerNorm launch counts (forward, backward and reduce,
+   seconds, the gbf routes (every launch on the tensor cores), the
+   LayerNorm launch counts (forward, backward and reduce,
    checked against the 49 LayerNorms of a forward), the artifacts, the
    reloaded predictions against the fit's own, the kernel path against the
    plain path on the same checkpoint, and the test RMSE (a record);
@@ -130,8 +138,11 @@ SDPA_PAIR_IS = ("SDPA with the bias as a float attn_mask: a partial yardstick, i
 # per-case numbers that the main case also carries into the kernels line;
 # the case's "route" (the attention's dtype route) goes there as
 # "dtype_route", since that line's "route" names the language (cuda)
+GBF_UNFUSED_IS = ("the same function unfused in bf16 PyTorch (G materialized, torch.matmul): a "
+                  "partial yardstick, not one library call")
 SUMMARY_EXTRAS = ("device_ms", "fwd_bwd_device_ms", "rows_device_ms", "rows_fwd_bwd_device_ms",
-                  "sdpa_device_ms", "sdpa_fwd_bwd_device_ms", "library_device_ms")
+                  "sdpa_device_ms", "sdpa_fwd_bwd_device_ms", "library_device_ms", "fma_device_ms",
+                  "unfused_device_ms", "unfused_fwd_bwd_device_ms", "sfu_floor_ms")
 
 
 class Failed(RuntimeError):
@@ -186,20 +197,43 @@ def _time_ms(fn, iters=25, warmup=3):
     return statistics.median(times)
 
 
-def _device_ms(fn, n=20):
-    """Device time per call: the CUDA kernels' own time in a torch.profiler
-    window of n calls, over n (the host's issue time left out)."""
+def _kernel_events(fn, n):
+    """{kernel name: (launches, device us)} of n calls of fn in one
+    torch.profiler window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / n / 1e3
+    return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+REJECTED_WINDOWS = []   # profiler windows _device_ms threw away, printed by phase 3
+
+
+def _device_ms(fn, n=20, tries=3):
+    """Device time per call: the CUDA kernels' own time in a torch.profiler
+    window of n calls, over n (the host's issue time left out).  One
+    profiled call first gives each kernel name's launches per call; a window
+    that does not hold exactly n times as many of each (the profiler lost
+    or kept events) is thrown away and taken again, at most `tries` times,
+    then the reading fails."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        per_call = {k: c for k, (c, _) in _kernel_events(fn, 1).items()}
+        window = _kernel_events(fn, n)
+        counts = {k: c for k, (c, _) in window.items()}
+        if per_call and counts == {k: c * n for k, c in per_call.items()}:
+            return sum(us for _, us in window.values()) / n / 1e3
+        REJECTED_WINDOWS.append({"per_call": per_call, f"window_of_{n}": counts})
+    raise Failed(f"profiler windows lost or gained kernels {tries} times: "
+                 f"{REJECTED_WINDOWS[-tries:]}")
 
 
 def _bound(nbytes, flops, prec):
@@ -487,6 +521,172 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
                            extra)
 
 
+class _GbfFma:
+    """The FMA-unit gbf kernels, the route bf16 took before the tensor-core
+    kernels, launched through their C entry points with bf16 compute on the
+    same inputs for device times beside the "mma" route (not counted as
+    launches)."""
+
+    def __init__(self, u, means, std, w1, b1, w2, b2, pad, g, act, pair_dtype):
+        import torch
+
+        from mmdti_tpu_torch.ops import _build
+        from mmdti_tpu_torch.ops import hopper_gbf as hg
+
+        B, N, _ = u.shape
+        K, H = means.shape[0], w2.shape[0]
+        dev = u.device
+        self.lib = _build.load("gbf_proj")
+        self.out = torch.empty((B, H, N, N), dtype=pair_dtype, device=dev)
+        self.du = torch.empty_like(u)
+        sizes = K * K + H * K + K + H + 2 * K
+        self.grads = torch.empty(sizes, dtype=torch.float32, device=dev)
+        self.max_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.partials = torch.empty(self.max_blocks * sizes, dtype=torch.float32, device=dev)
+        self.ins = [t.data_ptr() for t in (u, means, std, w1, b1, w2)]
+        self.b2, self.pad, self.g = b2.data_ptr(), pad.data_ptr(), g.data_ptr()
+        self.shape = (B, N, K, K, H, 1)
+        self.tail = (int(pair_dtype == torch.bfloat16), hg.ACTIVATIONS[act], hg.SQRT_2PI,
+                     torch.cuda.current_stream(dev).cuda_stream)
+
+    def fwd(self):
+        rc = self.lib.mmdti_gbf_proj_fwd(*self.ins, self.b2, self.pad, self.out.data_ptr(),
+                                         *self.shape, *self.tail)
+        if rc:
+            raise Failed(f"gbf FMA forward failed with cudaError_t {rc}")
+
+    def bwd(self):
+        rc = self.lib.mmdti_gbf_proj_bwd(*self.ins, self.pad, self.g, self.du.data_ptr(),
+                                         self.grads.data_ptr(), self.partials.data_ptr(),
+                                         self.max_blocks, *self.shape, *self.tail)
+        if rc:
+            raise Failed(f"gbf FMA backward failed with cudaError_t {rc}")
+
+
+class _GbfUnfused:
+    """The gbf function unfused in PyTorch: G [B,N,N,K] materialized and
+    rounded to bf16, the two layers as bf16 torch.matmul, the padding merge
+    and the permute to [B,H,N,N]; forward, and forward + autograd backward."""
+
+    def __init__(self, u, means, std, w1, b1, w2, b2, pad, g, act, pair_dtype):
+        import torch
+
+        bf = torch.bfloat16
+        self.leaves = [t.detach().clone().requires_grad_()
+                       for t in (u, means, std, w1.to(bf), b1.to(bf), w2.to(bf), b2.to(bf))]
+        self.pad, self.g, self.act, self.pair = pad[:, None, None, :], g, act, pair_dtype
+
+    def fwd(self):
+        import torch
+
+        from mmdti_tpu_torch.ops import hopper_gbf as hg
+
+        u, means, std, w1, b1, w2, b2 = self.leaves
+        gk = hg.gaussian_pdf(u[..., None], means, std).to(torch.bfloat16)
+        h = hg._act(self.act, torch.matmul(gk, w1.t()) + b1)
+        o = (torch.matmul(h, w2.t()) + b2).permute(0, 3, 1, 2)
+        return o.masked_fill(self.pad, float("-inf")).to(self.pair).contiguous()
+
+    def fwd_bwd(self):
+        import torch
+
+        return torch.autograd.grad(self.fwd(), self.leaves, self.g)
+
+
+def _sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def _gbf_cases(dev, gen, record, B=32, K=128):
+    """The fused Gaussian + gbf_proj forward and backward against their plain
+    versions at B=32, K=Kh=128, padded keys.  fp32 runs the FMA route; bf16
+    the tensor-core route at N=64, 280 and 65 (no 16-byte alignment), both
+    activations, H=64 and, at N=64, 96.  Beside the main bf16 cases' device
+    times: the FMA kernels on the same bf16 inputs, the function unfused in
+    bf16 PyTorch (a partial yardstick) and the special-function floor (K ex2
+    and, for the tanh gelu, Kh tanh a pair at 16 a clock an SM)."""
+    import torch
+
+    from mmdti_tpu_torch.ops import hopper_gbf as hg
+
+    sfu_per_s = 16 * torch.cuda.get_device_properties(dev).multi_processor_count * _sm_clock_hz()
+    cases = [(N, 64, "gelu_tanh", "fp32") for N in (64, 280)]
+    cases += [(N, 64, act, "bf16") for N in (64, 280, 65) for act in ("gelu_tanh", "gelu")]
+    cases += [(64, 96, "gelu_tanh", "bf16")]
+    params = {}
+    for N, H, act, prec in cases:
+        dt = torch.float32 if prec == "fp32" else torch.bfloat16
+        if H not in params:
+            params[H] = (torch.rand(K, generator=gen).mul(3).to(dev),
+                         torch.rand(K, generator=gen).mul(3).to(dev),
+                         torch.randn(K, K, generator=gen).mul(0.02).to(dev),
+                         torch.randn(K, generator=gen).mul(0.02).to(dev),
+                         torch.randn(H, K, generator=gen).mul(0.02).to(dev),
+                         torch.randn(H, generator=gen).mul(0.02).to(dev))
+        means, stds, w1, b1, w2, b2 = params[H]
+        std = stds.abs() + 1e-5
+        lens = _padded_lengths(gen, B, N)
+        pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
+        u = (torch.rand(B, N, N, generator=gen) * 6).to(dev)
+        g = torch.randn(B, H, N, N, generator=gen).to(dev).to(dt)
+        P = B * N * N
+        route = hg.gbf_route(dt, K, K, H)
+        timed = prec == "bf16" and act == "gelu_tanh" and N != 65 and H == 64
+        main = N == 64 and timed
+        case = f"B={B} N={N} K={K} H={H} {act} padded keys"
+        sfu = P * (2 * K if act == "gelu_tanh" else K) / sfu_per_s * 1e3
+
+        args = (u, means, stds, w1, b1, w2, b2, pad)
+        kw = dict(activation=act, pair_dtype=dt, compute_dtype=dt)
+
+        def fwd():
+            return hg.gbf_pair_bias_fused(*args, **kw)
+
+        def plain_fwd():
+            return hg.gbf_pair_bias_plain(*args, **kw)
+
+        got, want = fwd(), plain_fwd()
+        torch.cuda.synchronize()
+        atol, rtol = TOL[prec]["out"]
+        e, ok = _err(got, want, atol, rtol)
+        extra = {"route": route, "device_ms": _device_ms(fwd)}
+        if timed:
+            fma = _GbfFma(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
+            unfused = _GbfUnfused(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
+            with torch.no_grad():
+                extra.update(fma_device_ms=_device_ms(fma.fwd),
+                             unfused_device_ms=_device_ms(unfused.fwd, n=5))
+            extra.update(sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)
+        record("gbf_proj", case, prec, {"out": (e, atol, ok)}, _time_ms(fwd),
+               _time_ms(plain_fwd, iters=10), None,
+               _bound(P * (4 + H * BYTES[prec]), 2 * P * (K * K + K * H), prec), main, extra)
+
+        bargs = (u, means, std, w1, b1, w2, g, pad, act, dt)
+
+        def bwd():
+            return hg.gbf_pair_bias_bwd_cuda(*bargs)
+
+        def plain_bwd():
+            return hg.gbf_pair_bias_bwd_plain(*bargs)
+
+        got, again, want = bwd(), bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        errs = _grad_errs(("du", "dmeans", "dstd", "dw1", "db1", "dw2", "db2"), got, want, prec)
+        bit_equal = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not bit_equal:
+            record.failures.append(f"gbf_proj_bwd {case} {prec}: repeated calls differ")
+        extra = {"route": route, "repeat_bit_equal": bit_equal, "device_ms": _device_ms(bwd)}
+        if timed:
+            extra.update(fma_device_ms=_device_ms(fma.bwd),
+                         unfused_fwd_bwd_device_ms=_device_ms(unfused.fwd_bwd, n=5),
+                         sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)
+        record("gbf_proj_bwd", case, prec, errs, _time_ms(bwd), _time_ms(plain_bwd, iters=10),
+               None, _bound(P * (8 + H * BYTES[prec]), 2 * P * (3 * K * K + 2 * K * H), prec),
+               main, extra)
+
+
 def phase_kernels(dev):
     """Each kernel vs its plain version; returns per-kernel summaries."""
     import torch
@@ -494,7 +694,6 @@ def phase_kernels(dev):
 
     from mmdti_tpu_torch.ops import dropout as drop
     from mmdti_tpu_torch.ops import hopper_attention as ha
-    from mmdti_tpu_torch.ops import hopper_gbf as hg
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -510,48 +709,9 @@ def phase_kernels(dev):
         return float(drop.keep_mask(int(seed), DROPOUT, B, H, Nq, Nk, device=dev).float().mean())
 
     _pair_bias_cases(dev, gen, seed, record)
+    _gbf_cases(dev, gen, record)
 
-    # ---- fused Gaussian + gbf_proj: B=32, K=Kh=128, H=64 -------------------
-    B, K, Hh = 32, 128, 64
-    means = torch.rand(K, generator=gen).mul(3).to(dev)
-    stds = torch.rand(K, generator=gen).mul(3).to(dev)
-    w1, w2 = randn(K, K) * 0.02, randn(Hh, K) * 0.02
-    b1, b2 = randn(K) * 0.02, randn(Hh) * 0.02
-    std = stds.abs() + 1e-5
-    for N in (64, 280):
-        lens = _padded_lengths(gen, B, N)
-        pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
-        u = (torch.rand(B, N, N, generator=gen) * 6).to(dev)
-        g = randn(B, Hh, N, N)
-        P = B * N * N
-        for prec, dt in precisions:
-            args = (u, means, stds, w1, b1, w2, b2, pad)
-            kw = dict(activation="gelu_tanh", pair_dtype=dt, compute_dtype=dt)
-            got = hg.gbf_pair_bias_fused(*args, **kw)
-            want = hg.gbf_pair_bias_plain(*args, **kw)
-            torch.cuda.synchronize()
-            atol, rtol = TOL[prec]["out"]
-            e, ok = _err(got, want, atol, rtol)
-            ms = _time_ms(lambda: hg.gbf_pair_bias_fused(*args, **kw))
-            pms = _time_ms(lambda: hg.gbf_pair_bias_plain(*args, **kw), iters=10)
-            extra = {"device_ms": _device_ms(lambda: hg.gbf_pair_bias_fused(*args, **kw))}
-            record("gbf_proj", f"B={B} N={N} K={K} H={Hh}", prec, {"out": (e, atol, ok)}, ms,
-                   pms, None, _bound(P * (4 + Hh * BYTES[prec]), 2 * P * (K * K + K * Hh), prec),
-                   N == 64 and prec == "bf16", extra)
-            bargs = (u, means, std, w1, b1, w2, g.to(dt), pad, "gelu_tanh", dt)
-            got = hg.gbf_pair_bias_bwd_cuda(*bargs)
-            want = hg.gbf_pair_bias_bwd_plain(*bargs)
-            torch.cuda.synchronize()
-            errs = _grad_errs(("du", "dmeans", "dstd", "dw1", "db1", "dw2", "db2"), got, want,
-                              prec)
-            ms = _time_ms(lambda: hg.gbf_pair_bias_bwd_cuda(*bargs))
-            pms = _time_ms(lambda: hg.gbf_pair_bias_bwd_plain(*bargs), iters=10)
-            extra = {"device_ms": _device_ms(lambda: hg.gbf_pair_bias_bwd_cuda(*bargs))}
-            record("gbf_proj_bwd", f"B={B} N={N} K={K} H={Hh} padded keys", prec, errs, ms, pms,
-                   None, _bound(P * (8 + Hh * BYTES[prec]), 2 * P * (3 * K * K + 2 * K * Hh),
-                                prec), N == 64 and prec == "bf16", extra)
-
-    # ---- masked attention: ChemBERTa (H=8, D=64) and cross-modal (H=16, D=32)
+    # ---- masked attention, B=32: ChemBERTa (H=8, D=64), cross-modal (H=16, D=32)
     # bf16 runs the tensor-core route (its forward also returns the row
     # stats, and its backward starts from out and the stats); fp32 the row
     # kernels.  Both backwards are also held to the recompute oracle.
@@ -561,6 +721,7 @@ def phase_kernels(dev):
         ("crossmodal", 16, 32, 64, 64, -10000.0),
         ("crossmodal", 16, 32, 280, 512, -10000.0),
     ]
+    B = 32
     for label, Hm, Dm, Nq, Nk, fill in cases:
         lens = _padded_lengths(gen, B, Nk)
         mask = ((torch.arange(Nk)[None, :] >= lens[:, None]).float() * fill).to(dev)
@@ -665,6 +826,8 @@ def phase_kernels(dev):
                        lms, _bound(bwd_bytes, 10 * B * Hm * Nq * Nk * Dm, prec),
                        main_shape and mma and rate > 0, extra)
     _layer_norm_cases(dev, gen, record)
+    print("kernels: " + json.dumps({"profiler_windows_rejected": len(REJECTED_WINDOWS),
+                                     "rejected": REJECTED_WINDOWS}), flush=True)
     if record.failures:
         raise Failed("kernel mismatch: " + "; ".join(record.failures))
     return record.summary
@@ -800,7 +963,7 @@ def phase_serve(dev):
     attn = _attention_launches(ucfg.encoder_layers, server.model.bert.cfg.num_hidden_layers
                                + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers,
                                backward=False)
-    per_fwd = {"gbf_proj": 1, **attn,
+    per_fwd = {**attn,
                "gbf_proj_bwd": 0, "pair_bias_attention_bwd": 0, "masked_attention_bwd": 0}
     for n, out in outs.items():
         if out["predict"].shape != (n, 1) or not np.isfinite(out["predict"]).all():
@@ -871,13 +1034,14 @@ def _profile_steps(step, args, n=3):
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in kernels)
     ours = ("attention_rows_kernel", "attention_bwd_rows_kernel", "attention_bwd_cols_kernel",
-            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "masked_mma_",
-            "pair_mma_")
+            "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "gbf_mma_",
+            "masked_mma_", "pair_mma_")
 
     def device_us(*names):
         return sum(e.self_device_time_total for e in kernels if any(o in e.key for o in names))
 
     own_us, masked_us, pair_us = device_us(*ours), device_us("masked_mma_"), device_us("pair_mma_")
+    gbf_us = device_us("gbf_")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "steps": n,
@@ -886,6 +1050,7 @@ def _profile_steps(step, args, n=3):
         "port_kernels_ms_per_step": own_us / n / 1e3,
         "masked_mma_kernels_ms_per_step": masked_us / n / 1e3,
         "pair_mma_kernels_ms_per_step": pair_us / n / 1e3,
+        "gbf_kernels_ms_per_step": gbf_us / n / 1e3,
         "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
                          "calls_per_step": e.count / n} for e in top],
     }
@@ -981,7 +1146,7 @@ def phase_train(dev):
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in events]
     p50 = statistics.median(step_ms)
-    per_step = {"gbf_proj": 1, "gbf_proj_bwd": 1, **attn}
+    per_step = attn
     print("train: " + json.dumps({
         "steps": TRAIN_STEPS, "dropout": "on", "first_loss": losses[0], "last_loss": losses[-1],
         "losses": losses, "step_ms_p50": p50, "step_ms_min": min(step_ms),
@@ -1005,19 +1170,23 @@ def phase_train(dev):
     feats280 = _train_batch(dev, 280, 64, B)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     a.record()
     loss280 = float(step(feats280, labels, weights, gen)["loss"])
     b.record()
     torch.cuda.synchronize()
+    routes280 = _read_routes()
     peak280 = torch.cuda.max_memory_allocated(dev)
     print("train: " + json.dumps({
         "step": "top atom bucket", "B": B, "N": 280, "L": 64, "loss": loss280,
         "step_ms": a.elapsed_time(b), "max_memory_allocated_bytes": peak280,
+        "routes": routes280,
         "profile": _profile_steps(step, (feats280, labels, weights, gen), n=2),
     }), flush=True)
     if not loss280 == loss280 or abs(loss280) == float("inf"):
         raise Failed(f"train: N=280 step gave loss {loss280}")
+    _check_mma_routes(routes280, attn, "train N=280")
 
     # (e) one step at the top SMILES bucket L=512 (N=64): launches per
     # route, device time and the masked kernels' share of it, peak memory
@@ -1046,18 +1215,20 @@ def phase_train(dev):
 
 
 def _check_mma_routes(routes, expected, what):
-    """Every attention launch of a bf16 run went to the tensor-core route:
-    expected maps a launcher to its number of launches."""
+    """Every attention and gbf launch of a bf16 run went to the tensor-core
+    route: expected maps a launcher to its number of launches."""
     for k, n in expected.items():
-        if routes[k] != {"mma": n, "rows": 0}:
+        if routes[k]["mma"] != n or sum(routes[k].values()) != n:
             raise Failed(f"{what} {k}: routes {routes[k]}, expected {n} on mma")
 
 
 def _attention_launches(n_pair, n_masked, backward=True):
-    """Launches per attention launcher of one forward (and backward)."""
-    per = {"pair_bias_attention": n_pair, "masked_attention": n_masked}
+    """Launches per launcher of one forward (and backward) of the kernels
+    with a tensor-core route: gbf 1, pair-bias n_pair, masked n_masked."""
+    per = {"gbf_proj": 1, "pair_bias_attention": n_pair, "masked_attention": n_masked}
     if backward:
-        per.update(pair_bias_attention_bwd=n_pair, masked_attention_bwd=n_masked)
+        per.update(gbf_proj_bwd=1, pair_bias_attention_bwd=n_pair,
+                   masked_attention_bwd=n_masked)
     return per
 
 
@@ -1148,7 +1319,7 @@ def phase_fit(dev):
         clf.fit(paths["train"], paths["val"])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_counts = _read_counts()
+        fit_counts, fit_routes = _read_counts(), _read_routes()
         test_pred = MolPredict(load_model=exp).predict(paths["test"],
                                                       save_path=os.path.join(work, "out"))
         launches = _read_counts()
@@ -1187,6 +1358,7 @@ def phase_fit(dev):
                                                     "layer_norm_bwd_reduce")},
         "fit_ln_backward_per_step": fit_counts["layer_norm_bwd"] / train_steps,
         "fit_ln_forward_per_step_incl_eval": fit_counts["layer_norm"] / train_steps,
+        "fit_gbf_routes": {k: fit_routes[k] for k in ("gbf_proj", "gbf_proj_bwd")},
         "artifacts": sorted(os.listdir(exp)),
         "predict_files": sorted(os.listdir(os.path.join(work, "out"))),
         "reload_vs_fit_max_abs_diff": reload_diff,
@@ -1208,6 +1380,10 @@ def phase_fit(dev):
     if fit_counts["layer_norm"] % per_forward or fit_counts["layer_norm"] <= want[
             "layer_norm_bwd"]:
         raise Failed(f"fit layer_norm: {fit_counts['layer_norm']} launches")
+    if fit_counts["gbf_proj"] <= train_steps:   # one a train step, more for evaluation
+        raise Failed(f"fit gbf_proj: {fit_counts['gbf_proj']} launches in {train_steps} steps")
+    _check_mma_routes(fit_routes, {"gbf_proj": fit_counts["gbf_proj"],
+                                   "gbf_proj_bwd": train_steps}, "fit")
     return launches
 
 

@@ -68,6 +68,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # u, means, stds, w1, b1, w2, pad, g, du, grads, partials, max_blocks,
         # B, N, K, Kh, H, compute_bf16, pair_bf16, act, sqrt_2pi, stream
         "mmdti_gbf_proj_bwd": (_P,) * 11 + (_I,) * 9 + (_F, _P),
+        # bf16 route (tensor cores)
+        # u, means, stds, w1, b1, w2, b2, pad, out, B, N, H, pair_bf16, act,
+        # sqrt_2pi, stream
+        "mmdti_gbf_proj_mma_fwd": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+        # u, means, stds, w1, b1, w2, pad, g, du, grads, partials, max_blocks,
+        # B, N, H, pair_bf16, act, sqrt_2pi, stream
+        "mmdti_gbf_proj_mma_bwd": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     },
     "layer_norm": {
         # x, scale, bias, y, T, E, eps, x_bf16, y_bf16, stream

@@ -14,8 +14,11 @@ keys: the encoder's padding merge is fused in, and the backward zeroes the
 cotangent there (the merge passes no gradient).  The GEMM operands are
 rounded to the compute dtype and accumulated in fp32.  ``std`` is formed
 outside the differentiable op, so autograd applies the sign of ``stds``.
-CUDA source: csrc/gbf_proj.cu; the launchers count their launches in
-``gbf_pair_bias_cuda.launches`` and ``gbf_pair_bias_bwd_cuda.launches``.
+CUDA source: csrc/gbf_proj.cu, two routes chosen by ``gbf_route``: "mma"
+(bf16 compute at K = Kh = 128: every GEMM on the tensor cores) and "fma"
+(the FMA-unit kernels, fp32 compute above all).  The launchers count their
+launches in ``gbf_pair_bias_cuda.launches`` and
+``gbf_pair_bias_bwd_cuda.launches``, and per route in their ``.routes``.
 """
 
 from __future__ import annotations
@@ -30,7 +33,19 @@ from mmdti_tpu_torch.ops import _build
 SQRT_2PI = (2 * 3.14159) ** 0.5  # reference constant (models/gaussian.py)
 ACTIVATIONS = {"gelu_tanh": 0, "gelu": 1}
 WIDTHS = ((128, 64), (128, 96))  # (hidden Kh, heads H) instantiated in csrc/gbf_proj.cu
-BWD_K = 128                       # the backward kernel takes K = Kh = 128
+BWD_K = 128                       # the backward kernels take K = Kh = 128
+ROUTES = ("mma", "fma")
+
+
+def gbf_route(compute_dtype, K: int, Kh: int, H: int) -> str:
+    """The kernel route of a gbf call: "mma" (tensor-core kernels) for bf16
+    compute at K = Kh = 128 and H in {64, 96}, "fma" (FMA-unit kernels)
+    for everything else."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    if compute_dtype == torch.bfloat16 and K == Kh == BWD_K and H in (64, 96):
+        return "mma"
+    return "fma"
 
 
 def gaussian_pdf(x, mean, std):
@@ -165,22 +180,27 @@ def gbf_pair_bias_cuda(u, means, std, w1, b1, w2, b2, padding_mask, activation: 
     if b2.shape != (H,):
         raise ValueError(f"gbf shapes: b2 {tuple(b2.shape)} for H={H}")
     _check_options(padding_mask, B, N, activation, pair_dtype, compute_dtype)
+    route = gbf_route(compute_dtype, K, Kh, H)
     out = torch.empty((B, H, N, N), dtype=pair_dtype, device=dev)
     lib = _build.load("gbf_proj")
-    rc = lib.mmdti_gbf_proj_fwd(
-        u.data_ptr(), means.data_ptr(), std.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(),
-        None if padding_mask is None else padding_mask.data_ptr(), out.data_ptr(),
-        B, N, K, Kh, H, int(compute_dtype == torch.bfloat16),
-        int(pair_dtype == torch.bfloat16), ACTIVATIONS[activation], SQRT_2PI,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, f"gbf_proj (B={B}, N={N}, K={K}, Kh={Kh}, H={H})")
+    head = (u.data_ptr(), means.data_ptr(), std.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(),
+            None if padding_mask is None else padding_mask.data_ptr(), out.data_ptr())
+    tail = (int(pair_dtype == torch.bfloat16), ACTIVATIONS[activation], SQRT_2PI,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if route == "mma":
+        rc = lib.mmdti_gbf_proj_mma_fwd(*head, B, N, H, *tail)
+    else:
+        rc = lib.mmdti_gbf_proj_fwd(*head, B, N, K, Kh, H, int(compute_dtype == torch.bfloat16),
+                                    *tail)
+    _build.check(rc, f"gbf_proj {route} (B={B}, N={N}, K={K}, Kh={Kh}, H={H})")
     gbf_pair_bias_cuda.launches += 1
+    gbf_pair_bias_cuda.routes[route] += 1
     return out
 
 
 gbf_pair_bias_cuda.launches = 0
+gbf_pair_bias_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 def gbf_pair_bias_bwd_cuda(u, means, std, w1, b1, w2, g, padding_mask, activation: str,
@@ -203,21 +223,27 @@ def gbf_pair_bias_bwd_cuda(u, means, std, w1, b1, w2, g, padding_mask, activatio
     grads = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     max_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partials = torch.empty(max_blocks * sum(sizes), dtype=torch.float32, device=dev)
+    route = gbf_route(compute_dtype, K, Kh, H)
     lib = _build.load("gbf_proj")
-    rc = lib.mmdti_gbf_proj_bwd(
-        u.data_ptr(), means.data_ptr(), std.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
-        g.data_ptr(), du.data_ptr(), grads.data_ptr(), partials.data_ptr(), max_blocks,
-        B, N, K, Kh, H, int(compute_dtype == torch.bfloat16), int(g.dtype == torch.bfloat16),
-        ACTIVATIONS[activation], SQRT_2PI, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, f"gbf_proj_bwd (B={B}, N={N}, K={K}, Kh={Kh}, H={H})")
+    head = (u.data_ptr(), means.data_ptr(), std.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), None if padding_mask is None else padding_mask.data_ptr(),
+            g.data_ptr(), du.data_ptr(), grads.data_ptr(), partials.data_ptr(), max_blocks)
+    tail = (int(g.dtype == torch.bfloat16), ACTIVATIONS[activation], SQRT_2PI,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if route == "mma":
+        rc = lib.mmdti_gbf_proj_mma_bwd(*head, B, N, H, *tail)
+    else:
+        rc = lib.mmdti_gbf_proj_bwd(*head, B, N, K, Kh, H, int(compute_dtype == torch.bfloat16),
+                                    *tail)
+    _build.check(rc, f"gbf_proj_bwd {route} (B={B}, N={N}, K={K}, Kh={Kh}, H={H})")
     gbf_pair_bias_bwd_cuda.launches += 1
+    gbf_pair_bias_bwd_cuda.routes[route] += 1
     dw1, dw2, db1, db2, dmeans, dstd = torch.split(grads, sizes)
     return du, dmeans, dstd, dw1.view(Kh, K), db1, dw2.view(H, Kh), db2
 
 
 gbf_pair_bias_bwd_cuda.launches = 0
+gbf_pair_bias_bwd_cuda.routes = dict.fromkeys(ROUTES, 0)
 
 
 class GbfPairBias(torch.autograd.Function):

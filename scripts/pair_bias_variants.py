@@ -20,12 +20,12 @@ from __future__ import annotations
 import concurrent.futures as fut
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
+import variant_build
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(REPO, "mmdti_tpu_torch", "csrc")
 OUT = os.path.join(REPO, "build", "pair_bias_variants")
 SRC = "pair_bias_attention.cu"
 
@@ -49,37 +49,6 @@ VARIANTS = {
 }
 
 
-def _edit(text, old, new, occurrence):
-    at = -1
-    for _ in range(occurrence):
-        at = text.index(old, at + 1)   # raises when the source no longer has `old`
-    return text[:at] + new + text[at + len(old):]
-
-
-def _build(name, nvcc, flags):
-    """Compile one variant; returns its library path."""
-    d = os.path.join(OUT, name.replace(" ", "_").replace(":", ""))
-    shutil.rmtree(d, ignore_errors=True)
-    os.makedirs(d)
-    for f in os.listdir(CSRC):
-        if f.endswith(".cuh"):
-            shutil.copy(os.path.join(CSRC, f), d)
-    with open(os.path.join(CSRC, SRC)) as f:
-        text = f.read()
-    for old, new, n in VARIANTS[name]:
-        text = _edit(text, old, new, n)
-    with open(os.path.join(d, SRC), "w") as f:
-        f.write(text)
-    so = os.path.join(d, "lib.so")
-    # each variant defines the same symbols; keep their function-local
-    # statics apart (g++ would make them process-wide)
-    cmd = [nvcc, *flags, "-Xcompiler", "-fno-gnu-unique", "-o", so, os.path.join(d, SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
-    return so
-
-
 def main() -> int:
     import torch
 
@@ -94,8 +63,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
     with fut.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(zip(VARIANTS, pool.map(lambda n: _build(n, build.nvcc_path(),
-                                                             build.NVCC_FLAGS), VARIANTS)))
+        libs = dict(zip(VARIANTS, pool.map(
+            lambda n: variant_build.build(n, VARIANTS[n], SRC, OUT, build.nvcc_path(),
+                                          build.NVCC_FLAGS), VARIANTS)))
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     B, H, D, rate = 32, 64, 8, 0.1

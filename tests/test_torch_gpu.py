@@ -10,8 +10,9 @@ rtol 1e-2 / atol 5e-2 on the stored logits, as tests/test_pallas.py:69-73.
 Gradients are held to the same bounds scaled by the largest magnitude of
 the plain version's gradient (they are sums over a whole row or column).
 bf16 attention (bf16 q/k/v, and a bf16 pair for pair-bias) runs the
-tensor-core ("mma") route, anything fp32 the row kernels; the route counters
-say which ran.
+tensor-core ("mma") route, anything fp32 the row kernels; the gbf pair runs
+"mma" for bf16 compute at K = Kh = 128, H 64 or 96, and its FMA kernels
+("fma") for fp32 compute; the route counters say which ran.
 """
 
 import numpy as np
@@ -105,27 +106,58 @@ def test_masked_kernel_matches_plain(cuda, dtype, fill, H, D, Nq, Nk):
         torch.testing.assert_close(stats[..., 1], want_s[..., 1], atol=0, rtol=1e-2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
-def test_gbf_kernel_matches_plain(cuda, dtype, act):
-    B, N, K, H = 2, 24, 128, 64
-    rng = np.random.RandomState(2)
+GBF_NS = [8, 24, 64, 65, 280]
+GBF_COMPUTE = {"fma": torch.float32, "mma": torch.bfloat16}   # route -> compute dtype
+
+
+def _gbf_inputs(cuda, rng, B, N, H, K=128):
     means, stds = rng.uniform(0, 3, K), rng.uniform(0.5, 3, K)
     w1, b1 = 0.1 * rng.randn(K, K), 0.1 * rng.randn(K)
     w2, b2 = 0.1 * rng.randn(H, K), 0.1 * rng.randn(H)
     u = rng.rand(B, N, N) * 6
     pad = np.zeros((B, N), bool)
-    pad[1, 20:] = True
+    pad[1, N - max(1, N // 6):] = True
     args = [_t(x.astype(np.float32), cuda) for x in (u, means, stds, w1, b1, w2, b2)]
-    args.append(_t(pad, cuda))
-    kw = dict(activation=act, pair_dtype=dtype, compute_dtype=dtype)
-    before = hg.gbf_pair_bias_cuda.launches
+    return args, _t(pad, cuda)
+
+
+@pytest.mark.parametrize("route", ["fma", "mma"])
+@pytest.mark.parametrize("pair", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
+@pytest.mark.parametrize("N", GBF_NS)
+@pytest.mark.parametrize("H", [64, 96])
+def test_gbf_kernel_matches_plain(cuda, route, pair, act, N, H):
+    """Both routes against the plain forward; the flat 16-pair tiles of the
+    "mma" route cross row and batch ends at every N here, and N=65 keeps no
+    16-byte alignment (its stores go one element a lane)."""
+    compute = GBF_COMPUTE[route]
+    args, pad = _gbf_inputs(cuda, np.random.RandomState(2), 2, N, H)
+    args.append(pad)
+    kw = dict(activation=act, pair_dtype=pair, compute_dtype=compute)
+    assert hg.gbf_route(compute, 128, 128, H) == route
+    before, routes = hg.gbf_pair_bias_cuda.launches, dict(hg.gbf_pair_bias_cuda.routes)
     got = hg.gbf_pair_bias_fused(*args, **kw)
     assert hg.gbf_pair_bias_cuda.launches == before + 1
+    assert hg.gbf_pair_bias_cuda.routes[route] == routes[route] + 1
     want = hg.gbf_pair_bias_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == pair and got.shape == (2, H, N, N)
     assert torch.equal(torch.isneginf(got), torch.isneginf(want))
     fin = torch.isfinite(want)
-    torch.testing.assert_close(got[fin].float(), want[fin].float(), atol=_tol(dtype), rtol=0)
+    tol = _tol(torch.bfloat16 if torch.bfloat16 in (pair, compute) else torch.float32)
+    torch.testing.assert_close(got[fin].float(), want[fin].float(), atol=tol, rtol=0)
+
+
+def test_gbf_fp32_compute_lands_on_the_fma_route(cuda):
+    args, pad = _gbf_inputs(cuda, np.random.RandomState(3), 2, 16, 64)
+    fwd, bwd = dict(hg.gbf_pair_bias_cuda.routes), dict(hg.gbf_pair_bias_bwd_cuda.routes)
+    u = args[0].requires_grad_()
+    out = hg.gbf_pair_bias_fused(u, *args[1:], pad, compute_dtype=torch.float32)
+    out.masked_fill(torch.isneginf(out), 0).sum().backward()
+    assert hg.gbf_pair_bias_cuda.routes == {**fwd, "fma": fwd["fma"] + 1}
+    assert hg.gbf_pair_bias_bwd_cuda.routes == {**bwd, "fma": bwd["fma"] + 1}
+    assert hg.gbf_route(torch.bfloat16, 64, 128, 64) == "fma"
+    assert hg.gbf_route(torch.bfloat16, 128, 128, 96) == "mma"
 
 
 def test_launchers_reject_what_the_kernels_do_not_take(cuda):
@@ -369,29 +401,28 @@ def test_masked_backward_kernel_matches_plain(cuda, dtype, rate, fill, H, D, Nq,
             torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(dtype, c), rtol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", ["fma", "mma"])
+@pytest.mark.parametrize("pair", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
+@pytest.mark.parametrize("N", GBF_NS)
 @pytest.mark.parametrize("H", [64, 96])
-def test_gbf_backward_kernel_matches_plain(cuda, dtype, act, H):
-    B, N, K = 2, 24, 128
+def test_gbf_backward_kernel_matches_plain(cuda, route, pair, act, N, H):
+    """Both routes against the plain backward, repeated calls bit-equal."""
+    compute = GBF_COMPUTE[route]
     rng = np.random.RandomState(6)
-    means, std = rng.uniform(0, 3, K), rng.uniform(0.5, 3, K)
-    w1, b1 = 0.1 * rng.randn(K, K), 0.1 * rng.randn(K)
-    w2 = 0.1 * rng.randn(H, K)
-    u = rng.rand(B, N, N) * 6
-    args = [_t(x.astype(np.float32), cuda) for x in (u, means, std, w1, b1, w2)]
-    g = _t(rng.randn(B, H, N, N).astype(np.float32), cuda, dtype)
-    pad = np.zeros((B, N), bool)
-    pad[1, 20:] = True
-    pad = _t(pad, cuda)
-    before = hg.gbf_pair_bias_bwd_cuda.launches
-    got = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, dtype)
+    args, pad = _gbf_inputs(cuda, rng, 2, N, H)
+    args = args[:6]
+    g = _t(rng.randn(2, H, N, N).astype(np.float32), cuda, pair)
+    before, routes = hg.gbf_pair_bias_bwd_cuda.launches, dict(hg.gbf_pair_bias_bwd_cuda.routes)
+    got = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, compute)
     assert hg.gbf_pair_bias_bwd_cuda.launches == before + 1
-    want = hg.gbf_pair_bias_bwd_plain(*args, g, pad, act, dtype)
-    again = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, dtype)
+    assert hg.gbf_pair_bias_bwd_cuda.routes[route] == routes[route] + 1
+    want = hg.gbf_pair_bias_bwd_plain(*args, g, pad, act, compute)
+    again = hg.gbf_pair_bias_bwd_cuda(*args, g, pad, act, compute)
+    torch.cuda.synchronize()
     for a, b, c in zip(got, want, again):
         assert torch.equal(a, c)  # deterministic
-        torch.testing.assert_close(a, b, atol=_grad_tol(dtype, b), rtol=0)
+        torch.testing.assert_close(a, b, atol=_grad_tol(compute, b), rtol=0)
 
 
 def test_differentiable_ops_launch_the_backward_kernels(cuda):
