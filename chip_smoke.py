@@ -142,7 +142,7 @@ GBF_UNFUSED_IS = ("the same function unfused in bf16 PyTorch (G materialized, to
                   "partial yardstick, not one library call")
 SUMMARY_EXTRAS = ("device_ms", "fwd_bwd_device_ms", "rows_device_ms", "rows_fwd_bwd_device_ms",
                   "sdpa_device_ms", "sdpa_fwd_bwd_device_ms", "library_device_ms", "fma_device_ms",
-                  "unfused_device_ms", "unfused_fwd_bwd_device_ms", "sfu_floor_ms")
+                  "unfused_device_ms", "unfused_fwd_bwd_device_ms")
 
 
 class Failed(RuntimeError):
@@ -199,22 +199,30 @@ def _time_ms(fn, iters=25, warmup=3):
 
 def _kernel_events(fn, n):
     """{kernel name: (launches, device us)} of n calls of fn in one
-    torch.profiler window."""
+    torch.profiler window.  The tracer loses kernels at a window's end now
+    and then, and in a long process every time (scripts/profiler_windows.py,
+    PERF.md): so spin kernels of torch.cuda._sleep stand before and after
+    the calls, the window stays open 20 ms after they finish, and the spin
+    kernels are left out of what it returns."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
         for _ in range(n):
             fn()
+        for _ in range(3):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
+        time.sleep(0.02)
     return {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key}
 
 
 REJECTED_WINDOWS = []   # profiler windows _device_ms threw away, printed by phase 3
 
 
-def _device_ms(fn, n=20, tries=3):
+def _device_ms(fn, n=20, tries=5):
     """Device time per call: the CUDA kernels' own time in a torch.profiler
     window of n calls, over n (the host's issue time left out).  One
     profiled call first gives each kernel name's launches per call; a window
@@ -525,7 +533,7 @@ class _GbfFma:
     """The FMA-unit gbf kernels, the route bf16 took before the tensor-core
     kernels, launched through their C entry points with bf16 compute on the
     same inputs for device times beside the "mma" route (not counted as
-    launches)."""
+    launches); the timed cases also hold their results to the plain versions."""
 
     def __init__(self, u, means, std, w1, b1, w2, b2, pad, g, act, pair_dtype):
         import torch
@@ -539,10 +547,11 @@ class _GbfFma:
         self.lib = _build.load("gbf_proj")
         self.out = torch.empty((B, H, N, N), dtype=pair_dtype, device=dev)
         self.du = torch.empty_like(u)
-        sizes = K * K + H * K + K + H + 2 * K
-        self.grads = torch.empty(sizes, dtype=torch.float32, device=dev)
+        self.K, self.H, self.sizes = K, H, (K * K, H * K, K, H, K, K)
+        self.grads = torch.empty(sum(self.sizes), dtype=torch.float32, device=dev)
         self.max_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-        self.partials = torch.empty(self.max_blocks * sizes, dtype=torch.float32, device=dev)
+        self.partials = torch.empty(self.max_blocks * sum(self.sizes), dtype=torch.float32,
+                                    device=dev)
         self.ins = [t.data_ptr() for t in (u, means, std, w1, b1, w2)]
         self.b2, self.pad, self.g = b2.data_ptr(), pad.data_ptr(), g.data_ptr()
         self.shape = (B, N, K, K, H, 1)
@@ -554,6 +563,13 @@ class _GbfFma:
                                          *self.shape, *self.tail)
         if rc:
             raise Failed(f"gbf FMA forward failed with cudaError_t {rc}")
+
+    def grad_tuple(self):
+        """The last backward's gradients in gbf_pair_bias_bwd_plain's order."""
+        import torch
+
+        dw1, dw2, db1, db2, dmeans, dstd = torch.split(self.grads, self.sizes)
+        return self.du, dmeans, dstd, dw1.view(self.K, self.K), db1, dw2.view(self.H, self.K), db2
 
     def bwd(self):
         rc = self.lib.mmdti_gbf_proj_bwd(*self.ins, self.pad, self.g, self.du.data_ptr(),
@@ -603,10 +619,18 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
     """The fused Gaussian + gbf_proj forward and backward against their plain
     versions at B=32, K=Kh=128, padded keys.  fp32 runs the FMA route; bf16
     the tensor-core route at N=64, 280 and 65 (no 16-byte alignment), both
-    activations, H=64 and, at N=64, 96.  Beside the main bf16 cases' device
-    times: the FMA kernels on the same bf16 inputs, the function unfused in
-    bf16 PyTorch (a partial yardstick) and the special-function floor (K ex2
-    and, for the tanh gelu, Kh tanh a pair at 16 a clock an SM)."""
+    activations, H=64 and, at N=64, 96.  Weights and biases are drawn at
+    0.1 and stds from U[0.5, 3), as tests/test_torch_gpu.py draws them, so
+    that the part of the output the two GEMMs make (printed as
+    gemm_part_rms / _max) is several times the bf16 tolerance, which is
+    absolute: a wrong Gaussian, activation or GEMM shows on most elements,
+    while |out| stays below 1, where one bf16 step of the output is well
+    inside that tolerance.  Beside the main bf16 cases' device times: the
+    FMA kernels on the same bf16 inputs (also held to the plain versions),
+    the function unfused in bf16 PyTorch (a partial yardstick) and the
+    special-function floor (K ex2 and, for the tanh gelu, Kh tanh a pair at
+    16 a clock an SM; in the case line only, since it is computed, not
+    measured)."""
     import torch
 
     from mmdti_tpu_torch.ops import hopper_gbf as hg
@@ -620,11 +644,11 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
         dt = torch.float32 if prec == "fp32" else torch.bfloat16
         if H not in params:
             params[H] = (torch.rand(K, generator=gen).mul(3).to(dev),
-                         torch.rand(K, generator=gen).mul(3).to(dev),
-                         torch.randn(K, K, generator=gen).mul(0.02).to(dev),
-                         torch.randn(K, generator=gen).mul(0.02).to(dev),
-                         torch.randn(H, K, generator=gen).mul(0.02).to(dev),
-                         torch.randn(H, generator=gen).mul(0.02).to(dev))
+                         torch.rand(K, generator=gen).mul(2.5).add(0.5).to(dev),
+                         torch.randn(K, K, generator=gen).mul(0.1).to(dev),
+                         torch.randn(K, generator=gen).mul(0.1).to(dev),
+                         torch.randn(H, K, generator=gen).mul(0.1).to(dev),
+                         torch.randn(H, generator=gen).mul(0.1).to(dev))
         means, stds, w1, b1, w2, b2 = params[H]
         std = stds.abs() + 1e-5
         lens = _padded_lengths(gen, B, N)
@@ -651,15 +675,28 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
         torch.cuda.synchronize()
         atol, rtol = TOL[prec]["out"]
         e, ok = _err(got, want, atol, rtol)
-        extra = {"route": route, "device_ms": _device_ms(fwd)}
+        errs = {"out": (e, atol, ok)}
+        fin = torch.isfinite(want)
+        gemm_part = (want.float() - b2[None, :, None, None])[fin]
+        extra = {"route": route, "device_ms": _device_ms(fwd),
+                 "gemm_part_rms": float(gemm_part.square().mean().sqrt()),
+                 "gemm_part_max": float(gemm_part.abs().max())}
+        if extra["gemm_part_rms"] < 2 * atol:
+            record.failures.append(f"gbf_proj {case} {prec}: the GEMM part of the output "
+                                   f"(rms {extra['gemm_part_rms']}) is within twice the "
+                                   f"tolerance {atol}: the check cannot tell a wrong kernel")
         if timed:
             fma = _GbfFma(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
+            fma.fwd()
+            torch.cuda.synchronize()
+            e_fma, ok_fma = _err(fma.out, want, atol, rtol)
+            errs["fma_out"] = (e_fma, atol, ok_fma)
             unfused = _GbfUnfused(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
             with torch.no_grad():
                 extra.update(fma_device_ms=_device_ms(fma.fwd),
                              unfused_device_ms=_device_ms(unfused.fwd, n=5))
             extra.update(sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)
-        record("gbf_proj", case, prec, {"out": (e, atol, ok)}, _time_ms(fwd),
+        record("gbf_proj", case, prec, errs, _time_ms(fwd),
                _time_ms(plain_fwd, iters=10), None,
                _bound(P * (4 + H * BYTES[prec]), 2 * P * (K * K + K * H), prec), main, extra)
 
@@ -679,6 +716,10 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
             record.failures.append(f"gbf_proj_bwd {case} {prec}: repeated calls differ")
         extra = {"route": route, "repeat_bit_equal": bit_equal, "device_ms": _device_ms(bwd)}
         if timed:
+            fma.bwd()
+            torch.cuda.synchronize()
+            errs.update(_grad_errs(("fma_du", "fma_dmeans", "fma_dstd", "fma_dw1", "fma_db1",
+                                    "fma_dw2", "fma_db2"), fma.grad_tuple(), want, prec))
             extra.update(fma_device_ms=_device_ms(fma.bwd),
                          unfused_fwd_bwd_device_ms=_device_ms(unfused.fwd_bwd, n=5),
                          sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)

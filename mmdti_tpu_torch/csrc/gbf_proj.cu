@@ -40,8 +40,7 @@
 //   already the "col" B operand of x W^T.
 //   - Forward: 4 warps a block, persistent, with no block barrier after the
 //     weights are staged.  Each warp takes 16 consecutive flat pairs
-//     p = (b N + i) N + j at a time (two m-tiles sharing each W1 / W2
-//     fragment were no faster: scripts/gbf_variants.py, PERF.md):
+//     p = (b N + i) N + j at a time:
 //     G's A fragments are built in registers (one FMA, two multiplies and
 //     one ex2.approx a value), the hidden layer is made 16 columns at a time
 //     and its C fragments, packed to bf16, are the A fragments of the second
@@ -81,12 +80,14 @@ constexpr int kThreads = 256;  // 16 pair groups x 16 column groups
 constexpr int kMaxSmemBytes = 227 * 1024;
 
 // Grid of at most (blocks an SM) x SMs persistent blocks, found once per
-// instantiation; the kernel's shared memory limit is raised the first time.
+// instantiation from the first call's shared memory; the kernel's shared
+// memory limit is raised to the card's the first time, since the FMA
+// forward's smem grows with the K of each call.
 template <class Kern>
 cudaError_t persistent_grid(Kern kernel, int threads, size_t smem, int& cap) {
   if (cap > 0) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+                                       kMaxSmemBytes);
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
@@ -658,8 +659,7 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, const float* src, int rows
 
 constexpr int kFwdWarps = 4;
 constexpr int kFwdThreads = kFwdWarps * 32;
-constexpr int kFwdM = 1;                 // m-tiles of 16 pairs a warp takes at a time:
-constexpr int kFwdPairs = 16 * kFwdM;    // 2, sharing each W fragment, was no faster
+constexpr int kFwdPairs = 16;            // flat pairs a warp takes at a time (one m-tile)
 constexpr int kFwdChunk = 16;            // hidden columns made and consumed at once
 
 template <typename P>
@@ -734,96 +734,74 @@ gbf_mma_fwd_kernel(const float* __restrict__ u, const float* __restrict__ means,
   const unsigned ntiles = (total + kFwdPairs - 1) / kFwdPairs;
   for (unsigned tile = blockIdx.x * kFwdWarps + warp; tile < ntiles;
        tile += gridDim.x * kFwdWarps) {
-    const unsigned p0 = tile * kFwdPairs;
-    uint32_t ga[kFwdM][kMK / 16][4];
-#pragma unroll
-    for (int m = 0; m < kFwdM; ++m) {
-      const unsigned pa = p0 + 16 * m + g, pb = pa + 8;
+    const unsigned p0 = tile * kFwdPairs, pa = p0 + g, pb = pa + 8;
+    uint32_t ga[kMK / 16][4];
+    {
       const float u0 = pa < total ? u[pa] : 0.f, u1 = pb < total ? u[pb] : 0.f;
 #pragma unroll
       for (int ks = 0; ks < kMK / 16; ++ks) {
         float gv[8];
-        gauss_frag(ga[m][ks], gv, u0, u1, gk, ks * 16);
+        gauss_frag(ga[ks], gv, u0, u1, gk, ks * 16);
       }
     }
-    float o[kFwdM][H / 8][4];
+    float o[H / 8][4];
 #pragma unroll
-    for (int m = 0; m < kFwdM; ++m)
-#pragma unroll
-      for (int nt = 0; nt < H / 8; ++nt) o[m][nt][0] = o[m][nt][1] = o[m][nt][2] = o[m][nt][3] = 0.f;
+    for (int nt = 0; nt < H / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 
 #pragma unroll 2
     for (int c = 0; c < kMK / kFwdChunk; ++c) {
       // h_pre for hidden columns [16 c, 16 c + 16) = G W1^T
-      float hp[kFwdM][2][4];
+      float hp[2][4];
 #pragma unroll
-      for (int m = 0; m < kFwdM; ++m)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) hp[m][nt][0] = hp[m][nt][1] = hp[m][nt][2] = hp[m][nt][3] = 0.f;
+      for (int nt = 0; nt < 2; ++nt) hp[nt][0] = hp[nt][1] = hp[nt][2] = hp[nt][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < kMK / 16; ++ks) {
         uint32_t b[4];
         mmdti::load_b<kMS>(b, w1_s, c * kFwdChunk, ks * 16);
-#pragma unroll
-        for (int m = 0; m < kFwdM; ++m) {
-          mma_bf16(hp[m][0], ga[m][ks], b[0], b[1]);
-          mma_bf16(hp[m][1], ga[m][ks], b[2], b[3]);
-        }
+        mma_bf16(hp[0], ga[ks], b[0], b[1]);
+        mma_bf16(hp[1], ga[ks], b[2], b[3]);
       }
       // h = act(h_pre + b1), packed to bf16: its C fragments are the A
       // fragments of h W2^T over these 16 hidden columns
-      uint32_t a[kFwdM][4];
 #pragma unroll
-      for (int m = 0; m < kFwdM; ++m) {
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const float2 bb = *reinterpret_cast<const float2*>(b1_s + c * kFwdChunk + nt * 8 + 2 * t);
-          float d;
-          hp[m][nt][0] = act_mma<ACT, false>(hp[m][nt][0] + bb.x, d);
-          hp[m][nt][1] = act_mma<ACT, false>(hp[m][nt][1] + bb.y, d);
-          hp[m][nt][2] = act_mma<ACT, false>(hp[m][nt][2] + bb.x, d);
-          hp[m][nt][3] = act_mma<ACT, false>(hp[m][nt][3] + bb.y, d);
-        }
-        a[m][0] = pack_bf16(hp[m][0][0], hp[m][0][1]);
-        a[m][1] = pack_bf16(hp[m][0][2], hp[m][0][3]);
-        a[m][2] = pack_bf16(hp[m][1][0], hp[m][1][1]);
-        a[m][3] = pack_bf16(hp[m][1][2], hp[m][1][3]);
+      for (int nt = 0; nt < 2; ++nt) {
+        const float2 bb = *reinterpret_cast<const float2*>(b1_s + c * kFwdChunk + nt * 8 + 2 * t);
+        float d;
+        hp[nt][0] = act_mma<ACT, false>(hp[nt][0] + bb.x, d);
+        hp[nt][1] = act_mma<ACT, false>(hp[nt][1] + bb.y, d);
+        hp[nt][2] = act_mma<ACT, false>(hp[nt][2] + bb.x, d);
+        hp[nt][3] = act_mma<ACT, false>(hp[nt][3] + bb.y, d);
       }
+      const uint32_t a[4] = {pack_bf16(hp[0][0], hp[0][1]), pack_bf16(hp[0][2], hp[0][3]),
+                             pack_bf16(hp[1][0], hp[1][1]), pack_bf16(hp[1][2], hp[1][3])};
 #pragma unroll
-      for (int p = 0; p < H / 16; ++p) {
+      for (int q = 0; q < H / 16; ++q) {
         uint32_t b[4];
-        mmdti::load_b<kMS>(b, w2_s, p * 16, c * kFwdChunk);
-#pragma unroll
-        for (int m = 0; m < kFwdM; ++m) {
-          mma_bf16(o[m][2 * p], a[m], b[0], b[1]);
-          mma_bf16(o[m][2 * p + 1], a[m], b[2], b[3]);
-        }
+        mmdti::load_b<kMS>(b, w2_s, q * 16, c * kFwdChunk);
+        mma_bf16(o[2 * q], a, b[0], b[1]);
+        mma_bf16(o[2 * q + 1], a, b[2], b[3]);
       }
     }
 
     // + b2, -inf at padded keys, through the warp's staging tile
+    bool masked[2] = {false, false};
 #pragma unroll
-    for (int m = 0; m < kFwdM; ++m) {
-      bool masked[2] = {false, false};
+    for (int r = 0; r < 2; ++r) {
+      const unsigned p = r ? pb : pa;
+      if (pad != nullptr && p < total) {
+        const unsigned b = p / NN;
+        masked[r] = pad[(size_t)b * N + (p - b * NN) % N] != 0;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < H / 8; ++nt) {
+      const int head = nt * 8 + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(b2_s + head);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const unsigned p = p0 + 16 * m + g + 8 * r;
-        if (pad != nullptr && p < total) {
-          const unsigned b = p / NN;
-          masked[r] = pad[(size_t)b * N + (p - b * NN) % N] != 0;
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < H / 8; ++nt) {
-        const int head = nt * 8 + 2 * t;
-        const float2 bb = *reinterpret_cast<const float2*>(b2_s + head);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int col = 16 * m + g + 8 * r;
-          stg[head * SS + col] = store_p<P>(masked[r] ? -INFINITY : o[m][nt][2 * r] + bb.x);
-          stg[(head + 1) * SS + col] =
-              store_p<P>(masked[r] ? -INFINITY : o[m][nt][2 * r + 1] + bb.y);
-        }
+        const int col = g + 8 * r;
+        stg[head * SS + col] = store_p<P>(masked[r] ? -INFINITY : o[nt][2 * r] + bb.x);
+        stg[(head + 1) * SS + col] = store_p<P>(masked[r] ? -INFINITY : o[nt][2 * r + 1] + bb.y);
       }
     }
     __syncwarp();

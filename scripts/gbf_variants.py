@@ -34,9 +34,6 @@ VARIANTS = {
                          "return coef * z;", 1)],
     "no tanh": [("const float t = tanh_approx(a * (x + c * x * x * x));", "const float t = x;", 1)],
     "fwd: no output store": [("store_tile<P, H>(out, stg, p0, total, NN);", "", 1)],
-    "fwd: 2 m-tiles a warp": [("constexpr int kFwdM = 1;", "constexpr int kFwdM = 2;", 1),
-                              ("__launch_bounds__(kFwdThreads, 3)",
-                               "__launch_bounds__(kFwdThreads, 2)", 1)],
     "bwd: no cotangent load": [
         ("issue_cotangent<P, H>(go_raw, g, (tile + gridDim.x) * kBT, total, NN);", "", 1),
         ("tile_pad_bits(tm_s, pad, (tile + gridDim.x) * kBT, total, NN, N);", "", 1),

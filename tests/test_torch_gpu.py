@@ -110,10 +110,10 @@ GBF_NS = [8, 24, 64, 65, 280]
 GBF_COMPUTE = {"fma": torch.float32, "mma": torch.bfloat16}   # route -> compute dtype
 
 
-def _gbf_inputs(cuda, rng, B, N, H, K=128):
+def _gbf_inputs(cuda, rng, B, N, H, K=128, Kh=128):
     means, stds = rng.uniform(0, 3, K), rng.uniform(0.5, 3, K)
-    w1, b1 = 0.1 * rng.randn(K, K), 0.1 * rng.randn(K)
-    w2, b2 = 0.1 * rng.randn(H, K), 0.1 * rng.randn(H)
+    w1, b1 = 0.1 * rng.randn(Kh, K), 0.1 * rng.randn(Kh)
+    w2, b2 = 0.1 * rng.randn(H, Kh), 0.1 * rng.randn(H)
     u = rng.rand(B, N, N) * 6
     pad = np.zeros((B, N), bool)
     pad[1, N - max(1, N // 6):] = True
@@ -146,6 +146,41 @@ def test_gbf_kernel_matches_plain(cuda, route, pair, act, N, H):
     fin = torch.isfinite(want)
     tol = _tol(torch.bfloat16 if torch.bfloat16 in (pair, compute) else torch.float32)
     torch.testing.assert_close(got[fin].float(), want[fin].float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("pair", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
+@pytest.mark.parametrize("N", [24, 65])
+@pytest.mark.parametrize("K", [64, 192])
+def test_gbf_fma_route_takes_bf16_compute(cuda, pair, act, N, K):
+    """bf16 compute off the tensor-core widths (K != 128) runs the FMA
+    forward with its operands rounded to bf16."""
+    args, pad = _gbf_inputs(cuda, np.random.RandomState(4), 2, N, 64, K=K)
+    args.append(pad)
+    kw = dict(activation=act, pair_dtype=pair, compute_dtype=torch.bfloat16)
+    assert hg.gbf_route(torch.bfloat16, K, 128, 64) == "fma"
+    routes = dict(hg.gbf_pair_bias_cuda.routes)
+    got = hg.gbf_pair_bias_fused(*args, **kw)
+    assert hg.gbf_pair_bias_cuda.routes == {**routes, "fma": routes["fma"] + 1}
+    want = hg.gbf_pair_bias_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin].float(), want[fin].float(),
+                               atol=_tol(torch.bfloat16), rtol=0)
+
+
+def test_gbf_fma_forward_takes_a_larger_K_after_a_smaller_one(cuda):
+    """The FMA forward's shared memory grows with K, which is not a template
+    parameter: one instantiation must take a larger K after a smaller one."""
+    for K in (32, 192):
+        args, pad = _gbf_inputs(cuda, np.random.RandomState(K), 2, 24, 64, K=K)
+        args.append(pad)
+        got = hg.gbf_pair_bias_fused(*args, activation="gelu", compute_dtype=torch.float32)
+        want = hg.gbf_pair_bias_plain(*args, activation="gelu", compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], atol=_tol(torch.float32), rtol=0)
 
 
 def test_gbf_fp32_compute_lands_on_the_fma_route(cuda):
