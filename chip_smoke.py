@@ -25,8 +25,9 @@ Phases, one result line each; any failure exits non-zero:
    function unfused in bf16 PyTorch and the special-function floor;
    repeated backwards bit-equal), and the LayerNorm forward
    and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
-   eps 1e-5 and 1e-12; repeated backwards must give bit-equal dscale and
-   dbias).  Each line has the max
+   eps 1e-5 and 1e-12; each backward one launch, repeated backwards
+   bit-equal, also after a call at T=24; device and CUDA-event times beside
+   the earlier kernels' for bf16 x and y).  Each line has the max
    error beside its tolerance, the kernel's time, the plain version's, the
    PyTorch library call's where one computes the same function (SDPA for
    the masked forward), and the bound: the least time the card could take
@@ -54,15 +55,20 @@ Phases, one result line each; any failure exits non-zero:
    (d) one step at the top atom bucket N=280 with its routes (all on the
    tensor cores), peak memory, device time and the kernels' shares;
    (e) one step at N=64, L=512: masked launches per route, device time, the
-   masked kernels' share of it and peak memory;
-6. fit, with MMDTI_PALLAS_LN=1 for this phase only: the 400-molecule
+   masked kernels' share of it and peak memory; (f) the N=L=64 step with
+   the LayerNorm kernels off (MMDTI_PALLAS_LN unset) and on (=1), alternated
+   over 2 rounds of 10 steps each way: step p50, launches and device ms per
+   step, the LayerNorm kernels' ms per step; on, exactly 49 forward and 49
+   backward LayerNorm launches a step;
+6. fit, with MMDTI_PALLAS_LN=1 for this phase (restored after it, as in
+   5 (f)): the 400-molecule
    synthetic regression set (seed 0), scaffold-split (seed 0), then
    MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
    3 epochs, dropout, InfoNCE, CT, sample weights, FDS) and
    MolPredict.predict(test); prints the featurization and per-epoch
    seconds, the gbf routes (every launch on the tensor cores), the
-   LayerNorm launch counts (forward, backward and reduce,
-   checked against the 49 LayerNorms of a forward), the artifacts, the
+   LayerNorm launch counts (forward and backward, checked against the 49
+   LayerNorms of a forward), the artifacts, the
    reloaded predictions against the fit's own, the kernel path against the
    plain path on the same checkpoint, and the test RMSE (a record);
 7. one JSON line with every kernel's summary, then {"ok": true, ...}.
@@ -132,6 +138,17 @@ TRAIN_KERNELS = tuple(KERNELS)[:6]   # launched by phase 5; the LayerNorms by ph
 # LayerNorm (atol, rtol): fp32 as tests/test_pallas_ln.py:45-52; a bf16
 # output may round one bf16 step (2^-8 of its value) either side of the plain one
 LN_FWD_TOL = {"fp32": (2e-5, 0.0), "bf16": (2e-2, 1e-2)}
+# the earlier LayerNorm kernels (one warp a row, a two-launch backward), bf16
+# x and y, E=512, eps 1e-5: (device ms, CUDA-event ms) as PERF.md §6 records
+# them (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+LN_EARLIER = {("layer_norm", 2048): (0.0041, 0.0425), ("layer_norm", 8960): (0.0128, 0.0468),
+              ("layer_norm_bwd", 2048): (0.0134, 0.0798),
+              ("layer_norm_bwd", 8960): (0.0203, 0.0797)}
+LN_EARLIER_FWD_BWD = {2048: 0.0174, 8960: 0.0335}
+LN_OTHER_T = 24    # the backward runs at this T between two calls that must agree bit for bit
+LN_ROUNDS, LN_STEPS = 2, 10   # phase train (f): rounds of steps each way, LayerNorm kernels off/on
+LN_SITES = 49   # LayerNorms of a flagship forward that take the kernels (E % 128 == 0)
+LN_KERNEL_NAMES = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")
 FIT_MOLECULES, FIT_EPOCHS = 400, 3
 SDPA_PAIR_IS = ("SDPA with the bias as a float attn_mask: a partial yardstick, it writes no "
                 "logits and takes no logits cotangent")
@@ -159,8 +176,7 @@ def _counters():
             "pair_bias_attention_bwd": ha.pair_bias_attention_bwd_cuda,
             "masked_attention": ha.masked_attention_cuda,
             "masked_attention_bwd": ha.masked_attention_bwd_cuda,
-            "layer_norm": hl.layer_norm_cuda, "layer_norm_bwd": hl.layer_norm_bwd_cuda,
-            "layer_norm_bwd_reduce": hl.layer_norm_bwd_reduce_cuda}
+            "layer_norm": hl.layer_norm_cuda, "layer_norm_bwd": hl.layer_norm_bwd_cuda}
 
 
 def _reset_counts():
@@ -195,6 +211,21 @@ def _time_ms(fn, iters=25, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _host_us(fn, n=200):
+    """Host microseconds to issue one call: n calls back to back with no
+    synchronisation between them (the card keeps up with these kernels)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / n * 1e6
 
 
 def _kernel_events(fn, n):
@@ -877,7 +908,10 @@ def phase_kernels(dev):
 def _layer_norm_cases(dev, gen, record):
     """LayerNorm forward and backward against their plain versions; the
     library yardstick is F.layer_norm in x's dtype (its variance is the
-    two-pass one), forward alone and forward plus backward."""
+    two-pass one), forward alone and forward plus backward.  Every backward
+    must be one launch, and repeat bit for bit, also after a call at
+    another T; the main cases (bf16 x and y, eps 1e-5, both T) carry the
+    earlier kernels' times (LN_EARLIER)."""
     import torch
     import torch.nn.functional as F
 
@@ -898,6 +932,7 @@ def _layer_norm_cases(dev, gen, record):
                 for eps in (1e-5, 1e-12):
                     case = f"T={T} E={E} x={xp} y={yp} eps={eps}"
                     main = T == 2048 and xp == yp == "bf16" and eps == 1e-5
+                    timed = xp == yp == "bf16" and eps == 1e-5
                     y = hl.layer_norm_cuda(x, w, b, eps, yd)
                     want = hl.layer_norm_plain(x, w, b, eps, yd)
                     torch.cuda.synchronize()
@@ -908,31 +943,53 @@ def _layer_norm_cases(dev, gen, record):
                     wl, bl = w.to(xd), b.to(xd)
                     lms = _time_ms(lambda: F.layer_norm(x, (E,), wl, bl, eps))
                     sx, sy = BYTES[xp], BYTES[yp]
-                    dev_ms = {}
+                    extra = {}
                     if eps == 1e-5:
-                        dev_ms = {
+                        extra = {
                             "device_ms": _device_ms(lambda: hl.layer_norm_cuda(x, w, b, eps, yd)),
                             "plain_device_ms": _device_ms(
                                 lambda: hl.layer_norm_plain(x, w, b, eps, yd)),
                             "library_device_ms": _device_ms(
                                 lambda: F.layer_norm(x, (E,), wl, bl, eps))}
+                    if timed:
+                        extra["earlier_device_ms"], extra["earlier_ms"] = LN_EARLIER[
+                            ("layer_norm", T)]
+                        extra["host_us"] = _host_us(lambda: hl.layer_norm_cuda(x, w, b, eps, yd))
+                        extra["library_host_us"] = _host_us(
+                            lambda: F.layer_norm(x, (E,), wl, bl, eps))
                     record("layer_norm", case, f"x {xp} y {yp}", {"y": (e, [atol, rtol], ok)}, ms,
                            pms, lms,
                            _bound(T * E * (sx + sy) + 2 * E * 4, 8 * T * E, "fp32"), main,
-                           dev_ms)
+                           extra)
 
+                    n0 = hl.layer_norm_bwd_cuda.launches
                     got = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+                    launches_per_call = hl.layer_norm_bwd_cuda.launches - n0
                     again = hl.layer_norm_bwd_cuda(x, w, gy, eps)
+                    other = hl.layer_norm_bwd_cuda(x[:LN_OTHER_T], w, gy[:LN_OTHER_T], eps)
+                    after_other = hl.layer_norm_bwd_cuda(x, w, gy, eps)
                     ref = hl.layer_norm_bwd_plain(x, w, gy, eps)
+                    other_ref = hl.layer_norm_bwd_plain(x[:LN_OTHER_T], w, gy[:LN_OTHER_T], eps)
                     torch.cuda.synchronize()
                     errs = {}
-                    for name, g, r in zip(("dx", "dscale", "dbias"), got, ref):
+                    for name, g, r, go, ro in zip(("dx", "dscale", "dbias"), got, ref, other,
+                                                  other_ref):
                         gtol = LN_FWD_TOL[coarse][0] * max(1.0, float(r.float().abs().max()))
                         e, ok = _err(g, r, gtol, 0.0)
                         errs[name] = (e, gtol, ok)
+                        otol = LN_FWD_TOL[coarse][0] * max(1.0, float(ro.float().abs().max()))
+                        e, ok = _err(go, ro, otol, 0.0)
+                        errs[f"{name}_T{LN_OTHER_T}"] = (e, otol, ok)
                     bit_equal = all(torch.equal(g, a) for g, a in zip(got, again))
-                    if not bit_equal:
-                        record.failures.append(f"layer_norm_bwd {case}: repeated calls differ")
+                    bit_equal_after_other_t = all(torch.equal(g, a)
+                                                  for g, a in zip(got, after_other))
+                    if not (bit_equal and bit_equal_after_other_t):
+                        record.failures.append(
+                            f"layer_norm_bwd {case}: repeated calls differ (at once "
+                            f"{bit_equal}, after T={LN_OTHER_T} {bit_equal_after_other_t})")
+                    if launches_per_call != 1:
+                        record.failures.append(f"layer_norm_bwd {case}: {launches_per_call} "
+                                               "launches a call")
                     ms = _time_ms(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps))
                     pms = _time_ms(lambda: hl.layer_norm_bwd_plain(x, w, gy, eps), iters=10)
                     xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, wl, bl))
@@ -944,16 +1001,33 @@ def _layer_norm_cases(dev, gen, record):
                         hl.layer_norm_cuda(x, w, b, eps, yd)
                         hl.layer_norm_bwd_cuda(x, w, gy, eps)
 
-                    extra = {"repeat_bit_equal": bit_equal, "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
+                    extra = {"repeat_bit_equal": bit_equal,
+                             f"repeat_bit_equal_after_T{LN_OTHER_T}": bit_equal_after_other_t,
+                             "launches_per_call": launches_per_call,
+                             "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
                              "library_is": "F.layer_norm forward + autograd backward"}
                     if eps == 1e-5:
+                        kernels = {k: c for k, (c, _) in _kernel_events(
+                            lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps), 1).items()}
                         extra.update(
+                            kernels_per_call=kernels,
                             device_ms=_device_ms(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps)),
                             fwd_bwd_device_ms=_device_ms(ours_fwd_bwd),
                             plain_device_ms=_device_ms(
                                 lambda: hl.layer_norm_bwd_plain(x, w, gy, eps)),
                             library_device_ms=_device_ms(lambda: torch.autograd.grad(
                                 F.layer_norm(xr, (E,), wr, br, eps), (xr, wr, br), gyx)))
+                        if list(kernels.values()) != [1] or "reduce" in "".join(kernels):
+                            record.failures.append(
+                                f"layer_norm_bwd {case}: kernels of one call {kernels}")
+                    if timed:
+                        extra["earlier_device_ms"], extra["earlier_ms"] = LN_EARLIER[
+                            ("layer_norm_bwd", T)]
+                        extra["earlier_fwd_bwd_device_ms"] = LN_EARLIER_FWD_BWD[T]
+                        extra["host_us"] = _host_us(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps))
+                        extra["fwd_bwd_host_us"] = _host_us(ours_fwd_bwd)
+                        extra["library_fwd_bwd_host_us"] = _host_us(lambda: torch.autograd.grad(
+                            F.layer_norm(xr, (E,), wr, br, eps), (xr, wr, br), gyx))
                     record("layer_norm_bwd", case, f"x {xp} y {yp}", errs, ms, pms, lms,
                            _bound(T * E * (2 * sx + sy) + 3 * E * 4, 14 * T * E, "fp32"), main,
                            extra)
@@ -1076,13 +1150,14 @@ def _profile_steps(step, args, n=3):
     total_us = sum(e.self_device_time_total for e in kernels)
     ours = ("attention_rows_kernel", "attention_bwd_rows_kernel", "attention_bwd_cols_kernel",
             "gbf_proj_kernel", "gbf_proj_bwd_kernel", "gbf_bwd_reduce_kernel", "gbf_mma_",
-            "masked_mma_", "pair_mma_")
+            "masked_mma_", "pair_mma_", *LN_KERNEL_NAMES)
 
     def device_us(*names):
         return sum(e.self_device_time_total for e in kernels if any(o in e.key for o in names))
 
     own_us, masked_us, pair_us = device_us(*ours), device_us("masked_mma_"), device_us("pair_mma_")
     gbf_us = device_us("gbf_")
+    ln_launches = sum(e.count for e in kernels if any(o in e.key for o in LN_KERNEL_NAMES))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     return {
         "steps": n,
@@ -1092,6 +1167,8 @@ def _profile_steps(step, args, n=3):
         "masked_mma_kernels_ms_per_step": masked_us / n / 1e3,
         "pair_mma_kernels_ms_per_step": pair_us / n / 1e3,
         "gbf_kernels_ms_per_step": gbf_us / n / 1e3,
+        "ln_kernels_ms_per_step": device_us(*LN_KERNEL_NAMES) / n / 1e3,
+        "ln_kernel_launches_per_step": ln_launches / n,
         "top_kernels": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / n / 1e3,
                          "calls_per_step": e.count / n} for e in top],
     }
@@ -1252,7 +1329,89 @@ def phase_train(dev):
     if not loss512 == loss512 or abs(loss512) == float("inf"):
         raise Failed(f"train: L=512 step gave loss {loss512}")
     _check_mma_routes(routes512, attn, "train L=512")
+    _ln_off_on(model, step, (feats, labels, weights, gen))
     return launches
+
+
+def _ln_off_on(model, step, args):
+    """Phase train (f): the flagship step (N=L=64, dropout on) with the
+    LayerNorm kernels off (MMDTI_PALLAS_LN unset) and on (=1), the same
+    model, weights and batch, alternated over LN_ROUNDS rounds of LN_STEPS
+    steps each way; MMDTI_PALLAS_LN is restored afterwards.  With the
+    kernels on, every LayerNorm site launches its kernels once a step each
+    way; off, none does."""
+    import torch
+
+    from mmdti_tpu_torch.models.layers import FusedLN
+
+    sites = sum(1 for m in model.modules()
+                if isinstance(m, FusedLN) and m.use_kernels and m.weight.numel() % 128 == 0)
+    ways = {"off": None, "on": "1"}
+    runs = {w: {"step_ms": [], "round_p50_ms": [], "ln_launches": [], "profiles": []}
+            for w in ways}
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    try:
+        for _ in range(LN_ROUNDS):
+            for way, env in ways.items():
+                if env is None:
+                    os.environ.pop("MMDTI_PALLAS_LN", None)
+                else:
+                    os.environ["MMDTI_PALLAS_LN"] = env
+                torch.cuda.synchronize()
+                _reset_counts()
+                events = []
+                for _ in range(LN_STEPS):
+                    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    a.record()
+                    step(*args)
+                    b.record()
+                    events.append((a, b))
+                torch.cuda.synchronize()
+                counts = _read_counts()
+                ms = [a.elapsed_time(b) for a, b in events]
+                run = runs[way]
+                run["step_ms"] += ms
+                run["round_p50_ms"].append(statistics.median(ms))
+                run["ln_launches"].append({k: counts[k] / LN_STEPS
+                                           for k in ("layer_norm", "layer_norm_bwd")})
+                run["profiles"].append(_profile_steps(step, args))
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN", None)
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+
+    summary = {}
+    for way, run in runs.items():
+        profs = run["profiles"]
+        summary[way] = {
+            "step_ms_p50": statistics.median(run["step_ms"]),
+            "round_p50_ms": run["round_p50_ms"],
+            "ln_launches_per_step": run["ln_launches"],
+            "kernel_launches_per_step": [p["kernel_launches_per_step"] for p in profs],
+            "device_ms_per_step": [p["device_ms_per_step"] for p in profs],
+            "ln_kernels_ms_per_step": [p["ln_kernels_ms_per_step"] for p in profs],
+            "ln_kernel_launches_per_step": [p["ln_kernel_launches_per_step"] for p in profs],
+        }
+    print("train: " + json.dumps({
+        "step": "LayerNorm kernels off against on", "N": 64, "L": 64, "dropout": "on",
+        "rounds": LN_ROUNDS, "steps_each_way_a_round": LN_STEPS, "ln_sites": sites,
+        **summary,
+        "on_minus_off": {
+            "step_ms_p50": summary["on"]["step_ms_p50"] - summary["off"]["step_ms_p50"],
+            "device_ms_per_step": statistics.fmean(summary["on"]["device_ms_per_step"])
+            - statistics.fmean(summary["off"]["device_ms_per_step"]),
+            "kernel_launches_per_step": statistics.fmean(summary["on"]["kernel_launches_per_step"])
+            - statistics.fmean(summary["off"]["kernel_launches_per_step"])},
+    }), flush=True)
+    if sites != LN_SITES:
+        raise Failed(f"train: {sites} LayerNorm sites take the kernels, expected {LN_SITES}")
+    for way, per in (("off", 0), ("on", sites)):
+        for got in runs[way]["ln_launches"]:
+            if got != {"layer_norm": per, "layer_norm_bwd": per}:
+                raise Failed(f"train LayerNorm kernels {way}: {got} launches a step, "
+                             f"expected {per} each way")
 
 
 def _check_mma_routes(routes, expected, what):
@@ -1395,8 +1554,7 @@ def phase_fit(dev):
         "epoch_val_s": [row["val_seconds"] for row in history],
         "val_mse": [row["val_mse"] for row in history],
         "layer_norms_per_forward": per_forward,
-        "fit_launches": {k: fit_counts[k] for k in ("layer_norm", "layer_norm_bwd",
-                                                    "layer_norm_bwd_reduce")},
+        "fit_launches": {k: fit_counts[k] for k in ("layer_norm", "layer_norm_bwd")},
         "fit_ln_backward_per_step": fit_counts["layer_norm_bwd"] / train_steps,
         "fit_ln_forward_per_step_incl_eval": fit_counts["layer_norm"] / train_steps,
         "fit_gbf_routes": {k: fit_routes[k] for k in ("gbf_proj", "gbf_proj_bwd")},
@@ -1413,13 +1571,11 @@ def phase_fit(dev):
         raise Failed(f"fit: kernel path differs from plain path by {plain_diff}")
     if not np.isfinite(test_pred).all() or not np.isfinite(rmse):
         raise Failed(f"fit: test predictions not finite (rmse {rmse})")
-    want = {"layer_norm_bwd": per_forward * train_steps,
-            "layer_norm_bwd_reduce": per_forward * train_steps}
-    for k, n in want.items():
-        if fit_counts[k] != n:
-            raise Failed(f"fit {k}: {fit_counts[k]} launches, expected {n}")
-    if fit_counts["layer_norm"] % per_forward or fit_counts["layer_norm"] <= want[
-            "layer_norm_bwd"]:
+    want_bwd = per_forward * train_steps
+    if per_forward != LN_SITES or fit_counts["layer_norm_bwd"] != want_bwd:
+        raise Failed(f"fit layer_norm_bwd: {fit_counts['layer_norm_bwd']} launches, expected "
+                     f"{LN_SITES} x {train_steps} ({per_forward} sites)")
+    if fit_counts["layer_norm"] % per_forward or fit_counts["layer_norm"] <= want_bwd:
         raise Failed(f"fit layer_norm: {fit_counts['layer_norm']} launches")
     if fit_counts["gbf_proj"] <= train_steps:   # one a train step, more for evaluation
         raise Failed(f"fit gbf_proj: {fit_counts['gbf_proj']} launches in {train_steps} steps")

@@ -77,12 +77,13 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         "mmdti_gbf_proj_mma_bwd": (_P,) * 11 + (_I,) * 6 + (_F, _P),
     },
     "layer_norm": {
-        # x, scale, bias, y, T, E, eps, x_bf16, y_bf16, stream
-        "mmdti_layer_norm_fwd": (_P,) * 4 + (_I, _I, _F, _I, _I, _P),
-        # x, scale, gy, dx, partials, nblocks, T, E, eps, x_bf16, y_bf16, stream
-        "mmdti_layer_norm_bwd": (_P,) * 5 + (_I,) * 3 + (_F, _I, _I, _P),
-        # partials, out, nblocks, E, stream
-        "mmdti_layer_norm_bwd_reduce": (_P, _P, _I, _I, _P),
+        # x, scale, bias, y, T, E, eps, x_bf16, y_bf16, grid, stream
+        "mmdti_layer_norm_fwd": (_P,) * 4 + (_I, _I, _F, _I, _I, _I, _P),
+        # x, scale, gy, dx, grads, cluster_rows, ticket, T, E, eps, x_bf16, y_bf16,
+        # grid, stream
+        "mmdti_layer_norm_bwd": (_P,) * 7 + (_I, _I, _F, _I, _I, _I, _P),
+        # backward, E, x_bf16, y_bf16, blocks (out)
+        "mmdti_layer_norm_resident": (_I,) * 4 + (ctypes.POINTER(_I),),
     },
 }
 

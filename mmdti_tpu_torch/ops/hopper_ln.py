@@ -12,10 +12,14 @@ in x's dtype and dscale/dbias in fp32, summed over every row.
 The kernels are bytes-bound on the H100: at [2048, 512] bf16 the forward
 moves 4.2 MB (1.25 us at 3.35 TB/s) and the backward 6.3 MB (1.9 us); the
 top atom bucket (N=280) moves 4.4 times as much.  CUDA source:
-csrc/layer_norm.cu.  A CPU tensor runs the plain versions below, a CUDA
-tensor launches the kernels or raises.  The launchers count their launches
-in ``layer_norm_cuda.launches``, ``layer_norm_bwd_cuda.launches`` and
-``layer_norm_bwd_reduce_cuda.launches``.
+csrc/layer_norm.cu: persistent blocks sized to the card, rows prefetched
+into a shared-memory ring, and a backward that gives dx, dscale and dbias
+in one deterministic launch (clusters of CLUSTER blocks, an integer ticket
+per cluster rank for the last block; the scratch is allocated once per
+device, width and grid).  A CPU tensor runs the plain versions below, a
+CUDA tensor launches the kernels or raises.  The launchers count their
+launches in ``layer_norm_cuda.launches`` and
+``layer_norm_bwd_cuda.launches`` (one launch a backward).
 
 The gate is the JAX package's (pallas_ln.py:73-100): opt in with
 ``MMDTI_PALLAS_LN=1`` (read at every call), E % 128 == 0 and T % 8 == 0,
@@ -24,14 +28,17 @@ so the same LayerNorm sites engage in both packages.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
 
 from mmdti_tpu_torch.ops import _build
 
-MAX_E = 1024          # widest row csrc/layer_norm.cu takes
-ROWS_PER_BLOCK = 8    # kWarps in csrc/layer_norm.cu
+MAX_E = 1024            # widest row csrc/layer_norm.cu takes
+WARPS = 8               # kWarps in csrc/layer_norm.cu: warps per block, one row each at a time
+CLUSTER = 8             # kCluster in csrc/layer_norm.cu: blocks per backward cluster
+MIN_ROWS_PER_WARP = 2   # rows a backward warp takes at least, where T allows
 
 
 def layer_norm_supported(shape) -> bool:
@@ -91,13 +98,13 @@ def _check(named, dev, E):
             raise ValueError(f"{n} must be a CUDA tensor on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{n} must be contiguous")
-        if n not in ("scale", "bias") and t.data_ptr() % 16:
-            raise ValueError(f"{n} must be 16-byte aligned")
-    for n, t in named:
-        if n in ("scale", "bias") and (t.dtype != torch.float32 or t.shape != (E,)):
-            raise ValueError(f"{n} must be float32 [{E}], got {t.dtype} {tuple(t.shape)}")
-        elif n not in ("scale", "bias") and t.dtype not in _KERNEL_DTYPES:
+        if n in ("scale", "bias"):
+            if t.dtype != torch.float32 or t.shape != (E,):
+                raise ValueError(f"{n} must be float32 [{E}], got {t.dtype} {tuple(t.shape)}")
+        elif t.dtype not in _KERNEL_DTYPES:
             raise TypeError(f"{n} must be float32 or bfloat16, got {t.dtype}")
+        elif t.data_ptr() % 16:
+            raise ValueError(f"{n} must be 16-byte aligned")
 
 
 def _rows(x):
@@ -112,20 +119,78 @@ def _rows(x):
     return T, E
 
 
+def forward_grid(T: int, resident: int) -> int:
+    """Blocks of the forward: one row per warp while the card holds them
+    all at once, else the resident blocks, each warp walking several rows."""
+    return max(1, min(-(-T // WARPS), resident))
+
+
+def backward_grid(T: int, resident: int) -> int:
+    """Blocks of the backward, a multiple of CLUSTER: at least
+    MIN_ROWS_PER_WARP rows per warp (so its dscale/dbias registers sum
+    rows, and the cluster rows stay few), at most the resident blocks."""
+    want = -(-T // (WARPS * MIN_ROWS_PER_WARP))
+    clusters = min(-(-want // CLUSTER), max(1, resident // CLUSTER))
+    return clusters * CLUSTER
+
+
+_RESIDENT = {}   # (device index, backward, E, x bf16, y bf16) -> resident blocks
+_SCRATCH = {}    # (device index, E, grid) -> (cluster rows, tickets)
+
+
+def _resident(dev, backward: int, E: int, xb: int, yb: int) -> int:
+    """Blocks the card runs at once for this kernel configuration, asked of
+    the CUDA runtime once per device and configuration (which also raises
+    the kernel's shared-memory limit before its first launch)."""
+    key = (dev.index, backward, E, xb, yb)
+    got = _RESIDENT.get(key)
+    if got is None:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _build.load("layer_norm").mmdti_layer_norm_resident(backward, E, xb, yb,
+                                                                     ctypes.byref(blocks))
+        _build.check(rc, f"layer_norm occupancy (backward={backward}, E={E})")
+        got = _RESIDENT[key] = blocks.value
+    return got
+
+
+def _scratch(dev, E: int, grid: int):
+    """The backward's cluster rows [grid / CLUSTER, 2E] fp32 and its tickets
+    (CLUSTER int32, one a cluster rank, 0 between launches: the last block
+    of a rank sets its ticket back), allocated once per device, width and
+    grid.  Launches that share them must be ordered on one stream, as the
+    model's are."""
+    key = (dev.index, E, grid)
+    got = _SCRATCH.get(key)
+    if got is None:
+        got = _SCRATCH[key] = (
+            torch.empty((grid // CLUSTER, 2 * E), dtype=torch.float32, device=dev),
+            torch.zeros(CLUSTER, dtype=torch.int32, device=dev))
+    return got
+
+
+def _stream(dev) -> int:
+    """The current CUDA stream of dev as an int, without building a
+    torch.cuda.Stream object (a launch pays for that on the host)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def layer_norm_cuda(x, scale, bias, eps: float, out_dtype) -> torch.Tensor:
     """Launch csrc/layer_norm.cu's forward on x [T, E] -> y [T, E] in
     out_dtype."""
     T, E = _rows(x)
-    _check((("x", x), ("scale", scale), ("bias", bias)), x.device, E)
+    dev = x.device
+    _check((("x", x), ("scale", scale), ("bias", bias)), dev, E)
     if out_dtype not in _KERNEL_DTYPES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    y = torch.empty((T, E), dtype=out_dtype, device=x.device)
+    xb, yb = int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)
+    grid = forward_grid(T, _resident(dev, 0, E, xb, yb))
+    y = torch.empty((T, E), dtype=out_dtype, device=dev)
     rc = _build.load("layer_norm").mmdti_layer_norm_fwd(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), T, E, float(eps),
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(rc, f"layer_norm (T={T}, E={E})")
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), T, E, float(eps), xb, yb,
+        grid, _stream(dev))
+    if rc:
+        _build.check(rc, f"layer_norm (T={T}, E={E})")
     layer_norm_cuda.launches += 1
     return y
 
@@ -133,53 +198,29 @@ def layer_norm_cuda(x, scale, bias, eps: float, out_dtype) -> torch.Tensor:
 layer_norm_cuda.launches = 0
 
 
-def backward_blocks(T: int, device) -> int:
-    """Blocks of the backward's row launch: one row per warp up to two
-    blocks per SM, then each warp walks several rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-T // ROWS_PER_BLOCK), 2 * sms))
-
-
 def layer_norm_bwd_cuda(x, scale, gy, eps: float):
-    """Launch csrc/layer_norm.cu's backward (the row launch, then the
-    ordered reduction of its per-block partial rows).  Returns the
-    gradients of layer_norm_bwd_plain."""
+    """Launch csrc/layer_norm.cu's backward, one launch for dx, dscale and
+    dbias.  Returns the gradients of layer_norm_bwd_plain."""
     T, E = _rows(x)
-    _check((("x", x), ("scale", scale), ("gy", gy)), x.device, E)
+    dev = x.device
+    _check((("x", x), ("scale", scale), ("gy", gy)), dev, E)
     if gy.shape != x.shape:
         raise ValueError(f"gy {tuple(gy.shape)} must match x {tuple(x.shape)}")
+    xb, yb = int(x.dtype == torch.bfloat16), int(gy.dtype == torch.bfloat16)
+    grid = backward_grid(T, _resident(dev, 1, E, xb, yb))
+    rows, tickets = _scratch(dev, E, grid)
     dx = torch.empty_like(x)
-    nblocks = backward_blocks(T, x.device)
-    partials = torch.empty((nblocks, 2 * E), dtype=torch.float32, device=x.device)
+    grads = torch.empty(2 * E, dtype=torch.float32, device=dev)
     rc = _build.load("layer_norm").mmdti_layer_norm_bwd(
-        x.data_ptr(), scale.data_ptr(), gy.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-        nblocks, T, E, float(eps), int(x.dtype == torch.bfloat16),
-        int(gy.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(rc, f"layer_norm_bwd (T={T}, E={E})")
+        x.data_ptr(), scale.data_ptr(), gy.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+        rows.data_ptr(), tickets.data_ptr(), T, E, float(eps), xb, yb, grid, _stream(dev))
+    if rc:
+        _build.check(rc, f"layer_norm_bwd (T={T}, E={E})")
     layer_norm_bwd_cuda.launches += 1
-    grads = layer_norm_bwd_reduce_cuda(partials)
     return dx, grads[:E], grads[E:]
 
 
 layer_norm_bwd_cuda.launches = 0
-
-
-def layer_norm_bwd_reduce_cuda(partials: torch.Tensor) -> torch.Tensor:
-    """Launch the backward's second kernel: the column sums of partials
-    [nblocks, 2E] in block order -> [2E] (dscale then dbias)."""
-    nblocks, width = partials.shape
-    out = torch.empty(width, dtype=torch.float32, device=partials.device)
-    rc = _build.load("layer_norm").mmdti_layer_norm_bwd_reduce(
-        partials.data_ptr(), out.data_ptr(), nblocks, width // 2,
-        torch.cuda.current_stream(partials.device).cuda_stream,
-    )
-    _build.check(rc, f"layer_norm_bwd_reduce (blocks={nblocks}, E={width // 2})")
-    layer_norm_bwd_reduce_cuda.launches += 1
-    return out
-
-
-layer_norm_bwd_reduce_cuda.launches = 0
 
 
 class LayerNormFn(torch.autograd.Function):

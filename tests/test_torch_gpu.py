@@ -497,7 +497,8 @@ def test_bf16_masked_op_saves_stats_and_launches_the_mma_backward(cuda):
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("y_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,E,eps", [(2048, 512, 1e-5), (24, 136, 1e-12), (40, 1024, 1e-5)])
+@pytest.mark.parametrize("T,E,eps", [(2048, 512, 1e-5), (24, 136, 1e-12), (40, 1024, 1e-5),
+                                     (8, 512, 1e-12), (8960, 512, 1e-5), (16384, 768, 1e-5)])
 def test_layer_norm_kernels_match_plain(cuda, x_dtype, y_dtype, T, E, eps):
     from mmdti_tpu_torch.ops import hopper_ln as hl
 
@@ -506,12 +507,13 @@ def test_layer_norm_kernels_match_plain(cuda, x_dtype, y_dtype, T, E, eps):
     w = _t((rng.rand(E) + 0.5).astype(np.float32), cuda)
     b = _t((0.1 * rng.randn(E)).astype(np.float32), cuda)
     gy = _t(rng.randn(T, E).astype(np.float32), cuda, y_dtype)
-    before = (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches,
-              hl.layer_norm_bwd_reduce_cuda.launches)
+    before = (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches)
     y = hl.layer_norm_cuda(x, w, b, eps, y_dtype)
     got = hl.layer_norm_bwd_cuda(x, w, gy, eps)
-    assert (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches,
-            hl.layer_norm_bwd_reduce_cuda.launches) == tuple(n + 1 for n in before)
+    # one launch each way: the backward's dscale/dbias need no second kernel
+    assert (hl.layer_norm_cuda.launches, hl.layer_norm_bwd_cuda.launches) == tuple(
+        n + 1 for n in before)
+    assert not hasattr(hl, "layer_norm_bwd_reduce_cuda")
     assert y.dtype == y_dtype and got[0].dtype == x_dtype
     tol = 2e-5 if y_dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), hl.layer_norm_plain(x, w, b, eps, y_dtype).float(),
@@ -523,15 +525,45 @@ def test_layer_norm_kernels_match_plain(cuda, x_dtype, y_dtype, T, E, eps):
         torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(x_dtype, c), rtol=0)
 
 
-def test_layer_norm_takes_parameter_views_at_any_offset(cuda):
+def test_layer_norm_backward_repeats_bit_equal_after_another_T(cuda):
+    """A backward at T=2048, one at T=24, and T=2048 again: the two T=2048
+    results are bit-equal, and every ticket is back at 0 (a ticket or
+    scratch that the kernel failed to reset would show here)."""
+    from mmdti_tpu_torch.ops import hopper_ln as hl
+
+    rng = np.random.RandomState(10)
+    E = 512
+    w = _t((rng.rand(E) + 0.5).astype(np.float32), cuda)
+    x, gy, x24, gy24 = (_t(rng.randn(T, E).astype(np.float32), cuda, torch.bfloat16)
+                        for T in (2048, 2048, 24, 24))
+    first = hl.layer_norm_bwd_cuda(x, w, gy, 1e-5)
+    between = hl.layer_norm_bwd_cuda(x24, w, gy24, 1e-5)
+    again = hl.layer_norm_bwd_cuda(x, w, gy, 1e-5)
+    torch.cuda.synchronize()
+    for a, r in zip(first, again):
+        assert torch.equal(a, r)
+    want = hl.layer_norm_bwd_plain(x24, w, gy24, 1e-5)
+    for a, c in zip(between, want):
+        torch.testing.assert_close(a.float(), c.float(),
+                                   atol=_grad_tol(torch.bfloat16, c), rtol=0)
+    assert all(bool((tickets == 0).all()) for _, tickets in hl._SCRATCH.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_takes_parameter_views_at_any_offset(cuda, dtype):
     """The optimizer keeps parameters as views into one flat buffer, so
-    scale and bias may start at any float offset."""
+    scale and bias may start at any float offset: forward and backward."""
     from mmdti_tpu_torch.ops import hopper_ln as hl
 
     E = 512
     rng = np.random.RandomState(9)
     flat = _t(rng.randn(2 * E + 1).astype(np.float32), cuda)
     w, b = flat[1:E + 1], flat[E + 1:]
-    x = _t(rng.randn(64, E).astype(np.float32), cuda)
-    torch.testing.assert_close(hl.layer_norm_cuda(x, w, b, 1e-5, torch.float32),
-                               hl.layer_norm_plain(x, w, b, 1e-5), atol=2e-5, rtol=0)
+    x = _t(rng.randn(64, E).astype(np.float32), cuda, dtype)
+    gy = _t(rng.randn(64, E).astype(np.float32), cuda, dtype)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(hl.layer_norm_cuda(x, w, b, 1e-5, dtype).float(),
+                               hl.layer_norm_plain(x, w, b, 1e-5).float(), atol=tol, rtol=0)
+    want = hl.layer_norm_bwd_plain(x, w, gy, 1e-5)
+    for a, c in zip(hl.layer_norm_bwd_cuda(x, w, gy, 1e-5), want):
+        torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(dtype, c), rtol=0)
