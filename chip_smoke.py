@@ -60,18 +60,37 @@ Phases, one result line each; any failure exits non-zero:
    over 2 rounds of 10 steps each way: step p50, launches and device ms per
    step, the LayerNorm kernels' ms per step; on, exactly 49 forward and 49
    backward LayerNorm launches a step;
-6. fit, with MMDTI_PALLAS_LN=1 for this phase (restored after it, as in
+6. graphs: K=4 flagship train steps (bf16, B=32, N=L=64, dropout on)
+   recorded into one CUDA graph (train/steps.py TrainPrograms.feed over a
+   resident batch) and replayed: (a) against the same 4 steps run eagerly
+   from the same parameters, moments, counts and generator state, with the
+   LayerNorm kernels off and on: parameters, moments, counts and metrics
+   must match as closely as two eager runs match each other (bit-equal
+   when those do); (b) one replay's launches of each port kernel from the
+   profiler, exactly K x its launches a step (gbf 1/1, pair-bias 15/15,
+   masked 8/8, LayerNorm 49/49 when on), the routes read at capture, and
+   no launcher counter moving during a replay; (c) step p50 (CUDA events),
+   device ms and kernels a step, graph and eager alternated over 2 rounds
+   of 12 steps each way, LayerNorm kernels off and on, peak memory, and one
+   graph step at N=280; (d) MolTrain.fit with the defaults (the resident
+   feed engaged, steps_per_call=4) on the set of phase 7, MMDTI_PALLAS_LN=1:
+   epoch seconds and history, the launcher counts exactly one train graph's
+   and two sweep graphs' warm-up and capture; (e) MolPredict through the
+   resident sweep against the per-batch path (1e-6);
+7. fit, with MMDTI_PALLAS_LN=1 for this phase (restored after it, as in
    5 (f)): the 400-molecule
    synthetic regression set (seed 0), scaffold-split (seed 0), then
-   MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
+   MolTrain.fit(train, val) on the eager path (device_feed=False,
+   steps_per_call=1) at the flagship width and depth (bf16, B=32,
    3 epochs, dropout, InfoNCE, CT, sample weights, FDS) and
    MolPredict.predict(test); prints the featurization and per-epoch
    seconds, the gbf routes (every launch on the tensor cores), the
    LayerNorm launch counts (forward and backward, checked against the 49
    LayerNorms of a forward), the artifacts, the
    reloaded predictions against the fit's own, the kernel path against the
-   plain path on the same checkpoint, and the test RMSE (a record);
-7. one JSON line with every kernel's summary, then {"ok": true, ...}.
+   plain path on the same checkpoint, the graph-replayed fit of phase 6
+   against this one (2e-2), and the test RMSE (a record);
+8. one JSON line with every kernel's summary, then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -150,6 +169,19 @@ LN_ROUNDS, LN_STEPS = 2, 10   # phase train (f): rounds of steps each way, Layer
 LN_SITES = 49   # LayerNorms of a flagship forward that take the kernels (E % 128 == 0)
 LN_KERNEL_NAMES = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")
 FIT_MOLECULES, FIT_EPOCHS = 400, 3
+GRAPH_K = 4   # steps a train graph holds: the fit's default steps_per_call
+# phase graphs (c): rounds, and replays of a K-step graph a round (3 x 4 =
+# 12 steps each way, 10 rounded up to whole replays)
+GRAPH_ROUNDS, GRAPH_REPLAYS = 2, 3
+PREDICT_SWEEP_TOL = 1e-6   # the sweep against the per-batch path, as tests/test_torch_feed.py
+# a substring of the one device kernel each launcher launches once a call
+# on the bf16 flagship's routes, for counting a graph replay's launches
+KERNEL_MARKERS = {"gbf_proj": "gbf_mma_fwd_kernel", "gbf_proj_bwd": "gbf_mma_bwd_kernel",
+                  "pair_bias_attention": "pair_mma_fwd_kernel",
+                  "pair_bias_attention_bwd": "pair_mma_bwd_kernel",
+                  "masked_attention": "masked_mma_fwd_kernel",
+                  "masked_attention_bwd": "masked_mma_bwd_dq_kernel",
+                  "layer_norm": "layer_norm_fwd_kernel", "layer_norm_bwd": "layer_norm_bwd_kernel"}
 SDPA_PAIR_IS = ("SDPA with the bias as a float attn_mask: a partial yardstick, it writes no "
                 "logits and takes no logits cotangent")
 # per-case numbers that the main case also carries into the kernels line;
@@ -250,16 +282,16 @@ def _kernel_events(fn, n):
             if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key}
 
 
-REJECTED_WINDOWS = []   # profiler windows _device_ms threw away, printed by phase 3
+REJECTED_WINDOWS = []   # profiler windows _call_kernels threw away, printed by phase 3
 
 
-def _device_ms(fn, n=20, tries=5):
-    """Device time per call: the CUDA kernels' own time in a torch.profiler
-    window of n calls, over n (the host's issue time left out).  One
-    profiled call first gives each kernel name's launches per call; a window
-    that does not hold exactly n times as many of each (the profiler lost
-    or kept events) is thrown away and taken again, at most `tries` times,
-    then the reading fails."""
+def _call_kernels(fn, n=20, tries=5):
+    """{kernel name: (launches, device us)} of one call of fn.  One
+    profiled call gives each kernel name's launches; a window of n calls
+    must hold exactly n times as many of each, or it (and the one call) lost
+    or kept events and is thrown away and taken again, at most `tries`
+    times, then the reading fails.  The device us are the window's over n
+    (the host's issue time left out)."""
     import torch
 
     fn()
@@ -269,10 +301,15 @@ def _device_ms(fn, n=20, tries=5):
         window = _kernel_events(fn, n)
         counts = {k: c for k, (c, _) in window.items()}
         if per_call and counts == {k: c * n for k, c in per_call.items()}:
-            return sum(us for _, us in window.values()) / n / 1e3
+            return {k: (c, window[k][1] / n) for k, c in per_call.items()}
         REJECTED_WINDOWS.append({"per_call": per_call, f"window_of_{n}": counts})
     raise Failed(f"profiler windows lost or gained kernels {tries} times: "
                  f"{REJECTED_WINDOWS[-tries:]}")
+
+
+def _device_ms(fn, n=20, tries=5):
+    """Device ms per call: the kernels' own time (_call_kernels)."""
+    return sum(us for _, us in _call_kernels(fn, n, tries).values()) / 1e3
 
 
 def _bound(nbytes, flops, prec):
@@ -1007,8 +1044,8 @@ def _layer_norm_cases(dev, gen, record):
                              "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
                              "library_is": "F.layer_norm forward + autograd backward"}
                     if eps == 1e-5:
-                        kernels = {k: c for k, (c, _) in _kernel_events(
-                            lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps), 1).items()}
+                        kernels = {k: c for k, (c, _) in _call_kernels(
+                            lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps), n=5).items()}
                         extra.update(
                             kernels_per_call=kernels,
                             device_ms=_device_ms(lambda: hl.layer_norm_bwd_cuda(x, w, gy, eps)),
@@ -1113,6 +1150,20 @@ def phase_serve(dev):
     return launches
 
 
+def _flagship(use_kernels):
+    """The flagship model (bf16 compute, bf16 pair logits) on the CPU, with
+    the built-in dictionary and tokenizer's vocabularies."""
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.models.mm_model import build_model
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+    return build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                       compute_dtype="bfloat16", use_kernels=use_kernels,
+                       unimol_overrides={"pair_dtype": "bfloat16"})
+
+
 def _train_batch(dev, atom_pad, smiles_pad, B=32):
     """B molecules of SMILES_20 featurized (host conformers) and collated to
     N=atom_pad atoms and L=smiles_pad tokens, on the device."""
@@ -1201,24 +1252,13 @@ def phase_train(dev):
     the 30-step run."""
     import torch
 
-    from mmdti_tpu_torch.chem.dictionary import Dictionary
-    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
     from mmdti_tpu_torch.losses import zoo
-    from mmdti_tpu_torch.models.mm_model import build_model
     from mmdti_tpu_torch.train.optim import FusedAdam
     from mmdti_tpu_torch.train.steps import build_train_loss, build_train_step
 
-    d = Dictionary.load()
-    d.add_symbol("[MASK]", is_special=True)
-
-    def flagship(use_kernels):
-        return build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
-                           compute_dtype="bfloat16", use_kernels=use_kernels,
-                           unimol_overrides={"pair_dtype": "bfloat16"})
-
-    model = flagship(True)
+    model = _flagship(True)
     model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
-    plain = flagship(False)
+    plain = _flagship(False)
     plain.load_state_dict(model.state_dict())
     model.to(dev)
     plain.to(dev)
@@ -1472,19 +1512,296 @@ def _compare_paths(model, plain, train_loss, feats, labels, weights, attn):
     _check_mma_routes(routes, attn, f"train {shape} check")
 
 
-def phase_fit(dev):
-    """MolTrain.fit -> MolPredict at the flagship width and depth with the
-    LayerNorm kernels engaged; returns the launch counts of the phase."""
-    import shutil
+def _graph_resident(dev, atom_pad, smiles_pad, B=32):
+    """A Resident dataset of the B molecules of _train_batch (N=atom_pad,
+    L=smiles_pad), labels drawn from seed 1, unit sample weights."""
+    import torch
 
+    from mmdti_tpu_torch.train.steps import Resident
+
+    labels = torch.randn(B, 1, generator=torch.Generator().manual_seed(1)).to(dev)
+    return Resident(_train_batch(dev, atom_pad, smiles_pad, B), labels,
+                    torch.ones(B, 1, device=dev))
+
+
+def _set_ln(way):
+    if way == "off":
+        os.environ.pop("MMDTI_PALLAS_LN", None)
+    else:
+        os.environ["MMDTI_PALLAS_LN"] = "1"
+
+
+def _replay_launches(fn, n=3, tries=5):
+    """({launcher: launches} of the port's kernels in one call of fn, device
+    ms of a call, device kernels of a call).  The launches come from a
+    profiler window of one call (KERNEL_MARKERS), confirmed by a window of
+    n calls that holds n times as many of each port kernel, or both are
+    taken again (`tries` times, then the reading fails).  Only the port
+    kernels are held to that: the tracer drops the last few of a replayed
+    graph's kernels from every window (PyTorch's small gathers and fills
+    at the end of the last step), so the device ms and kernel count come
+    from the n-call window over n, short by those few."""
+    import torch
+
+    def ports(events):
+        return {k: sum(c for name, (c, _) in events.items() if m in name)
+                for k, m in KERNEL_MARKERS.items()}
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        one = ports(_kernel_events(fn, 1))
+        window = _kernel_events(fn, n)
+        if any(one.values()) and ports(window) == {k: c * n for k, c in one.items()}:
+            return (one, sum(us for _, us in window.values()) / n / 1e3,
+                    sum(c for c, _ in window.values()) / n)
+        REJECTED_WINDOWS.append({"port_kernels_one_call": one,
+                                 f"port_kernels_window_of_{n}": ports(window)})
+    raise Failed(f"graph replay windows disagreed {tries} times: {REJECTED_WINDOWS[-tries:]}")
+
+
+def phase_graphs(dev):
+    """K train steps replayed from one CUDA graph (TrainPrograms.feed over
+    a resident batch), at the flagship width and depth, bf16, B=32,
+    N=L=64, dropout on: (a) graph against eager, LayerNorm kernels off and
+    on; (b) the port kernels' launches in one replay; (c) step times,
+    graph and eager alternated, and one graph step at N=280; (d) MolTrain.fit
+    with the defaults (the feed engaged, steps_per_call=4); (e) MolPredict
+    through the sweep against the per-batch path.  Returns what phase fit
+    compares with."""
     import numpy as np
     import torch
 
-    from mmdti_tpu_torch import MolPredict, MolTrain
+    from mmdti_tpu_torch import MolPredict
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP, TrainPrograms
+
+    B, K = 32, GRAPH_K
+    model = _flagship(True)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+    model.to(dev)
+    res = _graph_resident(dev, 64, 64, B)
+    rng = np.random.RandomState(0)
+    idx = torch.from_numpy(np.stack([rng.permutation(B) for _ in range(K)])).to(dev)
+    opt = FusedAdam(dict(model.named_parameters()), 1e-4, 1000, warmup_ratio=0.1, max_norm=1.0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    progs = TrainPrograms(model, opt, zoo.mse_loss, "regression", gen)
+    n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+    attn = _attention_launches(model.unimol_cfg.encoder_layers, n_masked)
+    sites = _ln_sites(model)
+
+    def state():
+        return [t.clone() for t in (*opt.graph_state, progs.metric_sums)], gen.get_state()
+
+    def restore(saved):
+        tensors, gen_state = saved
+        with torch.no_grad():
+            for t, v in zip((*opt.graph_state, progs.metric_sums), tensors):
+                t.copy_(v)
+        gen.set_state(gen_state)
+
+    def eager():
+        return torch.stack([progs.single(*res.take(idx[k])) for k in range(K)])
+
+    def graph():
+        return progs.feed(res, idx)
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    checks, timing = {}, {"off": [], "on": []}
+    try:
+        # (a) graph against eager from one state, and (b) one replay's launches
+        for way in ("off", "on"):
+            _set_ln(way)
+            s0 = state()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            m_e1 = eager()
+            after_e1 = state()
+            torch.cuda.synchronize()
+            peak_eager = torch.cuda.max_memory_allocated(dev)
+            restore(s0)
+            m_e2 = eager()
+            after_e2 = state()
+            restore(s0)
+            _reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            m_g = graph()                      # records the graph, then replays it
+            torch.cuda.synchronize()
+            first_call_s = time.perf_counter() - t0
+            peak_graph = torch.cuda.max_memory_allocated(dev)
+            after_g = state()
+            capture_counts, capture_routes = _read_counts(), _read_routes()
+            ee = gap([*after_e1[0], m_e1], [*after_e2[0], m_e2])
+            ge = gap([*after_g[0], m_g], [*after_e1[0], m_e1])
+            gen_equal = (torch.equal(after_g[1], after_e1[1])
+                         and torch.equal(after_e2[1], after_e1[1]))
+            per_step = {**attn, "layer_norm": sites if way == "on" else 0,
+                        "layer_norm_bwd": sites if way == "on" else 0}
+            replay, replay_ms, replay_kernels = _replay_launches(graph)
+            counts_after = _read_counts()
+            checks[way] = {
+                "eager_vs_eager_max_abs": ee, "graph_vs_eager_max_abs": ge,
+                "generator_state_equal": gen_equal,
+                "replay_launches": replay,
+                "replay_launches_expected": {k: K * n for k, n in per_step.items()},
+                "replay_device_ms_per_step": replay_ms / K,
+                "replay_kernels_per_step": replay_kernels / K,
+                "counters_moved_in_replay": {k: counts_after[k] - capture_counts[k]
+                                             for k in counts_after},
+                "capture_routes": {k: capture_routes[k]
+                                   for k in ("gbf_proj", "pair_bias_attention",
+                                             "masked_attention")},
+                "first_call_s_warmup_capture_replay": first_call_s,
+                "peak_bytes_eager_4_steps": peak_eager,
+                "peak_bytes_capture_and_replay": peak_graph,
+                # the capture empties the allocator's cache first: this is
+                # what stays reserved with the graph's pool
+                "reserved_bytes_after_capture": torch.cuda.memory_reserved(dev),
+            }
+            print(f"graphs: (a)+(b) LayerNorm kernels {way}: " + json.dumps(checks[way]),
+                  flush=True)
+            if not gen_equal or ge > ee:
+                raise Failed(f"graphs {way}: {K} replayed steps differ from {K} eager steps "
+                             f"by {ge} (two eager runs: {ee}); generator equal {gen_equal}")
+            if replay != {k: K * n for k, n in per_step.items()}:
+                raise Failed(f"graphs {way}: one replay launched {replay}, expected {K} x "
+                             f"{per_step}")
+            if any(counts_after[k] != capture_counts[k] for k in counts_after):
+                raise Failed(f"graphs {way}: a replay went through the launchers")
+            _check_mma_routes(capture_routes, {k: (GRAPH_WARMUP + 1) * K * n
+                                               for k, n in attn.items()}, f"graphs {way}")
+
+        # (c) step times, graph and eager alternated
+        for rnd in range(GRAPH_ROUNDS):
+            for way in ("off", "on"):
+                _set_ln(way)
+                row = {"round": rnd}
+                for kind in ("eager", "graph"):
+                    events = []
+                    for _ in range(GRAPH_REPLAYS if kind == "graph" else GRAPH_REPLAYS * K):
+                        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        a.record()
+                        graph() if kind == "graph" else progs.single(*res.take(idx[0]))
+                        b.record()
+                        events.append((a, b))
+                    torch.cuda.synchronize()
+                    per = K if kind == "graph" else 1
+                    row[f"{kind}_step_ms_p50"] = statistics.median(
+                        a.elapsed_time(b) / per for a, b in events)
+                prof = _profile_steps(lambda: progs.single(*res.take(idx[0])), (), n=3)
+                row["eager_device_ms_per_step"] = prof["device_ms_per_step"]
+                row["eager_kernels_per_step"] = prof["kernel_launches_per_step"]
+                _, g_ms, g_kernels = _replay_launches(graph)
+                row["graph_device_ms_per_step"] = g_ms / K
+                row["graph_kernels_per_step"] = g_kernels / K
+                timing[way].append(row)
+        summary = {way: {
+            "eager_step_ms_p50": statistics.median(r["eager_step_ms_p50"] for r in rows),
+            "graph_step_ms_p50": statistics.median(r["graph_step_ms_p50"] for r in rows),
+            "rounds": rows} for way, rows in timing.items()}
+        print("graphs: (c) " + json.dumps({
+            "B": B, "N": 64, "L": 64, "K": K, "dropout": "on",
+            "steps_each_way_a_round": GRAPH_REPLAYS * K, **summary}), flush=True)
+
+        # (c) one graph step at the top atom bucket, LayerNorm kernels off
+        _set_ln("off")
+        res280 = _graph_resident(dev, 280, 64, B)
+        one = torch.arange(B, device=dev).view(1, B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        progs.feed(res280, one)
+        torch.cuda.synchronize()
+        peak_graph280 = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        progs.single(*res280.take(one[0]))
+        torch.cuda.synchronize()
+        peak_eager280 = torch.cuda.max_memory_allocated(dev)
+        _, ms280, kernels280 = _replay_launches(lambda: progs.feed(res280, one))
+        print("graphs: (c) " + json.dumps({
+            "step": "top atom bucket, K=1 graph", "B": B, "N": 280, "L": 64,
+            "graph_step_ms": _time_ms(lambda: progs.feed(res280, one), iters=5, warmup=1),
+            "eager_step_ms": _time_ms(lambda: progs.single(*res280.take(one[0])), iters=5,
+                                      warmup=1),
+            "graph_device_ms": ms280, "graph_kernels": kernels280,
+            "peak_bytes_capture_and_replay": peak_graph280, "peak_bytes_eager": peak_eager280,
+            "profiler_windows_rejected_so_far": len(REJECTED_WINDOWS),
+        }), flush=True)
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN", None)
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+    del progs, opt, model, res, res280
+    torch.cuda.empty_cache()
+
+    # (d) the fit with the defaults: the feed engaged, steps_per_call=4
+    paths, sizes = _fit_data()
+    work = os.path.dirname(paths["train"])
+    exp = os.path.join(work, "exp_graph")
+    fit = _run_fit(paths, exp)
+    counts, history = fit["counts"], fit["history"]
+    steps = sizes["train"] // 32
+    k_feed = _snap_to_divisor(4, steps)
+    # one train graph (warm-up and capture) and one sweep graph each for
+    # validation and the FDS pass: the launchers count only those
+    want = {"layer_norm_bwd": (GRAPH_WARMUP + 1) * k_feed * LN_SITES,
+            "gbf_proj_bwd": (GRAPH_WARMUP + 1) * k_feed,
+            "gbf_proj": (GRAPH_WARMUP + 1) * (k_feed + 2)}
+    print("graphs: (d) " + json.dumps({
+        "dispatch": "defaults: device_feed auto (engaged), steps_per_call 4",
+        "steps_per_epoch": steps, "steps_per_replay": k_feed, "epochs": len(history),
+        "fit_wall_s": fit["fit_s"], "epoch_wall_s": [r["seconds"] for r in history],
+        "epoch_val_s": [r["val_seconds"] for r in history], "history": history,
+        "launcher_counts": {k: counts[k] for k in want}, "launcher_counts_expected": want,
+    }), flush=True)
+    if any(counts[k] != n for k, n in want.items()):
+        raise Failed(f"graphs fit: the launchers counted {counts}, expected {want}: the fit "
+                     "did not run its steps and sweeps as graph replays")
+
+    # (e) bulk predict: the sweep against the per-batch path
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    os.environ["MMDTI_PALLAS_LN"] = "1"
+    try:
+        swept = MolPredict(load_model=exp)
+        test_pred = swept.predict(paths["test"])
+        per_batch = MolPredict(load_model=exp)
+        per_batch.config["device_feed"] = False
+        test_per_batch = per_batch.predict(paths["test"])
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN")
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+    diff = float(np.abs(test_pred - test_per_batch).max())
+    print("graphs: (e) " + json.dumps({
+        "rows": int(test_pred.shape[0]),
+        "sweep_graphs": sum(len(sw.graphs) for _, sw in swept.trainer._sweeps.values()),
+        "sweep_vs_per_batch_max_abs": diff, "tol": PREDICT_SWEEP_TOL}), flush=True)
+    if not swept.trainer._sweeps or per_batch.trainer._sweeps:
+        raise Failed("graphs predict: the sweep did not run where the feed engages, or ran "
+                     "where it was off")
+    if not diff <= PREDICT_SWEEP_TOL:
+        raise Failed(f"graphs predict: the sweep differs from the per-batch path by {diff}")
+    return {"paths": paths, "sizes": sizes, "cv_pred": np.asarray(fit["clf"].cv_pred),
+            "test_pred": np.asarray(test_pred), "history": history}
+
+
+def _fit_data():
+    """The 400-molecule synthetic regression set (seed 0), scaffold-split
+    (seed 0), written under build/; returns ({split: csv path}, {split:
+    rows}).  Prints the host featurization time of all of it."""
+    import shutil
+
     from mmdti_tpu_torch.chem.conformer import ConformerGen
     from mmdti_tpu_torch.data.reader import read_csv, write_csv
     from mmdti_tpu_torch.finetune import make_synthetic_dataset
-    from mmdti_tpu_torch.models.layers import FusedLN
     from mmdti_tpu_torch.splits import random_scaffold_split
 
     work = os.path.join(REPO, "build", "chip_smoke_fit")
@@ -1503,8 +1820,19 @@ def phase_fit(dev):
     print(f"fit: {FIT_MOLECULES} molecules, split {sizes}; host featurization of all of them "
           f"{featurize_s:.2f} s (the fit and each predict featurize their sets again)",
           flush=True)
+    return paths, sizes
 
-    exp = os.path.join(work, "exp")
+
+def _run_fit(paths, exp, **dispatch):
+    """MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
+    FIT_EPOCHS epochs, dropout, InfoNCE, CT, sample weights, FDS) with
+    MMDTI_PALLAS_LN=1 (restored after); ``dispatch`` sets device_feed and
+    steps_per_call (the defaults otherwise).  Returns the model, fit
+    seconds, the launch counts and routes of the fit, and its history."""
+    import torch
+
+    from mmdti_tpu_torch import MolTrain
+
     previous = os.environ.get("MMDTI_PALLAS_LN")
     os.environ["MMDTI_PALLAS_LN"] = "1"
     try:
@@ -1515,11 +1843,49 @@ def phase_fit(dev):
                        target_cols=["measured"], using_infonce=True, using_ct=True,
                        raw_data=paths["train"], seed=42, use_weight=True, fds=True, fds_num=30,
                        fds_raw_path=paths["train"], fds_col_data="measured",
-                       target_anomaly_check="filter", device=dev.type)
+                       target_anomaly_check="filter", device="cuda", **dispatch)
         clf.fit(paths["train"], paths["val"])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_counts, fit_routes = _read_counts(), _read_routes()
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN")
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+    with open(os.path.join(exp, "history_0.json")) as f:
+        history = json.load(f)
+    return {"clf": clf, "fit_s": fit_s, "counts": _read_counts(), "routes": _read_routes(),
+            "history": history}
+
+
+def _ln_sites(model):
+    from mmdti_tpu_torch.models.layers import FusedLN
+
+    return sum(1 for m in model.modules()
+               if isinstance(m, FusedLN) and m.use_kernels and m.weight.numel() % 128 == 0)
+
+
+def phase_fit(dev, graph_fit):
+    """MolTrain.fit -> MolPredict at the flagship width and depth with the
+    LayerNorm kernels engaged, on the eager path (device_feed=False,
+    steps_per_call=1: every step and evaluation issued from the host, so
+    the launch counters count them all); its predictions against the
+    graph-replayed fit of phase graphs.  Returns the launch counts of the
+    phase."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict
+    from mmdti_tpu_torch.data.reader import read_csv
+
+    paths, sizes, work = graph_fit["paths"], graph_fit["sizes"], os.path.dirname(
+        graph_fit["paths"]["train"])
+    exp = os.path.join(work, "exp")
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    fit = _run_fit(paths, exp, device_feed=False, steps_per_call=1)
+    clf, fit_counts, fit_routes, history = fit["clf"], fit["counts"], fit["routes"], fit["history"]
+    os.environ["MMDTI_PALLAS_LN"] = "1"
+    try:
         test_pred = MolPredict(load_model=exp).predict(paths["test"],
                                                       save_path=os.path.join(work, "out"))
         launches = _read_counts()
@@ -1532,24 +1898,25 @@ def phase_fit(dev):
             os.environ.pop("MMDTI_PALLAS_LN")
         else:
             os.environ["MMDTI_PALLAS_LN"] = previous
+    torch.cuda.synchronize()
 
     model = clf.model.model
     ucfg = model.unimol_cfg
-    per_forward = sum(1 for m in model.modules()
-                      if isinstance(m, FusedLN) and m.use_kernels and m.weight.numel() % 128 == 0)
+    per_forward = _ln_sites(model)
     steps = sizes["train"] // 32
-    with open(os.path.join(exp, "history_0.json")) as f:
-        history = json.load(f)
     epochs_run = len(history)
     train_steps = steps * epochs_run
     truth = np.asarray(read_csv(paths["test"])["measured"], np.float64)
     rmse = float(np.sqrt(np.mean((truth - test_pred.reshape(-1)) ** 2)))
     reload_diff = float(np.abs(val_pred - clf.cv_pred).max())
     plain_diff = float(np.abs(val_pred - val_plain).max())
+    graph_diff = float(np.abs(graph_fit["cv_pred"] - clf.cv_pred).max())
+    graph_test_diff = float(np.abs(graph_fit["test_pred"] - test_pred).max())
     print("fit: " + json.dumps({
         "model": {"layers": ucfg.encoder_layers, "E": ucfg.embed_dim, "H": ucfg.attention_heads,
                   "compute": "bf16", "pair": ucfg.pair_dtype, "batch": 32},
-        "epochs": epochs_run, "steps_per_epoch": steps, "fit_wall_s": fit_s,
+        "dispatch": "eager: device_feed=False, steps_per_call=1",
+        "epochs": epochs_run, "steps_per_epoch": steps, "fit_wall_s": fit["fit_s"],
         "epoch_wall_s": [row["seconds"] for row in history],
         "epoch_val_s": [row["val_seconds"] for row in history],
         "val_mse": [row["val_mse"] for row in history],
@@ -1562,6 +1929,11 @@ def phase_fit(dev):
         "predict_files": sorted(os.listdir(os.path.join(work, "out"))),
         "reload_vs_fit_max_abs_diff": reload_diff,
         "kernel_vs_plain_max_abs_diff": plain_diff, "plain_tol": LOGITS_TOL,
+        "graph_fit_vs_eager_fit_val_max_abs_diff": graph_diff,
+        "graph_fit_vs_eager_fit_test_max_abs_diff": graph_test_diff,
+        "graph_fit_tol": LOGITS_TOL,
+        "history_equal_to_graph_fit": _without_times(history) == _without_times(
+            graph_fit["history"]),
         "test_rmse_seed0": rmse,
     }), flush=True)
     if reload_diff != 0.0:
@@ -1569,6 +1941,9 @@ def phase_fit(dev):
                      f"{reload_diff}")
     if not plain_diff <= LOGITS_TOL:
         raise Failed(f"fit: kernel path differs from plain path by {plain_diff}")
+    if not (graph_diff <= LOGITS_TOL and graph_test_diff <= LOGITS_TOL):
+        raise Failed(f"fit: the graph-replayed fit differs from the eager fit by {graph_diff} "
+                     f"(val), {graph_test_diff} (test)")
     if not np.isfinite(test_pred).all() or not np.isfinite(rmse):
         raise Failed(f"fit: test predictions not finite (rmse {rmse})")
     want_bwd = per_forward * train_steps
@@ -1582,6 +1957,11 @@ def phase_fit(dev):
     _check_mma_routes(fit_routes, {"gbf_proj": fit_counts["gbf_proj"],
                                    "gbf_proj_bwd": train_steps}, "fit")
     return launches
+
+
+def _without_times(history):
+    return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
+            for row in history]
 
 
 def main() -> int:
@@ -1604,7 +1984,8 @@ def main() -> int:
     summary = phase_kernels(dev)
     phase_serve(dev)
     train_launches = phase_train(dev)
-    fit_launches = phase_fit(dev)
+    graph_fit = phase_graphs(dev)
+    fit_launches = phase_fit(dev, graph_fit)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():

@@ -1,8 +1,10 @@
 """Dataset, loader and batch collation with static-shape padding.
 
 Port of mmdti_tpu.data.batching: ``MolDataset``, ``MolDataLoader`` (the
-same numpy shuffle, so both packages see the same batches for one seed),
-``dataset_pad_lengths`` and ``BatchCollator`` with host pair features only:
+same numpy shuffle, so both packages see the same batches for one seed; its
+``epoch_index_matrix`` gives an epoch as row indices for the device-resident
+feed), ``CachedLoader``, ``collate_dataset``, ``dataset_pad_lengths`` and
+``BatchCollator`` with host pair features only:
 pad src_tokens with the dictionary pad index, src_distance with 0.0,
 src_edge_type with the pad index, tokenize the SMILES strings into
 input_ids/attention_mask, and return (features, labels).  'bucket' mode pads
@@ -161,6 +163,58 @@ class MolDataLoader:
         for b in range(nb):
             sel = idx[b * self.batch_size : (b + 1) * self.batch_size]
             yield self.collate_fn([self.dataset[i] for i in sel])
+
+    def epoch_index_matrix(self):
+        """One epoch's batches as row indices: ([num_batches, batch_size]
+        int32, list of valid row counts).  The same RNG draw as __iter__, so
+        the same batches; a trailing partial batch repeats its last index,
+        as Trainer._pad_to_batch repeats its last row."""
+        idx = self._epoch_order()
+        bs = self.batch_size
+        rows, valid_ns = [], []
+        for b in range(len(self)):
+            sel = idx[b * bs : (b + 1) * bs]
+            valid_ns.append(len(sel))
+            if len(sel) < bs:
+                sel = np.concatenate([sel, np.repeat(sel[-1:], bs - len(sel))])
+            rows.append(sel)
+        return np.stack(rows).astype(np.int32), valid_ns
+
+
+class CachedLoader:
+    """A deterministic loader's batches, collated on the first pass and
+    replayed after it (validation and the FDS pass see the same batches
+    every epoch)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self._cache = None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        if self._cache is None:
+            self._cache = list(self.loader)
+        return iter(self._cache)
+
+
+def collate_dataset(dataset: MolDataset, collate_fn: BatchCollator, chunk: int = 2048):
+    """The whole dataset collated into [n, ...] arrays (features, labels),
+    for the device-resident feed.  Needs a static pad_mode: every chunk then
+    collates to the same widths."""
+    if collate_fn.pad_mode not in ("dataset", "fixed"):
+        raise ValueError(
+            f"collate_dataset needs a static pad_mode ('dataset'/'fixed'); "
+            f"got {collate_fn.pad_mode!r} whose widths vary per batch"
+        )
+    parts = [
+        collate_fn([dataset[i] for i in range(s, min(s + chunk, len(dataset)))])
+        for s in range(0, len(dataset), chunk)
+    ]
+    batch = {k: np.concatenate([p[0][k] for p in parts]) for k in parts[0][0]}
+    labels = np.concatenate([p[1] for p in parts])
+    return batch, labels
 
 
 def dataset_pad_lengths(

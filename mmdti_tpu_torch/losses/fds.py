@@ -110,16 +110,18 @@ def _calibrate(feats, m1, v1, m2, v2, clip_min=0.1, clip_max=10.0):
 
 
 def fds_smooth(state: Dict[str, torch.Tensor], features: torch.Tensor, labels: torch.Tensor,
-               epoch: float, min_value: float, bin_width: float, cfg: FDSConfig) -> torch.Tensor:
+               epoch, min_value: float, bin_width: float, cfg: FDSConfig) -> torch.Tensor:
     """Recalibrate features [B, F] by the bucket of each label, from epoch
-    ``cfg.start_smooth`` on."""
+    ``cfg.start_smooth`` on.  ``epoch`` is a number or a 0-dim tensor on the
+    features' device (the fit loop's, which a CUDA graph reads as it
+    stands at each replay)."""
     eff, included = _bucket_assignment(labels, min_value, bin_width, cfg)
     f32 = features.float()
     calibrated = _calibrate(f32, state["running_mean_last_epoch"][eff],
                             state["running_var_last_epoch"][eff],
                             state["smoothed_mean_last_epoch"][eff],
                             state["smoothed_var_last_epoch"][eff])
-    gate = included & (float(epoch) >= cfg.start_smooth)
+    gate = included & (epoch >= cfg.start_smooth)
     return torch.where(gate[:, None], calibrated, f32).to(features.dtype)
 
 

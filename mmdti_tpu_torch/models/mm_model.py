@@ -137,7 +137,7 @@ class MMModel(nn.Module):
         generator: Optional[torch.Generator] = None,
         fds_state: Optional[Dict[str, torch.Tensor]] = None,
         net_target: Optional[torch.Tensor] = None,
-        epoch: float = 0.0,
+        epoch=0.0,
         fds_bucket: Tuple[float, float] = (0.0, 1.0),
     ) -> Dict[str, Any]:
         """The JAX model's output dict, or the part of it a caller reads:
@@ -158,7 +158,9 @@ class MMModel(nn.Module):
         features by their target's bucket before the head on a train
         forward (``deterministic=False``) that gets ``fds_state`` and
         ``net_target`` (losses/fds.py::fds_smooth, from ``epoch`` on
-        ``fds_cfg.start_smooth``); "pooled" stays the pre-smoothing value."""
+        ``fds_cfg.start_smooth``; a number, or a 0-dim float32 tensor on the
+        inputs' device as the fit loop passes it, like the JAX package's
+        ``epoch_f``); "pooled" stays the pre-smoothing value."""
         if outputs not in ("all", "train", "logits"):
             raise ValueError(f"outputs must be 'all', 'train' or 'logits', got {outputs!r}")
         if deterministic:

@@ -52,10 +52,16 @@ def layer_norm_supported(shape) -> bool:
     return shape[-1] % 128 == 0 and T % 8 == 0 and T > 0
 
 
+def ln_kernels_on() -> bool:
+    """MMDTI_PALLAS_LN=1, read now (a CUDA graph keeps what it read at
+    capture, so train/steps.py keys its graphs by this)."""
+    return os.environ.get("MMDTI_PALLAS_LN", "0") == "1"
+
+
 def ln_kernel_enabled(use_kernels: bool, shape) -> bool:
     """Engage the fused LayerNorm?  Off unless MMDTI_PALLAS_LN=1, and then
     only for a module built with use_kernels on a supported shape."""
-    if os.environ.get("MMDTI_PALLAS_LN", "0") != "1":
+    if not ln_kernels_on():
         return False
     return bool(use_kernels) and layer_norm_supported(shape)
 

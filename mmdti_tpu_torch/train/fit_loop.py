@@ -1,11 +1,17 @@
-"""The fit loop (port of mmdti_tpu/train/fit_loop.py on the host loader
-path): epochs of train steps, the FDS epoch update, validation, the
-per-epoch history, early stopping in either direction, the best
-checkpoint, and the final predict from the checkpoint written.
+"""The fit loop (port of mmdti_tpu/train/fit_loop.py): epochs of train
+dispatches, the FDS epoch update, validation, the per-epoch history, early
+stopping in either direction, the best checkpoint, and the final predict
+from the checkpoint written.
 
-The JAX package's K-step scans, device-resident feed, profiler hooks and
-resume are left out: they change how steps are dispatched, not the numbers
-(ROADMAP.md, M5).
+With the device-resident feed (train/device_feed.py) an epoch is [K, B]
+index blocks of ``MolDataLoader.epoch_index_matrix``, K steps each, and
+validation and the FDS feature pass sweep the resident arrays; without it,
+K shape-equal host batches are stacked per dispatch and any left over run
+one step at a time.  On a CUDA device a K-step dispatch and a sweep's
+batch are CUDA graph replays (train/steps.py).  Dispatch grouping never
+changes the math: the same batches in the same order, the same dropout
+draws from the fit's generator.  The profiler hooks and resume are left
+out (ROADMAP.md, M5).
 """
 
 from __future__ import annotations
@@ -16,12 +22,12 @@ import time
 import numpy as np
 import torch
 
-from mmdti_tpu_torch.data.batching import MolDataLoader
+from mmdti_tpu_torch.data.batching import CachedLoader, MolDataLoader
 from mmdti_tpu_torch.losses.fds import fds_epoch_update
 from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
 from mmdti_tpu_torch.train.checkpointing import _write_history, save_checkpoint
 from mmdti_tpu_torch.train.optim import FusedAdam
-from mmdti_tpu_torch.train.steps import build_eval_step, build_train_step
+from mmdti_tpu_torch.train.steps import METRICS, TrainPrograms, build_eval_step
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -36,6 +42,16 @@ def weighted_loss_mean(val_losses) -> float:
 
 def _snapshot(model):
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _clone(state):
+    return None if state is None else {k: v.clone() for k, v in state.items()}
+
+
+def _snap_to_divisor(k: int, nb: int) -> int:
+    """The largest divisor of nb that is at most k (and at least 1)."""
+    k = max(1, min(k, nb))
+    return next(d for d in range(k, 0, -1) if nb % d == 0)
 
 
 class FitLoopMixin:
@@ -54,20 +70,50 @@ class FitLoopMixin:
         if steps_per_epoch == 0:
             raise ValueError(
                 f"train set ({len(train_dataset)}) smaller than batch size {self.batch_size}")
-        num_updates = max(1, steps_per_epoch * self.max_epochs)
+        # the schedule runs in optimizer updates: with accumulation one
+        # comes every accumulate_steps mini-steps
+        num_updates = max(1, steps_per_epoch * self.max_epochs // self.accumulate_steps)
         optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate, num_updates,
-                              self.warmup_ratio, self.max_norm, mu_dtype=self.mu_dtype)
-        train_step = build_train_step(model, optimizer, loss_fn, self.task,
-                                      use_infonce=use_infonce, use_ct=use_ct,
-                                      use_weight=use_weight, alpha=self.alpha, beta=self.beta,
-                                      ct_w=self.ct_w)
-        eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
+                              self.warmup_ratio, self.max_norm, mu_dtype=self.mu_dtype,
+                              accumulate_steps=self.accumulate_steps)
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        valid_batches = list(MolDataLoader(valid_dataset, self.batch_size, collate_fn))
-        fds_batches = None
+        programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,
+                                 fds_state=fds_state, fds_bucket=fds_bucket,
+                                 use_infonce=use_infonce, use_ct=use_ct, use_weight=use_weight,
+                                 alpha=self.alpha, beta=self.beta, ct_w=self.ct_w)
+        fds_state = programs.fds_state
+        eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
+
+        use_fds = self.fds and fds_state is not None
+        feed_on = self.feed_engaged(collate_fn, train_dataset, valid_dataset)
+        val_device_data = None
+        if feed_on:
+            train_res, _ = self.dataset_to_device(train_dataset, collate_fn)
+            val_device_data = self.build_eval_device_data(model, valid_dataset, collate_fn,
+                                                          loss_fn, activation_fn)
+            if use_fds:
+                # the FDS pass sweeps the full batches in order (drop_last),
+                # as the loader path does
+                nf = len(train_dataset) // self.batch_size
+                fds_idx = torch.arange(nf * self.batch_size, device=self.device).view(
+                    nf, self.batch_size)
+                fds_ns = torch.full((nf,), self.batch_size, dtype=torch.int64,
+                                    device=self.device)
+                fds_sweep = self.eval_sweep(model, loss_fn, activation_fn, with_pooled=True)
+            logger.info("device_feed engaged: %d train + %d val molecules resident on %s",
+                        len(train_dataset), len(valid_dataset), self.device)
+        valid_loader = CachedLoader(MolDataLoader(valid_dataset, self.batch_size, collate_fn))
+        fds_loader = None
+        # K steps per dispatch.  The JAX package runs the whole epoch in one
+        # dispatch unless steps_per_call is explicit: its scan compiles once
+        # whatever its trip count.  A CUDA graph records every launch of
+        # every step it holds (~4,250 a flagship step), so an epoch-sized
+        # graph would cost capture time and host memory in proportion to
+        # the epoch; the port's graphs hold steps_per_call steps.
+        K = self.steps_per_call
 
         best_params = _snapshot(model)
-        best_fds = dict(fds_state) if fds_state is not None else None
+        best_fds = _clone(fds_state)
         min_val_loss = float("inf")
         best_score = self.metrics.initial_best() if self.metrics else None
         use_metric_stop = isinstance(self.metrics_str, str) and self.metrics_str not in (
@@ -76,36 +122,49 @@ class FitLoopMixin:
         history = []
         for epoch in range(self.max_epochs):
             t0 = time.time()
-            sums, count = None, 0
-            for batch, labels in train_loader:
-                feats, weights = self._split_batch(batch)
-                labels_d = self._labels(labels)
-                m = train_step(feats, labels_d, weights, generator, fds_state=fds_state,
-                               net_target=labels_d.float(), epoch=float(epoch),
-                               fds_bucket=fds_bucket)
-                sums = dict(m) if sums is None else {k: sums[k] + m[k] for k in sums}
-                count += 1
-            train_means = {k: float(v) / max(count, 1) for k, v in sums.items()}
+            programs.set_epoch(epoch)
+            programs.metric_sums.zero_()
+            if feed_on:
+                idx_mat, _ = train_loader.epoch_index_matrix()
+                nb = idx_mat.shape[0]
+                k_feed = _snap_to_divisor(K, nb)
+                if k_feed != min(K, nb) and epoch == 0:
+                    # a trailing partial block would be a second graph
+                    logger.info("steps_per_call %d does not divide the %d-batch epoch; using "
+                                "%d per dispatch (avoids a second graph for the trailing "
+                                "block)", K, nb, k_feed)
+                idx_dev = torch.from_numpy(idx_mat.astype(np.int64)).to(self.device)
+                for k0 in range(0, nb, k_feed):
+                    programs.feed(train_res, idx_dev[k0:k0 + k_feed])
+                count = nb
+            else:
+                count = self._train_epoch_from_host(programs, train_loader, K)
+            train_means = dict(zip(METRICS, (v / max(count, 1)
+                                             for v in programs.metric_sums.tolist())))
 
-            if self.fds and fds_state is not None and epoch >= fds_start_update:
-                if fds_batches is None:
-                    fds_batches = list(MolDataLoader(train_dataset, self.batch_size, collate_fn,
-                                                     drop_last=True))
-                pooled, label_rows = [], []
-                for batch, labels in fds_batches:
-                    feats, _ = self._split_batch(batch)
-                    labels_d = self._labels(labels)
-                    pooled.append(eval_step(feats, labels_d, labels.shape[0])[2])
-                    label_rows.append(labels_d.float())
-                fds_state = fds_epoch_update(
-                    fds_state, torch.cat(pooled), torch.cat(label_rows), float(epoch),
-                    fds_bucket[0], fds_bucket[1], fds_kernel, model.fds_cfg)
+            if use_fds and epoch >= fds_start_update:
+                if feed_on:
+                    _, _, all_feats, all_labels = fds_sweep(train_res, fds_idx, fds_ns)
+                else:
+                    if fds_loader is None:
+                        fds_loader = CachedLoader(MolDataLoader(
+                            train_dataset, self.batch_size, collate_fn, drop_last=True))
+                    pooled, label_rows = [], []
+                    for batch, labels in fds_loader:
+                        feats, _ = self._split_batch(batch)
+                        labels_d = self._labels(labels)
+                        pooled.append(eval_step(feats, labels_d, labels.shape[0])[2])
+                        label_rows.append(labels_d.float())
+                    all_feats, all_labels = torch.cat(pooled), torch.cat(label_rows)
+                programs.set_fds_state(fds_epoch_update(
+                    fds_state, all_feats, all_labels, float(epoch), fds_bucket[0],
+                    fds_bucket[1], fds_kernel, model.fds_cfg))
                 logger.info("FDS stats updated for epoch %d", epoch)
 
             val_t0 = time.time()
             _, val_losses, metric_score = self.predict(
                 model, valid_dataset, activation_fn, target_scaler, collate_fn,
-                eval_step=eval_step, batches=valid_batches)
+                eval_step=eval_step, batches=valid_loader, device_data=val_device_data)
             val_seconds = time.time() - val_t0
             total_val_loss = weighted_loss_mean(val_losses)
             first_metric = next(iter(metric_score)) if metric_score else "loss"
@@ -140,7 +199,7 @@ class FitLoopMixin:
             if improved:
                 wait = 0
                 best_params = _snapshot(model)
-                best_fds = dict(fds_state) if fds_state is not None else None
+                best_fds = _clone(fds_state)
             else:
                 wait += 1
             if wait >= self.patience:
@@ -150,6 +209,39 @@ class FitLoopMixin:
         save_checkpoint(dump_dir, fold, state_dict_to_flax_params(best_params), best_fds)
         # the final predict reloads the artifact just written
         y_preds, _, _ = self.predict(model, valid_dataset, activation_fn, target_scaler,
-                                     collate_fn, eval_step=eval_step, batches=valid_batches,
-                                     load_from=(dump_dir, fold))
+                                     collate_fn, eval_step=eval_step, batches=valid_loader,
+                                     load_from=(dump_dir, fold), device_data=val_device_data)
         return y_preds
+
+    def _train_epoch_from_host(self, programs: TrainPrograms, loader, K: int) -> int:
+        """One epoch of host-collated batches: K shape-equal batches stacked
+        per dispatch, the rest one step at a time (a batch whose shapes
+        differ from the pending ones flushes them as single steps, as under
+        pad_mode='bucket').  Returns the number of steps."""
+        count, pending, pend_sig = 0, [], None
+
+        def run_pending():
+            for feats, labels, weights in pending:
+                programs.single(feats, labels, weights)
+
+        for batch, labels in loader:
+            feats, weights = self._split_batch(batch)
+            item = (feats, self._labels(labels), weights)
+            count += 1
+            if K <= 1:
+                programs.single(*item)
+                continue
+            sig = tuple(sorted((k, tuple(v.shape)) for k, v in feats.items()))
+            if pending and sig != pend_sig:
+                run_pending()
+                pending = []
+            pend_sig = sig
+            pending.append(item)
+            if len(pending) == K:
+                feats_k = {k: torch.stack([p[0][k] for p in pending]) for k in feats}
+                weights_k = (None if weights is None
+                             else torch.stack([p[2] for p in pending]))
+                programs.stacked(feats_k, torch.stack([p[1] for p in pending]), weights_k)
+                pending = []
+        run_pending()
+        return count

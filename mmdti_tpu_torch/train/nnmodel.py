@@ -164,12 +164,20 @@ class NNModel:
         logger.info("start predicting with the MM-DTI model")
         trainer = trainer or self.trainer
         dataset = MolDataset(self.features_test, np.asarray(self.data_test["target"]))
+        # bulk predict sweeps the dataset resident on the device when the
+        # feed engages (the fit loop's rule); every fold's checkpoint loads
+        # into the same parameters, so one sweep serves them all
+        device_data = None
+        if trainer.feed_engaged(self.collator, dataset):
+            device_data = trainer.build_eval_device_data(
+                self.model, dataset, self.collator, self.loss_func, self.activation_fn)
         fold_preds = []
         for fold in range(max(1, self.model_folds)):
             load_weights(self.model, checkpoints_path, fold)
             y_pred, _, _ = trainer.predict(self.model, dataset, self.activation_fn,
                                            self.target_scaler, self.collator,
-                                           loss_fn=self.loss_func, skip_metrics=True)
+                                           loss_fn=self.loss_func, skip_metrics=True,
+                                           device_data=device_data)
             fold_preds.append(y_pred)
         y_pred = np.mean(np.stack(fold_preds), axis=0) if len(fold_preds) > 1 else fold_preds[0]
         self.cv["test_pred"] = y_pred

@@ -11,11 +11,21 @@ types promote: ``b1 * mu`` is taken in the stored mu dtype, with b1 itself
 rounded to that dtype first (JAX's weak-typed Python float becomes a bf16
 constant), before the fp32 sum.
 The parameters are updated in place, so no second parameter set exists.
+
+The step counts live on the device, and so do the bias corrections and the
+learning rate they select (tables of the host float32 values, indexed by
+the counts): an update issues no host work that depends on the step, so a
+CUDA graph can replay it (train/steps.py).  ``accumulate_steps=k`` is the
+twin of optax.MultiSteps around the clip + Adam chain: every mini-step
+folds its gradients into a running fp32 mean, and every k-th applies clip +
+Adam to that mean; ``torch.where`` on a device counter picks which, so one
+graph holds both kinds of mini-step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
@@ -33,20 +43,38 @@ def linear_warmup_schedule(learning_rate: float, num_training_steps: int,
     num_warmup = int(num_training_steps * warmup_ratio)
     f32 = np.float32
 
-    def schedule(step: int) -> np.float32:
-        step = f32(step)
+    def schedule(step):
+        """step (an int or an array of them) -> np.float32 learning rate(s);
+        every operation is a correctly rounded float32 one, so an array
+        gives the scalar values element by element."""
+        step = np.asarray(step, f32)
         warm = step / f32(max(1.0, num_warmup))
         decay = (f32(num_training_steps) - step) / f32(max(1.0, num_training_steps - num_warmup))
-        factor = warm if step < num_warmup else decay
-        return f32(learning_rate) * f32(np.clip(factor, f32(0.0), f32(1.0)))
+        factor = np.where(step < num_warmup, warm, decay)
+        return f32(learning_rate) * np.clip(factor, f32(0.0), f32(1.0)).astype(f32)
 
     return schedule
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_correction(b: float) -> np.ndarray:
+    """float32 ``1 - b ** count`` for count = 0, 1, ... up to the first count
+    where it rounds to exactly 1.0 (every later count gives 1.0 too, so an
+    index clamped to the end is exact).  Each entry is the scalar float32
+    expression the update took on the host, entry by entry."""
+    f32 = np.float32
+    out, count = [], 0
+    while not out or out[-1] != f32(1.0):
+        out.append(f32(1.0) - f32(b) ** f32(count))
+        count += 1
+    return np.asarray(out, f32)
 
 
 @dataclasses.dataclass
 class AdamState:
     """Adam's moments by parameter name, its step count and the schedule's
-    step count (optax keeps the two counts apart)."""
+    step count (optax keeps the two counts apart).  ``FusedAdam.state``
+    reads the counts back from the device."""
 
     count: int
     mu: Dict[str, torch.Tensor]
@@ -67,14 +95,23 @@ class FusedAdam:
     arithmetic is the per-leaf arithmetic.  Build the optimizer after the
     model is on its device: moving the model afterwards detaches its
     parameters from the buffer.  ``state`` holds per-name views of the
-    moment buffers; ``load_state`` copies a state in."""
+    moment buffers; ``load_state`` copies a state in.
+
+    ``num_training_steps`` counts optimizer updates: with
+    ``accumulate_steps=k`` an update comes every k-th call of ``apply``.
+    The buffers a CUDA graph holds (``graph_state``) are never rebound:
+    every write to them is in place."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], learning_rate: float,
                  num_training_steps: int, warmup_ratio: float = 0.03, max_norm: float = 5.0,
                  eps: float = ADAM_EPS, b1: float = ADAM_B1, b2: float = ADAM_B2,
-                 frozen: Optional[Iterable[str]] = None, mu_dtype=torch.bfloat16):
+                 frozen: Optional[Iterable[str]] = None, mu_dtype=torch.bfloat16,
+                 accumulate_steps: int = 1):
         self.params = dict(params)
         self.schedule = linear_warmup_schedule(learning_rate, num_training_steps, warmup_ratio)
+        self.accumulate_steps = int(accumulate_steps)
+        if self.accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         self.max_norm = float(max_norm)
         self.eps, self.b1, self.b2 = eps, b1, b2
         frozen = frozenset(frozen or ())
@@ -98,12 +135,38 @@ class FusedAdam:
             self._trained = torch.ones(off, dtype=torch.bool, device=self._flat.device)
             for n in frozen:
                 self._view(self._trained, n).fill_(False)
-        self.state = AdamState(
-            count=0,
-            mu={n: self._view(self._mu, n) for n in self.params},
-            nu={n: self._view(self._nu, n) for n in self.params},
-            schedule_count=0,
-        )
+        self._mu_views = {n: self._view(self._mu, n) for n in self.params}
+        self._nu_views = {n: self._view(self._nu, n) for n in self.params}
+        dev = self._flat.device
+        # [Adam's count, the schedule's count]; the tables they index: the
+        # bias corrections by count (clamped: exact past the end) and the
+        # learning rate by schedule count (0 from num_training_steps on)
+        self._counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        self._bc1 = torch.tensor(_bias_correction(b1), device=dev)
+        self._bc2 = torch.tensor(_bias_correction(b2), device=dev)
+        n_sched = max(int(num_training_steps), 0)
+        self._lr = torch.from_numpy(
+            self.schedule(np.arange(n_sched + 1)).astype(np.float32)).to(dev)
+        if self.accumulate_steps > 1:
+            self._acc = torch.zeros(off, dtype=torch.float32, device=dev)
+            self._mini = torch.zeros((), dtype=torch.int64, device=dev)
+
+    @property
+    def state(self) -> AdamState:
+        """The moments (views of the flat buffers) and the counts, read from
+        the device."""
+        count, schedule_count = self._counts.tolist()
+        return AdamState(count=count, mu=self._mu_views, nu=self._nu_views,
+                         schedule_count=schedule_count)
+
+    @property
+    def graph_state(self):
+        """Every tensor an update writes: a caller that runs updates it must
+        undo (a CUDA graph's warm-up) saves and restores these."""
+        state = [self._flat, self._mu, self._nu, self._counts]
+        if self.accumulate_steps > 1:
+            state += [self._acc, self._mini]
+        return state
 
     def _view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         off, shape = self._slices[name]
@@ -113,33 +176,56 @@ class FusedAdam:
     def load_state(self, state: AdamState) -> None:
         """Copy ``state`` (moments by parameter name, counts) in."""
         for n in self.params:
-            self.state.mu[n].copy_(state.mu[n])
-            self.state.nu[n].copy_(state.nu[n])
-        self.state.count, self.state.schedule_count = state.count, state.schedule_count
+            self._mu_views[n].copy_(state.mu[n])
+            self._nu_views[n].copy_(state.nu[n])
+        self._counts.copy_(torch.tensor([state.count, state.schedule_count]))
+
+    def _pick(self, table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+        """table[min(index, end)] as a 0-dim tensor, without a host sync."""
+        return table.index_select(0, index.clamp(max=table.numel() - 1).view(1))[0]
 
     @torch.no_grad()
     def apply(self, grads: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
-        """One update from ``grads`` (name -> gradient; None counts as zero).
-        Returns the global norm of the gradients before clipping."""
-        st = self.state
+        """One call from ``grads`` (name -> gradient; None counts as zero):
+        an update, or with ``accumulate_steps=k`` a mini-step that updates
+        on every k-th call.  Returns the global norm of the gradients that
+        were (or would be) clipped."""
         g = torch.cat([(torch.zeros_like(p) if grads.get(n) is None else grads[n]).reshape(-1)
                        for n, p in self.params.items()]).float()
         if self._trained is not None:
             g = torch.where(self._trained, g, torch.zeros((), device=g.device))
+        if self.accumulate_steps == 1:
+            return self._update(g, None)
+        # optax.MultiSteps: the running mean acc + (g - acc) / (n + 1), and
+        # clip + Adam on it when this is the k-th mini-step
+        self._acc.add_((g - self._acc) / (self._mini + 1))
+        emit = self._mini == self.accumulate_steps - 1
+        g_norm = self._update(self._acc, emit)
+        self._acc.mul_(torch.logical_not(emit))
+        self._mini.copy_(torch.remainder(self._mini + 1, self.accumulate_steps))
+        return g_norm
+
+    def _update(self, g: torch.Tensor, emit: Optional[torch.Tensor]) -> torch.Tensor:
+        """Clip + Adam + apply from the flat gradient g; with ``emit`` (a
+        0-dim bool tensor) the parameters, moments and counts move only
+        where it is true."""
         g_norm = torch.sqrt(torch.sum(g * g))
         g = torch.where(g_norm < self.max_norm, g, (g / g_norm) * self.max_norm)
-        f32 = np.float32
-        count = st.count + 1
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        step_size = float(-self.schedule(st.schedule_count))
+        count, schedule_count = self._counts[0] + 1, self._counts[1]
+        bc1, bc2 = self._pick(self._bc1, count), self._pick(self._bc2, count)
+        step_size = -self._pick(self._lr, schedule_count)
         b1, b2 = self.b1, self.b2
         mu = (1 - b1) * g + self._mu * torch.tensor(b1, dtype=self._mu.dtype)
         nu = (1 - b2) * (g * g) + b2 * self._nu
         u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-        self._flat.add_(step_size * u)
-        self._mu.copy_(mu)
-        self._nu.copy_(nu)
-        st.count = count
-        st.schedule_count += 1
+        if emit is None:
+            self._flat.add_(step_size * u)
+            self._mu.copy_(mu)
+            self._nu.copy_(nu)
+            self._counts.add_(1)
+        else:
+            self._flat.copy_(torch.where(emit, self._flat + step_size * u, self._flat))
+            self._mu.copy_(torch.where(emit, mu.to(self._mu.dtype), self._mu))
+            self._nu.copy_(torch.where(emit, nu, self._nu))
+            self._counts.add_(emit.long())
         return g_norm

@@ -1,6 +1,6 @@
-"""The train step and the eval step (port of the single-step variants of
-mmdti_tpu/train/steps.py::StepBuilderMixin.build_train_step and
-build_eval_step).
+"""The train steps and the eval steps (port of
+mmdti_tpu/train/steps.py::StepBuilderMixin: build_train_step's single, K
+stacked and K fed variants, build_eval_step and build_eval_sweep).
 
 A train step runs the model forward with dropout on, takes
 ``alpha * task + beta * InfoNCE + beta * CT`` as its loss, differentiates it
@@ -8,16 +8,31 @@ A train step runs the model forward with dropout on, takes
 the gradients to the clip + Adam + apply of train/optim.py.  An eval step
 runs the deterministic forward and a batch loss that ignores padded
 trailing rows exactly.
+
+Where the JAX package compiles K steps into one ``lax.scan`` program, the
+port records them into one CUDA graph (``capture_graph``) and replays it:
+the host issues one graph launch for K steps instead of ~4,250 kernels a
+step.  A graph replays the kernels it recorded on the tensors it recorded,
+so everything that changes between replays lives in tensors that stay
+where they are: the parameters and the optimizer's buffers and counts
+(train/optim.py), the index block or the stacked batches, the epoch, the
+FDS state and the valid-row count, all written in place.  On the CPU the
+same functions run their steps one by one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
 from mmdti_tpu_torch.losses.contrastive import CT_REGISTRY
+from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.train.optim import FusedAdam
+
+METRICS = ("loss", "m_loss", "infonce_loss", "ct_loss")
+GRAPH_WARMUP = 2   # eager runs on a side stream before a capture
 
 
 def build_train_loss(loss_fn: Callable, task: str, use_infonce: bool = True,
@@ -78,10 +93,11 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
 
 
 def make_batch_loss(loss_fn: Callable):
-    """Batch loss over the first ``valid_n`` rows only: padded trailing rows
-    repeat the last sample and must not bias the loss.  A NaN-maskable loss
-    excludes them by NaN labels; any other is averaged per row (exact for
-    row-decomposable means: mse, ce, bce)."""
+    """Batch loss over the first ``valid_n`` rows only (an int, or an
+    integer tensor on the logits' device, as the eval sweep's graph reads
+    it): padded trailing rows repeat the last sample and must not bias the
+    loss.  A NaN-maskable loss excludes them by NaN labels; any other is
+    averaged per row (exact for row-decomposable means: mse, ce, bce)."""
     if getattr(loss_fn, "nan_maskable", False):
         def batch_loss(logits, labels, valid_n):
             keep = torch.arange(logits.shape[0], device=logits.device) < valid_n
@@ -93,7 +109,8 @@ def make_batch_loss(loss_fn: Callable):
             per_row = torch.stack([loss_fn(logits[i:i + 1], labels[i:i + 1])
                                    for i in range(logits.shape[0])])
             keep = (torch.arange(logits.shape[0], device=logits.device) < valid_n).float()
-            return torch.sum(per_row * keep) / max(float(valid_n), 1.0)
+            n = torch.as_tensor(valid_n, dtype=torch.float32, device=logits.device)
+            return torch.sum(per_row * keep) / n.clamp_min(1.0)
     return batch_loss
 
 
@@ -103,9 +120,231 @@ def build_eval_step(model, loss_fn: Callable, activation_fn: Callable, alpha: fl
     batch_loss = make_batch_loss(loss_fn)
 
     @torch.no_grad()
-    def eval_step(feats, labels, valid_n: int):
+    def eval_step(feats, labels, valid_n):
         out = model(**feats, outputs="train")
         loss = alpha * batch_loss(out["logits"], labels, valid_n)
         return activation_fn(out["logits"]), loss, out["pooled"], out["cls_repr"]
 
     return eval_step
+
+
+# ---- resident data and graphs ---------------------------------------------------
+
+@dataclasses.dataclass
+class Resident:
+    """A dataset collated once and kept on the device
+    (train/device_feed.py): the model's input tensors [R, ...], the labels
+    [R, ...] and the sample weights [R, W] or None, R rows."""
+
+    feats: Dict[str, torch.Tensor]
+    labels: torch.Tensor
+    weights: Optional[torch.Tensor]
+
+    def take(self, idx: torch.Tensor):
+        """(feats, labels, weights) of the rows ``idx`` (int64 [B] on the
+        device), gathered on the device."""
+        feats = {k: v.index_select(0, idx) for k, v in self.feats.items()}
+        weights = None if self.weights is None else self.weights.index_select(0, idx)
+        return feats, self.labels.index_select(0, idx), weights
+
+
+def capture_graph(fn: Callable, generator: Optional[torch.Generator] = None, state=(),
+                  warmup: int = GRAPH_WARMUP):
+    """Record ``fn()`` into a torch.cuda.CUDAGraph; returns (graph, what the
+    recorded call returned).  Recording runs nothing: call ``replay``.
+
+    ``fn`` takes no arguments.  It reads and writes tensors that stay where
+    they are, and a replay repeats it on whatever those hold then.  First
+    ``fn`` runs ``warmup`` times eagerly on a side stream, so that cuBLAS,
+    the allocator and the kernels' cached queries and scratch (the
+    LayerNorm backward's tickets) are set up before the capture; the
+    tensors in ``state`` and the generator's state are saved before and
+    restored after, so the warm-up leaves no trace.  The generator is
+    registered with the graph: each replay draws from where it stands and
+    advances it as the same calls made eagerly would.  A capture that fails
+    raises; nothing falls back to eager calls."""
+    saved = [t.clone() for t in state]
+    gen_state = generator.get_state() if generator is not None else None
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.no_grad():
+        for t, s in zip(state, saved):
+            t.copy_(s)
+    if generator is not None:
+        generator.set_state(gen_state)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _shape_key(*tensors):
+    return tuple((tuple(t.shape), t.dtype) for t in tensors if t is not None)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple          # the static tensors a call copies its inputs into
+    out: object            # what the recorded call returned
+    pins: tuple = ()       # objects the key names by id
+
+
+class TrainPrograms:
+    """The train variants of JAX build_train_step over one model, optimizer
+    and generator:
+
+    * ``single(feats, labels, weights)``: one step;
+    * ``stacked(feats_k, labels_k, weights_k)``: K steps over K batches
+      stacked on a leading axis;
+    * ``feed(resident, idx_k)``: K steps over the rows ``idx_k`` (int64
+      [K, B] on the device) of a Resident dataset.
+
+    Each step adds its metrics (METRICS) into ``metric_sums`` in step order,
+    so an epoch's sums do not depend on how its steps are grouped; each
+    variant also returns its steps' metrics ([4], or [K, 4]).  The model
+    gets ``epoch`` (a 0-dim float32 tensor), ``fds_state`` and
+    ``fds_bucket``; ``set_epoch`` and ``set_fds_state`` write the first two
+    in place.
+
+    On a CUDA device each K variant is one CUDA graph of K whole steps
+    (forward, autograd.grad, clip + Adam + apply and the metrics), recorded
+    at its first call for each (variant, K, input shapes and dtypes: B, N,
+    L among them, compute dtype, MMDTI_PALLAS_LN, resident dataset) and
+    replayed after; ``single`` runs eagerly.  On the CPU the K variants run
+    their steps as a loop."""
+
+    def __init__(self, model, optimizer: FusedAdam, loss_fn: Callable, task: str,
+                 generator: torch.Generator, fds_state=None, fds_bucket=(0.0, 1.0), **loss_kw):
+        self.model, self.optimizer, self.generator = model, optimizer, generator
+        self._train_step = build_train_step(model, optimizer, loss_fn, task, **loss_kw)
+        self.device = optimizer._flat.device
+        self.epoch = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.fds_state = (None if fds_state is None
+                          else {k: v.detach().clone() for k, v in fds_state.items()})
+        self.fds_bucket = fds_bucket
+        self.metric_sums = torch.zeros(len(METRICS), dtype=torch.float32, device=self.device)
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    @torch.no_grad()
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch.fill_(float(epoch))
+
+    @torch.no_grad()
+    def set_fds_state(self, state: Mapping[str, torch.Tensor]) -> None:
+        # staged: an entry of ``state`` may be one of ours under another
+        # name (fds_update_last_epoch_stats rolls running_mean into
+        # running_mean_last_epoch by reference)
+        staged = {k: state[k].clone() for k in self.fds_state}
+        for k, v in self.fds_state.items():
+            v.copy_(staged[k])
+
+    def single(self, feats, labels, weights=None) -> torch.Tensor:
+        metrics = self._train_step(feats, labels, weights, self.generator,
+                                   fds_state=self.fds_state, net_target=labels.float(),
+                                   epoch=self.epoch, fds_bucket=self.fds_bucket)
+        m = torch.stack([metrics[k] for k in METRICS])
+        self.metric_sums.add_(m)
+        return m
+
+    def stacked(self, feats_k: Mapping[str, torch.Tensor], labels_k: torch.Tensor,
+                weights_k: Optional[torch.Tensor] = None) -> torch.Tensor:
+        names = sorted(feats_k)
+        inputs = (*(feats_k[n] for n in names), labels_k, weights_k)
+
+        def run(*xs):
+            *fs, labels, weights = xs
+            feats = dict(zip(names, fs))
+            return torch.stack([
+                self.single({n: v[k] for n, v in feats.items()}, labels[k],
+                           None if weights is None else weights[k])
+                for k in range(labels.shape[0])])
+
+        if self.device.type != "cuda":
+            return run(*inputs)
+        key = ("stacked", labels_k.shape[0], *_shape_key(*inputs))
+        return self._replay(key, run, inputs)
+
+    def feed(self, resident: Resident, idx_k: torch.Tensor) -> torch.Tensor:
+        def run(idx):
+            return torch.stack([self.single(*resident.take(idx[k])) for k in range(idx.shape[0])])
+
+        if self.device.type != "cuda":
+            return run(idx_k)
+        key = ("feed", idx_k.shape[0], *_shape_key(idx_k, *resident.feats.values(),
+                                                   resident.labels), id(resident))
+        return self._replay(key, run, (idx_k,), pins=(resident,))
+
+    def _replay(self, key, run, inputs, pins=()) -> torch.Tensor:
+        key = (*key, self.model.compute_dtype, ln_kernels_on())
+        prog = self.graphs.get(key)
+        if prog is None:
+            static = tuple(None if x is None else x.clone() for x in inputs)
+            graph, out = capture_graph(lambda: run(*static), self.generator,
+                                       state=(*self.optimizer.graph_state, self.metric_sums))
+            prog = self.graphs[key] = _Graph(graph, static, out, pins)
+        with torch.no_grad():
+            for dst, src in zip(prog.inputs, inputs):
+                if dst is not None:
+                    dst.copy_(src)
+        prog.graph.replay()
+        return prog.out.clone()
+
+
+class EvalSweep:
+    """JAX build_eval_sweep: the deterministic forward over a Resident
+    dataset, batch by batch.  ``sweep(resident, idx, valid_ns)`` with idx
+    int64 [nb, B] and valid_ns int64 [nb] on the device returns preds
+    [nb, B, ...] and losses [nb]; with ``with_pooled`` also the pooled
+    features [nb*B, E] and the labels as float32 [nb*B, ...] (the FDS
+    pass).
+
+    On a CUDA device one batch's forward is one CUDA graph per (resident
+    dataset, input shapes and dtypes, compute dtype, MMDTI_PALLAS_LN),
+    recorded at first use; the sweep replays it once per batch and copies
+    each replay's outputs into its own.  On the CPU the batches run
+    eagerly."""
+
+    def __init__(self, model, loss_fn: Callable, activation_fn: Callable, alpha: float = 1.0,
+                 with_pooled: bool = False):
+        self.model = model
+        self.eval_step = build_eval_step(model, loss_fn, activation_fn, alpha)
+        self.with_pooled = with_pooled
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    def _batch(self, resident: Resident, idx: torch.Tensor, valid_n: torch.Tensor):
+        feats, labels, _ = resident.take(idx)
+        preds, loss, pooled, _ = self.eval_step(feats, labels, valid_n)
+        return (preds, loss, pooled, labels.float()) if self.with_pooled else (preds, loss)
+
+    def __call__(self, resident: Resident, idx: torch.Tensor, valid_ns: torch.Tensor):
+        nb = idx.shape[0]
+        if idx.device.type != "cuda":
+            outs = [torch.stack(o) for o in
+                    zip(*(self._batch(resident, idx[b], valid_ns[b]) for b in range(nb)))]
+        else:
+            key = (*_shape_key(idx[0], *resident.feats.values(), resident.labels), id(resident),
+                   self.model.compute_dtype, ln_kernels_on())
+            prog = self.graphs.get(key)
+            if prog is None:
+                static = (idx[0].clone(), valid_ns[0].clone())
+                graph, out = capture_graph(lambda: self._batch(resident, *static))
+                prog = self.graphs[key] = _Graph(graph, static, out, (resident,))
+            outs = [torch.empty((nb, *o.shape), dtype=o.dtype, device=o.device)
+                    for o in prog.out]
+            with torch.no_grad():
+                for b in range(nb):
+                    prog.inputs[0].copy_(idx[b])
+                    prog.inputs[1].copy_(valid_ns[b])
+                    prog.graph.replay()
+                    for dst, src in zip(outs, prog.out):
+                        dst[b].copy_(src)
+        if not self.with_pooled:
+            return outs[0], outs[1]
+        return outs[0], outs[1], outs[2].flatten(0, 1), outs[3].flatten(0, 1)

@@ -1,12 +1,13 @@
 """Training orchestration (port of mmdti_tpu/train/trainer.py on one
 device): the config knobs of a fit, ``fit_predict`` (train/fit_loop.py),
-``predict`` over a dataset with exact handling of a padded last batch, and
+``predict`` over a dataset with exact handling of a padded last batch (per
+batch from the host, or one sweep over a device-resident dataset), and
 ``inference`` (representation extraction).
 
 Without a mesh there is nothing to place or shard: a Trainer holds the
 device its model runs on ("cuda" unless the caller asks for the CPU).
 Knobs of JAX machinery that the port leaves out (resume, periodic train
-state, gradient accumulation, orbax, profiling, meshes) raise when set.
+state, orbax, profiling, meshes, NaN debugging) raise when set.
 """
 
 from __future__ import annotations
@@ -22,17 +23,21 @@ from mmdti_tpu_torch.data.batching import MolDataLoader
 from mmdti_tpu_torch.losses.registry import target_is_integer
 from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
 from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+from mmdti_tpu_torch.train.device_feed import (
+    FEATURE_KEYS,
+    DeviceFeedMixin,
+    normalize_device_feed,
+)
 from mmdti_tpu_torch.train.fit_loop import FitLoopMixin, weighted_loss_mean
 from mmdti_tpu_torch.train.steps import build_eval_step
 from mmdti_tpu_torch.utils.metrics import Metrics
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
-FEATURE_KEYS = ("src_tokens", "src_distance", "src_edge_type", "input_ids", "attention_mask")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # knob -> the value that means "off"; anything else is not ported yet
 _NOT_PORTED = {"resume": False, "checkpoint_interval": 0, "stop_after_epoch": 0,
-               "accumulate_steps": 1, "checkpoint_backend": "msgpack", "profile_dir": None,
+               "checkpoint_backend": "msgpack", "profile_dir": None,
                "mesh_shape": None, "debug_nans": False}
 
 
@@ -43,7 +48,7 @@ def load_weights(model, dump_dir: str, fold: int):
     return ckpt
 
 
-class Trainer(FitLoopMixin):
+class Trainer(FitLoopMixin, DeviceFeedMixin):
     def __init__(self, save_path: Optional[str] = None, device="cuda", **params):
         for knob, off in _NOT_PORTED.items():
             if params.get(knob) is not None and params[knob] != off:
@@ -67,6 +72,22 @@ class Trainer(FitLoopMixin):
         self.beta = float(params.get("beta", 0.1))
         self.fds = params.get("fds", False)
         self.ct_w = float(params.get("ct_w", 0.2))
+        # train steps per dispatch: one CUDA graph holds this many (the JAX
+        # package's lax.scan programs; train/fit_loop.py says why the port
+        # does not default to the whole epoch)
+        spc = params.get("steps_per_call", None)
+        self.steps_per_call_explicit = spc is not None
+        self.steps_per_call = int(spc if spc is not None else 4) or 1
+        # the device-resident feed: 'auto' (static padding and the resident
+        # bytes within device_feed_bytes), True or False; any other
+        # spelling raises
+        self.device_feed = normalize_device_feed(params.get("device_feed", "auto"))
+        self.device_feed_bytes = int(params.get("device_feed_bytes", 1 << 30))
+        # gradient accumulation (optax.MultiSteps): k mini-batches average
+        # into one update; batch-coupled losses (InfoNCE negatives, CT
+        # pairs) see the mini-batch
+        self.accumulate_steps = int(params.get("accumulate_steps", 1) or 1)
+        self._sweeps = {}
 
     # ---- host -> device ------------------------------------------------
     def _split_batch(self, batch):
@@ -97,30 +118,41 @@ class Trainer(FitLoopMixin):
     # ---- predict ----------------------------------------------------------
     def predict(self, model, dataset, activation_fn, target_scaler=None, collate_fn=None,
                 eval_step=None, batches=None, load_from=None, loss_fn=None,
-                skip_metrics: bool = False):
+                skip_metrics: bool = False, device_data=None):
         """(activated predictions [n, C], per-batch (loss, rows), metrics)
         over ``dataset`` in order.  ``load_from=(dir, fold)`` first loads
-        that checkpoint into ``model`` and skips the losses and metrics."""
+        that checkpoint into ``model`` and skips the losses and metrics.
+        ``device_data`` (build_eval_device_data) sweeps the resident
+        dataset instead of collating batches on the host."""
         if load_from is not None:
             load_weights(model, *load_from)
             logger.info("load model success!")
-        if eval_step is None:
-            eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
-        if batches is None:
-            batches = MolDataLoader(dataset, self.batch_size, collate_fn, shuffle=False)
         eval_only = load_from is not None or skip_metrics
-        preds, losses, truths = [], [], []
-        for batch, labels in batches:
-            batch, labels, valid_n = self._pad_to_batch(batch, labels)
-            feats, _ = self._split_batch(batch)
-            p, loss, _, _ = eval_step(feats, self._labels(labels), valid_n)
-            preds.append(p[:valid_n])
-            truths.append(labels[:valid_n])
-            if not eval_only:
-                losses.append((loss, valid_n))
-        y_preds = torch.cat(preds).float().cpu().numpy()
-        y_truths = np.concatenate(truths)
-        val_losses = [(float(l), n) for l, n in losses]
+        if device_data is not None:
+            valid_ns = device_data["valid_ns"]
+            preds_nb, losses_nb = device_data["eval_sweep"](
+                device_data["resident"], device_data["idx"], device_data["valid_ns_dev"])
+            preds_h = preds_nb.float().cpu().numpy()
+            y_preds = np.concatenate([preds_h[i, :n] for i, n in enumerate(valid_ns)])
+            y_truths = device_data["labels_host"]
+            val_losses = [] if eval_only else list(zip(losses_nb.tolist(), valid_ns))
+        else:
+            if eval_step is None:
+                eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
+            if batches is None:
+                batches = MolDataLoader(dataset, self.batch_size, collate_fn, shuffle=False)
+            preds, losses, truths = [], [], []
+            for batch, labels in batches:
+                batch, labels, valid_n = self._pad_to_batch(batch, labels)
+                feats, _ = self._split_batch(batch)
+                p, loss, _, _ = eval_step(feats, self._labels(labels), valid_n)
+                preds.append(p[:valid_n])
+                truths.append(labels[:valid_n])
+                if not eval_only:
+                    losses.append((loss, valid_n))
+            y_preds = torch.cat(preds).float().cpu().numpy()
+            y_truths = np.concatenate(truths)
+            val_losses = [(float(l), n) for l, n in losses]
 
         metric_score = None
         if not eval_only and self.metrics is not None:

@@ -11,11 +11,14 @@
   both packages on the 20-SMILES split of tests/test_end_to_end.py, small
   arch, fp32 (Adam's first moment too), the plain path, every dropout 0
   (the InfoNCE query dropout too), FDS, sample weights, InfoNCE and CT on, 2 epochs of batch 8, the
-  port starting from the JAX initial parameters.
+  port starting from the JAX initial parameters.  Both packages run their
+  defaults: the device-resident feed ('auto' engages it on this data) and
+  4 steps per dispatch (the JAX package's feed: the whole epoch).
 * The fit path runs with jax, flax, pandas, scikit-learn, joblib, PyYAML,
   msgpack and RDKit blocked.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -275,12 +278,11 @@ def _fit_kwargs(train_p, exp):
                 **NO_DROPOUT)
 
 
-@pytest.fixture(scope="module")
-def both_fits(tmp_path_factory):
-    from mmdti_tpu import MolPredict as JaxPredict
-    from mmdti_tpu import MolTrain as JaxTrain
-    from mmdti_tpu_torch import MolPredict, MolTrain
-
+@contextlib.contextmanager
+def jax_parity_patches():
+    """The JAX package featurizes through the port's numpy path, InfoNCE's
+    query dropout is 0 in both packages, and the port's NNModel starts from
+    the parameters the JAX NNModel drew last (its fit must run first)."""
     mp = pytest.MonkeyPatch()
     # the port featurizes with its numpy refinement: route the JAX package's
     # built-in provider through the same path
@@ -299,15 +301,33 @@ def both_fits(tmp_path_factory):
     mp.setattr(jax_nnmodel.NNModel, "_init_params", jax_init)
     mp.setattr(port_nnmodel.NNModel, "_init_params", lambda self, params: (
         self.model.load_state_dict(flax_params_to_state_dict(captured["params"]))))
+    try:
+        yield
+    finally:
+        mp.undo()
+
+
+def split_csvs(tmp, smiles=SMILES_20, n_train=16, seed=0):
+    """train.csv (the first n_train SMILES) and val.csv (the rest) under
+    tmp, with targets drawn from ``seed``."""
+    y = np.random.RandomState(seed).randn(len(smiles)) * 2 + 1
+    df = pd.DataFrame({"smiles": smiles, "measured": y})
+    train_p, val_p = str(tmp / "train.csv"), str(tmp / "val.csv")
+    df.iloc[:n_train].to_csv(train_p, index=False)
+    df.iloc[n_train:].to_csv(val_p, index=False)
+    return train_p, val_p
+
+
+@pytest.fixture(scope="module")
+def both_fits(tmp_path_factory):
+    from mmdti_tpu import MolPredict as JaxPredict
+    from mmdti_tpu import MolTrain as JaxTrain
+    from mmdti_tpu_torch import MolPredict, MolTrain
 
     tmp = tmp_path_factory.mktemp("fit")
-    y = np.random.RandomState(0).randn(len(SMILES_20)) * 2 + 1
-    df = pd.DataFrame({"smiles": SMILES_20, "measured": y})
-    train_p, val_p = str(tmp / "train.csv"), str(tmp / "val.csv")
-    df.iloc[:16].to_csv(train_p, index=False)
-    df.iloc[16:].to_csv(val_p, index=False)
+    train_p, val_p = split_csvs(tmp)
     out = {}
-    try:
+    with jax_parity_patches():
         for name, train_cls, pred_cls, extra in (
                 ("jax", JaxTrain, JaxPredict, {}),
                 ("port", MolTrain, MolPredict, {"device": "cpu"})):
@@ -320,8 +340,6 @@ def both_fits(tmp_path_factory):
                 saved = flax.serialization.msgpack_restore(f.read())
             out[name] = dict(exp=exp, cv_pred=np.asarray(fit.cv_pred), pred=np.asarray(pred),
                              hist=hist, ckpt=saved, out=str(tmp / name))
-    finally:
-        mp.undo()
     return out
 
 

@@ -567,3 +567,180 @@ def test_layer_norm_takes_parameter_views_at_any_offset(cuda, dtype):
     want = hl.layer_norm_bwd_plain(x, w, gy, 1e-5)
     for a, c in zip(hl.layer_norm_bwd_cuda(x, w, gy, 1e-5), want):
         torch.testing.assert_close(a.float(), c.float(), atol=_grad_tol(dtype, c), rtol=0)
+
+
+# ---- K train steps and the eval sweep as CUDA graph replays --------------------
+
+GRAPH_V, GRAPH_PAD = 12, 1
+
+
+def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0):
+    """A shallow bf16 model on the kernel path at the flagship widths the
+    kernels take (E=512 and 64 Uni-Mol heads for the gbf kernels, so
+    pair-bias D=8; masked D=64 and 32; every dropout of the flagship on),
+    its optimizer and generator, the train programs and a resident dataset
+    of R rows made with numpy."""
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.losses.fds import init_fds_state
+    from mmdti_tpu_torch.models.mm_model import build_model
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import Resident, TrainPrograms
+
+    model = build_model(1, GRAPH_V, GRAPH_PAD, 40, compute_dtype="bfloat16", use_kernels=True,
+                        unimol_overrides=dict(encoder_layers=2, ffn_embed_dim=512,
+                                              pair_dtype="bfloat16"),
+                        chemberta_overrides=dict(num_hidden_layers=1, intermediate_size=512,
+                                                 max_position_embeddings=40),
+                        use_fds=fds, fds_num=8)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(seed))
+    model.to(cuda)
+    rng = np.random.RandomState(seed)
+    tok = np.full((R, N), GRAPH_PAD, np.int32)
+    dist = np.zeros((R, N, N), np.float32)
+    edge = np.full((R, N, N), GRAPH_PAD, np.int32)
+    ids = np.full((R, L), 1, np.int32)
+    mask = np.zeros((R, L), np.int32)
+    for r in range(R):
+        n, m = rng.randint(4, N + 1), rng.randint(3, L + 1)
+        t = rng.randint(4, GRAPH_V, size=n)
+        t[0], t[-1] = 0, 2
+        tok[r, :n] = t
+        c = rng.randn(n, 3).astype(np.float32)
+        dist[r, :n, :n] = np.sqrt(((c[:, None] - c[None]) ** 2).sum(-1))
+        edge[r, :n, :n] = t[:, None] * GRAPH_V + t[None, :]
+        ids[r, :m] = rng.randint(5, 40, size=m)
+        ids[r, 0], ids[r, m - 1] = 0, 2
+        mask[r, :m] = 1
+    feats = {k: _t(v, cuda) for k, v in dict(src_tokens=tok, src_distance=dist,
+                                             src_edge_type=edge, input_ids=ids,
+                                             attention_mask=mask).items()}
+    res = Resident(feats, _t(rng.randn(R, 1).astype(np.float32), cuda),
+                   _t(rng.uniform(0.5, 1.5, (R, 1)).astype(np.float32), cuda))
+    opt = FusedAdam(dict(model.named_parameters()), 1e-3, 20, warmup_ratio=0.1)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    fds_state = init_fds_state(model.fds_cfg, cuda) if fds else None
+    progs = TrainPrograms(model, opt, zoo.mse_loss, "regression", gen, fds_state=fds_state,
+                          fds_bucket=(-2.0, 0.5))
+    return model, opt, gen, progs, res
+
+
+def _train_state(opt, progs):
+    return [t.clone() for t in (*opt.graph_state, progs.metric_sums)]
+
+
+def _restore(opt, progs, gen, saved, gen_state):
+    for t, s in zip((*opt.graph_state, progs.metric_sums), saved):
+        t.copy_(s)
+    gen.set_state(gen_state)
+
+
+def _eager_feed(progs, res, idx):
+    return torch.stack([progs.single(*res.take(idx[k])) for k in range(idx.shape[0])])
+
+
+@pytest.mark.parametrize("ln", ["0", "1"])
+@pytest.mark.parametrize("variant", ["feed", "stacked"])
+def test_graph_steps_equal_eager_steps(cuda, monkeypatch, ln, variant):
+    """K=3 steps replayed from one graph against the same 3 steps run
+    eagerly from the same parameters, moments, counts and generator state,
+    dropout on: parameters, moments, counts, metrics and the generator's
+    offset after are bit-equal; a second replay goes on from there as 3
+    more eager steps do."""
+    monkeypatch.setenv("MMDTI_PALLAS_LN", ln)
+    model, opt, gen, progs, res = _graph_setup(cuda)
+    B, K = 8, 3
+    idx = torch.arange(2 * K * B, device=cuda).view(2, K, B) % res.labels.shape[0]
+
+    def graph(k_block):
+        if variant == "feed":
+            return progs.feed(res, k_block)
+        steps = [res.take(k_block[k]) for k in range(K)]
+        return progs.stacked({n: torch.stack([s[0][n] for s in steps]) for n in steps[0][0]},
+                             torch.stack([s[1] for s in steps]),
+                             torch.stack([s[2] for s in steps]))
+
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    m_graph = [graph(idx[0]), graph(idx[1])]
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1
+    after_graph, gen_graph = _train_state(opt, progs), gen.get_state()
+    _restore(opt, progs, gen, saved, gen0)
+    m_eager = [_eager_feed(progs, res, idx[0]), _eager_feed(progs, res, idx[1])]
+    torch.cuda.synchronize()
+    for a, b in zip(m_graph, m_eager):
+        assert torch.equal(a, b)
+    for a, b in zip(after_graph, _train_state(opt, progs)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_graph, gen.get_state())
+    assert opt.state.count == 2 * K
+    assert not torch.equal(after_graph[0], saved[0])   # the parameters moved
+
+
+def test_graph_replay_reads_the_fds_state_copied_in(cuda):
+    """set_fds_state writes the graph's FDS tensors in place: a replay
+    after it equals eager steps on the new state, and differs from eager
+    steps on the old one."""
+    from mmdti_tpu_torch.losses.fds import init_fds_state
+
+    model, opt, gen, progs, res = _graph_setup(cuda, fds=True)
+    idx = torch.arange(16, device=cuda).view(2, 8)
+    progs.set_epoch(model.fds_cfg.start_smooth)
+    progs.feed(res, idx)                      # records the graph
+    old = init_fds_state(model.fds_cfg, cuda)
+    draw = torch.Generator(device=cuda).manual_seed(3)
+    new = {k: v + 0.5 * torch.rand(v.shape, device=cuda, generator=draw)
+           for k, v in old.items()}
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    progs.set_fds_state(new)
+    m_graph = progs.feed(res, idx)
+    results = {}
+    for name, state in (("new", new), ("old", old)):
+        _restore(opt, progs, gen, saved, gen0)
+        progs.set_fds_state(state)
+        results[name] = _eager_feed(progs, res, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(m_graph, results["new"])
+    assert not torch.equal(m_graph, results["old"])
+
+
+def test_eval_graph_rows_of_a_padded_last_batch(cuda):
+    """The sweep's graph over 3 batches of 8 rows, the last holding 5 valid
+    rows (its last index repeated): predictions and losses equal the eager
+    eval step's on the same rows, and the loss counts the valid rows only."""
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.steps import EvalSweep, build_eval_step
+
+    model, _, _, _, res = _graph_setup(cuda)
+    rows = np.arange(21)
+    idx = np.concatenate([rows, np.repeat(rows[-1:], 3)]).reshape(3, 8)
+    idx_d = _t(idx.astype(np.int64), cuda)
+    ns = _t(np.asarray([8, 8, 5], np.int64), cuda)
+    sweep = EvalSweep(model, zoo.mse_loss, lambda x: x, with_pooled=True)
+    preds, losses, pooled, labels = sweep(res, idx_d, ns)
+    assert len(sweep.graphs) == 1
+    step = build_eval_step(model, zoo.mse_loss, lambda x: x)
+    for b in range(3):
+        feats, lab, _ = res.take(idx_d[b])
+        p, loss, pool, _ = step(feats, lab, int(ns[b]))
+        assert torch.equal(preds[b], p) and torch.equal(losses[b], loss)
+        assert torch.equal(pooled[b * 8:(b + 1) * 8], pool)
+    torch.testing.assert_close(
+        losses[2], torch.mean((preds[2, :5].float() - res.labels[16:21]) ** 2),
+        atol=1e-6, rtol=1e-5)
+    assert torch.equal(labels, res.labels.index_select(0, idx_d.view(-1)).float())
+
+
+def test_graph_replays_leave_the_layer_norm_tickets_at_zero(cuda, monkeypatch):
+    """Five replays of a 2-step graph with the LayerNorm kernels on: every
+    backward ticket is 0 afterwards, and the graph launched the LayerNorm
+    backward (its scratch exists)."""
+    from mmdti_tpu_torch.ops import hopper_ln as hl
+
+    monkeypatch.setenv("MMDTI_PALLAS_LN", "1")
+    _, _, _, progs, res = _graph_setup(cuda)
+    idx = torch.arange(16, device=cuda).view(2, 8)
+    for _ in range(5):
+        progs.feed(res, idx)
+    torch.cuda.synchronize()
+    assert hl._SCRATCH
+    assert all(bool((tickets == 0).all()) for _, tickets in hl._SCRATCH.values())
