@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
-the train step, and fit-and-predict through MolTrain/MolPredict.
+the train step, fit-and-predict through MolTrain/MolPredict, and the
+classification tasks.
 
     python3 chip_smoke.py
 
@@ -90,7 +91,27 @@ Phases, one result line each; any failure exits non-zero:
    reloaded predictions against the fit's own, the kernel path against the
    plain path on the same checkpoint, the graph-replayed fit of phase 6
    against this one (2e-2), and the test RMSE (a record);
-8. one JSON line with every kernel's summary, then {"ok": true, ...}.
+8. tasks, with MMDTI_PALLAS_LN=1 (restored after): (a) for classification,
+   multiclass and multilabel_classification (focal, the default loss), the
+   400-molecule synthetic set of the task (seed 0), scaffold-split (seed
+   0; the three splits hold the same molecules, featurized once into
+   conformer caches that every fit and predict reads), MolTrain.fit with
+   the defaults (the feed engaged, steps_per_call=4, CUDA graphs) at the
+   flagship width and depth (bf16, B=32, 3 epochs, InfoNCE, CT_Single or
+   CT_Multi) and MolPredict.predict(test): the artifacts (threshold.dat
+   0.5; multiclass_cnt 3 in config.yaml), the predict columns
+   (probabilities in [0, 1], multiclass rows summing to 1 within 1e-5,
+   labels the probabilities cut at the threshold or their argmax), the
+   launch counts of the fit and of the predict, each counted from 0
+   (exactly one train graph's and one sweep graph's warm-ups and capture;
+   every gbf and attention launch on "mma"), the kernel path against the
+   plain path on the same checkpoint (2e-2) and the test metric (a
+   record); (b) 4 flagship multilabel_classification steps with
+   loss_key="ghm" replayed from one CUDA graph against 4 eager steps from
+   the same state, held as phase 6 (a) holds them, GHM bin counts and flag
+   included;
+9. one JSON line with every kernel's summary (each task's launches
+   beside the main path's), then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -169,6 +190,8 @@ LN_ROUNDS, LN_STEPS = 2, 10   # phase train (f): rounds of steps each way, Layer
 LN_SITES = 49   # LayerNorms of a flagship forward that take the kernels (E % 128 == 0)
 LN_KERNEL_NAMES = ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")
 FIT_MOLECULES, FIT_EPOCHS = 400, 3
+TASK_FITS = ("classification", "multiclass", "multilabel_classification")
+TASK_EPOCHS = 3
 GRAPH_K = 4   # steps a train graph holds: the fit's default steps_per_call
 # phase graphs (c): rounds, and replays of a K-step graph a round (3 x 4 =
 # 12 steps each way, 10 rounded up to whole replays)
@@ -1150,7 +1173,7 @@ def phase_serve(dev):
     return launches
 
 
-def _flagship(use_kernels):
+def _flagship(use_kernels, output_dim=1):
     """The flagship model (bf16 compute, bf16 pair logits) on the CPU, with
     the built-in dictionary and tokenizer's vocabularies."""
     from mmdti_tpu_torch.chem.dictionary import Dictionary
@@ -1159,7 +1182,7 @@ def _flagship(use_kernels):
 
     d = Dictionary.load()
     d.add_symbol("[MASK]", is_special=True)
-    return build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+    return build_model(output_dim, len(d), d.pad(), SmilesTokenizer().vocab_size,
                        compute_dtype="bfloat16", use_kernels=use_kernels,
                        unimol_overrides={"pair_dtype": "bfloat16"})
 
@@ -1959,6 +1982,280 @@ def phase_fit(dev, graph_fit):
     return launches
 
 
+def _task_fit(task, paths, caches, work):
+    """MolTrain.fit(train, val) -> MolPredict.predict(test) for ``task`` at
+    the flagship width and depth with the defaults (the resident feed, 4
+    steps a dispatch, CUDA graphs), bf16, B=32, TASK_EPOCHS epochs, InfoNCE
+    and CT, MMDTI_PALLAS_LN=1; the launcher counts of the fit and of the
+    predict, each from 0."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolTrain
+    from mmdti_tpu_torch.api.predict_api import load_threshold
+    from mmdti_tpu_torch.configs.config import load_yaml
+    from mmdti_tpu_torch.data.reader import read_csv
+    from mmdti_tpu_torch.finetune import MULTILABEL_COLS, _score_task
+
+    exp, out = os.path.join(work, f"exp_{task}"), os.path.join(work, f"out_{task}")
+    target_cols = MULTILABEL_COLS if task == "multilabel_classification" else ["measured"]
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    os.environ["MMDTI_PALLAS_LN"] = "1"
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        clf = MolTrain(task=task, epochs=TASK_EPOCHS, learning_rate=1e-4, batch_size=32,
+                       early_stopping=20, metrics="log_loss" if task == "multiclass" else "auc",
+                       smiles_col="smiles", save_path=exp, target_cols=target_cols,
+                       using_infonce=True, using_ct=True, raw_data=paths["train"], seed=42,
+                       cache_dir_train=caches["train"], cache_dir_test=caches["val"],
+                       device="cuda")
+        clf.fit(paths["train"], paths["val"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_counts, fit_routes = _read_counts(), _read_routes()
+        _reset_counts()
+        pred = MolPredict(load_model=exp, cache_dir=caches["test"]).predict(paths["test"],
+                                                                          save_path=out)
+        pred_counts, pred_routes = _read_counts(), _read_routes()
+        val_kernel = MolPredict(load_model=exp, cache_dir=caches["val"]).predict(paths["val"])
+        plain = MolPredict(load_model=exp, cache_dir=caches["val"])
+        plain.config["use_pallas"] = False
+        val_plain = plain.predict(paths["val"])
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN")
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+    with open(os.path.join(exp, "history_0.json")) as f:
+        history = json.load(f)
+    test = read_csv(paths["test"])
+    truth = np.stack([np.asarray(test[c], np.float64) for c in target_cols], axis=1)
+    if task == "classification":
+        truth = truth.reshape(-1)
+    csv = read_csv(os.path.join(out, "test.predict.0.csv"))
+    config = load_yaml(os.path.join(exp, "config.yaml"))
+    threshold = (None if task == "multiclass"
+                 else np.asarray(load_threshold(os.path.join(exp, "threshold.dat"))).tolist())
+    return {"clf": clf, "fit_s": fit_s, "history": history, "pred": np.asarray(pred),
+            "fit_counts": fit_counts, "fit_routes": fit_routes, "pred_counts": pred_counts,
+            "pred_routes": pred_routes, "csv": csv, "threshold": threshold,
+            "multiclass_cnt": config.get("multiclass_cnt"), "artifacts": sorted(os.listdir(exp)),
+            "kernel_vs_plain": float(np.abs(np.asarray(val_kernel) - val_plain).max()),
+            "test_metric": _score_task(task, truth, np.asarray(pred), 0)}
+
+
+def _graph_launches(per_forward, k, sweeps):
+    """Launcher counts of a default fit: one train graph of k steps and
+    ``sweeps`` sweep graphs (one forward each), warmed up and captured;
+    the replays launch through no launcher."""
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
+
+    runs = GRAPH_WARMUP + 1
+    want = {}
+    for name, n in per_forward.items():
+        want[name] = runs * (k + sweeps) * n
+        want[name + "_bwd"] = runs * k * n
+    return want
+
+
+def _ghm_graph_check(dev):
+    """K flagship multilabel_classification steps with loss_key="ghm"
+    (GHMCState: EMA bin counts carried on the device), replayed from one
+    CUDA graph, against K eager steps from the same state, run twice:
+    parameters, moments, counts, metrics, the bin counts and flag, and the
+    generator must match as closely as the two eager runs match each
+    other."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP, Resident, TrainPrograms
+
+    B, K = 32, GRAPH_K
+    model = _flagship(True, output_dim=3)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+    model.to(dev)
+    labels = torch.randint(0, 2, (B, 3), generator=torch.Generator().manual_seed(1)).float()
+    res = Resident(_train_batch(dev, 64, 64, B), labels.to(dev), torch.ones(B, 1, device=dev))
+    rng = np.random.RandomState(0)
+    idx = torch.from_numpy(np.stack([rng.permutation(B) for _ in range(K)])).to(dev)
+    opt = FusedAdam(dict(model.named_parameters()), 1e-4, 1000, warmup_ratio=0.1, max_norm=1.0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ghm = zoo.GHMCState(dev)
+    progs = TrainPrograms(model, opt, ghm, "multilabel_classification", gen)
+    tensors = (*opt.graph_state, progs.metric_sums, *ghm.graph_state)
+
+    def state():
+        return [t.clone() for t in tensors], gen.get_state()
+
+    def restore(saved):
+        with torch.no_grad():
+            for t, v in zip(tensors, saved[0]):
+                t.copy_(v)
+        gen.set_state(saved[1])
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+    s0 = state()
+    m_e1 = torch.stack([progs.single(*res.take(idx[k])) for k in range(K)])
+    after_e1 = state()
+    restore(s0)
+    m_e2 = torch.stack([progs.single(*res.take(idx[k])) for k in range(K)])
+    after_e2 = state()
+    restore(s0)
+    _reset_counts()
+    m_g = progs.feed(res, idx)
+    torch.cuda.synchronize()
+    after_g = state()
+    routes = _read_routes()
+    ee = gap([*after_e1[0], m_e1], [*after_e2[0], m_e2])
+    ge = gap([*after_g[0], m_g], [*after_e1[0], m_e1])
+    bins_gap = gap(after_g[0][-2:], after_e1[0][-2:])
+    gen_equal = torch.equal(after_g[1], after_e1[1]) and torch.equal(after_e2[1], after_e1[1])
+    result = {"check": "GHM-C steps, graph vs eager", "B": B, "N": 64, "L": 64, "K": K,
+              "eager_vs_eager_max_abs": ee, "graph_vs_eager_max_abs": ge,
+              "bin_state_graph_vs_eager_max_abs": bins_gap,
+              "bin_count_after": after_g[0][-2].tolist(), "flag_after": float(after_g[0][-1]),
+              "generator_state_equal": gen_equal, "m_loss_per_step": m_g[:, 1].tolist(),
+              "capture_routes": {k: routes[k] for k in ("gbf_proj", "pair_bias_attention",
+                                                       "masked_attention")}}
+    print("tasks: (b) " + json.dumps(result), flush=True)
+    if not gen_equal or ge > ee or bins_gap > ee:
+        raise Failed(f"tasks ghm: {K} replayed GHM steps differ from {K} eager steps by {ge} "
+                     f"(bins {bins_gap}; two eager runs: {ee}); generator equal {gen_equal}")
+    if float(after_g[0][-1]) != 1.0 or not torch.isfinite(m_g).all():
+        raise Failed(f"tasks ghm: flag {float(after_g[0][-1])}, metrics {m_g.tolist()}")
+    n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+    attn = _attention_launches(model.unimol_cfg.encoder_layers, n_masked)
+    _check_mma_routes(routes, {k: (GRAPH_WARMUP + 1) * K * n for k, n in attn.items()},
+                      "tasks ghm")
+    del progs, opt, model, res
+    torch.cuda.empty_cache()
+
+
+def phase_tasks(dev):
+    """The classification tasks on the main path: (a) for classification,
+    multiclass and multilabel_classification (focal), the synthetic set of
+    the task (seed 0), scaffold-split (seed 0), MolTrain.fit with the
+    defaults (feed and graphs) at the flagship width and depth and
+    MolPredict.predict(test); the molecules are featurized once and the
+    three fits read the same conformer caches.  (b) GHM-C steps replayed
+    from one CUDA graph against eager steps.  Returns the launch counts of
+    each task's fit and predict."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch.data.reader import read_csv, write_csv
+    from mmdti_tpu_torch.finetune import MULTILABEL_COLS, make_synthetic_dataset
+    from mmdti_tpu_torch.splits import random_scaffold_split
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+
+    work = os.path.join(REPO, "build", "chip_smoke_tasks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    caches = {k: os.path.join(work, f"{k}.features.pkl") for k in ("train", "val", "test")}
+    launches, split_smiles = {}, None
+    for task in TASK_FITS:
+        tdir = os.path.join(work, task)
+        os.makedirs(tdir)
+        data = os.path.join(tdir, "synthetic.csv")
+        make_synthetic_dataset(data, n=FIT_MOLECULES, seed=0, task=task)
+        paths = {}
+        for name, table in zip(("train", "val", "test"), random_scaffold_split(data, 0)):
+            paths[name] = os.path.join(tdir, f"{name}.csv")
+            write_csv(table, paths[name])
+        smiles = {k: list(read_csv(p)["smiles"]) for k, p in paths.items()}
+        if split_smiles is not None and smiles != split_smiles:
+            raise Failed(f"tasks {task}: the scaffold split differs from the first task's, so "
+                         "the shared conformer caches do not apply")
+        split_smiles = smiles
+        r = _task_fit(task, paths, caches, tdir)
+        model = r["clf"].model.model
+        n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+        per_forward = {"gbf_proj": 1, "pair_bias_attention": model.unimol_cfg.encoder_layers,
+                       "masked_attention": n_masked, "layer_norm": _ln_sites(model)}
+        steps = len(smiles["train"]) // 32
+        k_feed = _snap_to_divisor(GRAPH_K, steps)
+        want_fit = _graph_launches(per_forward, k_feed, sweeps=1)
+        want_pred = _graph_launches(per_forward, 0, sweeps=1)
+        csv = r["csv"]
+        if task == "multiclass":
+            prob_cols = [f"prob_{i}" for i in range(r["multiclass_cnt"] or 0)]
+            label_cols = ["predict_measured"]
+        else:
+            cols = MULTILABEL_COLS if task == "multilabel_classification" else ["measured"]
+            prob_cols = [f"prob_{c}" for c in cols]
+            label_cols = [f"predict_{c}" for c in cols]
+        probs = np.stack([np.asarray(csv[c], np.float64) for c in prob_cols], axis=1)
+        row_sum_err = (float(np.abs(probs.sum(axis=1) - 1).max()) if task == "multiclass"
+                       else None)
+        labels = np.stack([np.asarray(csv[c]) for c in label_cols], axis=1)
+        hist = r["history"]
+        print(f"tasks: (a) {task} " + json.dumps({
+            "model": {"layers": model.unimol_cfg.encoder_layers, "E": model.unimol_cfg.embed_dim,
+                      "H": model.unimol_cfg.attention_heads, "compute": "bf16",
+                      "output_dim": model.output_dim, "batch": 32},
+            "dispatch": "defaults: device_feed auto (engaged), steps_per_call 4",
+            "split": {k: len(v) for k, v in smiles.items()}, "epochs": len(hist),
+            "steps_per_epoch": steps, "steps_per_replay": k_feed, "fit_wall_s": r["fit_s"],
+            "epoch_wall_s": [row["seconds"] for row in hist],
+            "history": [{k: v for k, v in row.items() if k.startswith(("val_", "train_loss"))}
+                        for row in hist],
+            "artifacts": r["artifacts"], "threshold_dat": r["threshold"],
+            "multiclass_cnt": r["multiclass_cnt"], "predict_columns": list(csv),
+            "prob_min": float(probs.min()), "prob_max": float(probs.max()),
+            "multiclass_row_sum_max_abs_err": row_sum_err,
+            "label_values": sorted(set(np.asarray(labels).ravel().tolist())),
+            "fit_launches": r["fit_counts"], "fit_launches_expected": want_fit,
+            "predict_launches": r["pred_counts"], "predict_launches_expected": want_pred,
+            "kernel_vs_plain_val_max_abs_diff": r["kernel_vs_plain"], "plain_tol": LOGITS_TOL,
+            "test_metric_seed0": r["test_metric"],
+            "test_metric_is": "macro one-vs-rest AUC" if task == "multiclass" else (
+                "NaN-masked column-mean AUC" if task == "multilabel_classification"
+                else "ROC-AUC"),
+        }), flush=True)
+        if r["fit_counts"] != want_fit:
+            raise Failed(f"tasks {task} fit: the launchers counted {r['fit_counts']}, expected "
+                         f"{want_fit}: the fit did not run as one train graph and one sweep")
+        if r["pred_counts"] != want_pred:
+            raise Failed(f"tasks {task} predict: the launchers counted {r['pred_counts']}, "
+                         f"expected {want_pred}")
+        mma = {k: n for k, n in r["fit_counts"].items() if k in r["fit_routes"]}
+        _check_mma_routes(r["fit_routes"], mma, f"tasks {task} fit")
+        _check_mma_routes(r["pred_routes"], {k: n for k, n in r["pred_counts"].items()
+                                             if k in r["pred_routes"]}, f"tasks {task} predict")
+        if not (np.isfinite(probs).all() and probs.min() >= 0.0 and probs.max() <= 1.0):
+            raise Failed(f"tasks {task}: probabilities outside [0, 1]")
+        if row_sum_err is not None and not row_sum_err <= 1e-5:
+            raise Failed(f"tasks {task}: class probabilities sum to 1 within {row_sum_err}")
+        if task == "multiclass":
+            if r["multiclass_cnt"] != 3 or probs.shape[1] != 3:
+                raise Failed(f"tasks multiclass: multiclass_cnt {r['multiclass_cnt']}")
+            if not np.array_equal(labels[:, 0], probs.argmax(axis=1)):
+                raise Failed("tasks multiclass: predict_measured is not the argmax")
+        else:
+            if r["threshold"] != 0.5 or "threshold.dat" not in r["artifacts"]:
+                raise Failed(f"tasks {task}: threshold.dat holds {r['threshold']}")
+            if not np.array_equal(labels, (probs > 0.5).astype(int)):
+                raise Failed(f"tasks {task}: the predict columns are not the probabilities "
+                             "cut at 0.5")
+        if not r["kernel_vs_plain"] <= LOGITS_TOL:
+            raise Failed(f"tasks {task}: kernel path differs from plain path by "
+                         f"{r['kernel_vs_plain']}")
+        if not np.isfinite(r["test_metric"]):
+            raise Failed(f"tasks {task}: test metric {r['test_metric']}")
+        launches[task] = {k: r["fit_counts"][k] + r["pred_counts"][k] for k in KERNELS}
+        del r, model
+        torch.cuda.empty_cache()
+    _ghm_graph_check(dev)
+    return launches
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
@@ -1986,14 +2283,20 @@ def main() -> int:
     train_launches = phase_train(dev)
     graph_fit = phase_graphs(dev)
     fit_launches = phase_fit(dev, graph_fit)
+    task_launches = phase_tasks(dev)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
         if n == 0:
             raise Failed(f"{name} was not launched on its path")
+    for task, counts in task_launches.items():
+        for name, n in counts.items():
+            if n == 0:
+                raise Failed(f"{name} was not launched on the {task} path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **summary[name]}
+         "launches": launches[name], **summary[name],
+         "task_launches": {task: counts[name] for task, counts in task_launches.items()}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

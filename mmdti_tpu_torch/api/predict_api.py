@@ -1,12 +1,19 @@
 """MolPredict: the user-facing inference API (port of
-mmdti_tpu/api/predict_api.py for the regression tasks).
+mmdti_tpu/api/predict_api.py).
 
-Reads an experiment dir (config.yaml, target_scaler.ss, model_{fold}.ckpt
-for fold < model_folds), rebuilds the pipeline with is_train=False,
-predicts with the best checkpoint(s), inverse-scales, scores the
-predictions when the input carries its targets (not the -1.0 placeholder)
-and writes ``<prefix>.predict.<run_id>.csv`` with the csv module.
-``device`` is "cuda" unless the caller asks for the CPU.
+Reads an experiment dir (config.yaml, target_scaler.ss, threshold.dat,
+model_{fold}.ckpt for fold < model_folds), rebuilds the pipeline with
+is_train=False, predicts with the best checkpoint(s), inverse-scales, and
+writes ``<prefix>.predict.<run_id>.csv`` with the csv module: regression
+adds ``predict_<col>``; binary and multilabel classification add
+``prob_<col>`` and ``predict_<col>``, the probability cut at the stored
+threshold; multiclass adds ``prob_0..prob_{c-1}`` and the argmax.  When
+the input carries its targets (not the -1.0 placeholder) the probability
+columns are scored into test_metric.result.  threshold.dat is read
+without joblib: a standard pickle, or joblib's array format (the JAX
+package's searched thresholds), through an unpickler that accepts numpy
+arrays and scalars and nothing else.  ``device`` is "cuda" unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Optional
 
 import numpy as np
 
+from mmdti_tpu_torch.api.train_api import THRESHOLD_FILE
 from mmdti_tpu_torch.configs.config import load_yaml
 from mmdti_tpu_torch.data.batching import MolDataset
 from mmdti_tpu_torch.data.hub import DataHub
@@ -26,6 +34,60 @@ from mmdti_tpu_torch.train.nnmodel import NNModel
 from mmdti_tpu_torch.train.trainer import Trainer
 
 logger = logging.getLogger("mmdti_tpu_torch")
+
+_NUMPY_CLASSES = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (mod, name) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")
+    for name in ("_reconstruct", "scalar")}
+
+
+class _JoblibArray:
+    """joblib's NumpyArrayWrapper: an array's subclass, shape, order and
+    dtype, whose raw bytes follow its pickle in the file."""
+
+    def read(self, f) -> np.ndarray:
+        if self.dtype.hasobject:
+            raise pickle.UnpicklingError("threshold.dat holds an object array")
+        if getattr(self, "numpy_array_alignment_bytes", None) is not None:
+            f.read(int.from_bytes(f.read(1), "little"))      # alignment padding
+        count = int(np.prod(self.shape, dtype=np.int64))
+        data = f.read(count * self.dtype.itemsize)
+        if len(data) != count * self.dtype.itemsize:
+            raise pickle.UnpicklingError("threshold.dat ends inside its array")
+        array = np.frombuffer(data, dtype=self.dtype).copy()
+        if self.order == "F":
+            return array.reshape(self.shape[::-1]).transpose()
+        return array.reshape(self.shape)
+
+
+class _ThresholdUnpickler(pickle._Unpickler):
+    """Reads a float, a numpy scalar or array, pickled plainly or by joblib;
+    any other class raises."""
+
+    def __init__(self, f):
+        super().__init__(f)
+        self._f = f
+
+    def find_class(self, module, name):
+        if (module, name) == ("joblib.numpy_pickle", "NumpyArrayWrapper"):
+            return _JoblibArray
+        if (module, name) in _NUMPY_CLASSES:
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"threshold.dat names {module}.{name}")
+
+    def load_build(self):
+        super().load_build()
+        if isinstance(self.stack[-1], _JoblibArray):
+            self.stack.append(self.stack.pop().read(self._f))
+
+    dispatch = dict(pickle._Unpickler.dispatch)
+    dispatch[pickle.BUILD[0]] = load_build
+
+
+def load_threshold(path: str):
+    """The classification threshold(s) in ``path``: a float or an array
+    with one per target column."""
+    with open(path, "rb") as f:
+        return _ThresholdUnpickler(f).load()
 
 
 class MolPredict:
@@ -62,13 +124,24 @@ class MolPredict:
 
         table = dict(self.datahub.data["raw_data"])
         predict_cols = ["predict_" + col for col in self.target_cols]
-        for j, col in enumerate(predict_cols):
-            table[col] = y_pred[:, j]
-        truth = np.stack([np.asarray(table[c], np.float64) for c in self.target_cols], axis=1)
+        if self.task == "multiclass" and self.config.get("multiclass_cnt") is not None:
+            prob_cols = ["prob_" + str(i) for i in range(self.config.multiclass_cnt)]
+            table.update(zip(prob_cols, y_pred.T))
+            table[predict_cols[0]] = np.argmax(y_pred, axis=1)
+        elif self.task in ("classification", "multilabel_classification"):
+            threshold = load_threshold(os.path.join(self.load_model, THRESHOLD_FILE))
+            prob_cols = ["prob_" + col for col in self.target_cols]
+            table.update(zip(prob_cols, y_pred.T))
+            table.update(zip(predict_cols, (y_pred > threshold).astype(int).T))
+        else:
+            prob_cols = predict_cols
+            table.update(zip(predict_cols, y_pred.T))
+        truth = np.stack([np.asarray(table[c]) for c in self.target_cols], axis=1)
         if save_path:
             os.makedirs(save_path, exist_ok=True)
         if not (truth == -1.0).all():
-            score = self.trainer.metrics.cal_metric(truth, y_pred)
+            score = self.trainer.metrics.cal_metric(
+                truth, np.stack([table[c] for c in prob_cols], axis=1))
             logger.info("final predict metrics score: \n%s", score)
             if save_path:
                 # a plain pickle of the score dict, which joblib.load also reads

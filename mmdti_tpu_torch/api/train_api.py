@@ -2,19 +2,23 @@
 the ``fit(train, val)`` path).
 
 The same keyword surface layered over the default config.  ``fit(train,
-val)`` writes the experiment dir: config.yaml (configs/config.py's writer),
-target_scaler.ss (data/scaler.py), model_0.ckpt (flax-msgpack,
+val)`` writes the experiment dir: config.yaml (configs/config.py's writer;
+multiclass adds ``multiclass_cnt``), target_scaler.ss for the regression
+tasks (data/scaler.py), threshold.dat for the binary and multilabel
+classification tasks (0.5, or the per-column search on the validation
+predictions with ``threshold_search=True``; a standard pickle, which
+joblib.load reads too), model_0.ckpt (flax-msgpack,
 train/checkpointing.py) and history_0.json, and keeps the inverse-scaled
-validation predictions in ``cv_pred``.  ``fit(train)`` (k-fold CV) and the
-classification tasks wait for later slices (ROADMAP.md, M5).  ``device``
-is "cuda" unless the caller asks for the CPU; it is not written to the
-config.
+validation predictions in ``cv_pred``.  ``fit(train)`` (k-fold CV) waits
+for a later slice (ROADMAP.md).  ``device`` is "cuda" unless the caller
+asks for the CPU; it is not written to the config.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import pickle
 from typing import Optional
 
 import numpy as np
@@ -25,6 +29,8 @@ from mmdti_tpu_torch.train.nnmodel import NNModel
 from mmdti_tpu_torch.train.trainer import Trainer
 
 logger = logging.getLogger("mmdti_tpu_torch")
+
+THRESHOLD_FILE = "threshold.dat"
 
 
 class MolTrain:
@@ -152,17 +158,29 @@ class MolTrain:
         return self._finalize()
 
     def _finalize(self):
-        """Inverse-scale the validation predictions into ``cv_pred``."""
+        """Inverse-scale the validation predictions into ``cv_pred``; write
+        threshold.dat for the thresholded tasks."""
         scaler = self.data_train["target_scaler"]
         y_pred = self.model.cv["pred"]
         if scaler is not None and scaler.scaler is not None:
             y_pred = scaler.inverse_transform(y_pred)
+        if self.config["task"] in ("classification", "multilabel_classification"):
+            threshold = 0.5
+            if self.config.get("threshold_search"):
+                threshold = self.trainer.metrics.search_threshold(
+                    np.asarray(self.data_test["target"], dtype=float),
+                    np.asarray(self.model.cv["pred"], dtype=float))
+                logger.info("Searched classification thresholds: %s", threshold)
+            with open(os.path.join(self.save_path, THRESHOLD_FILE), "wb") as f:
+                pickle.dump(threshold, f, protocol=4)
         self.cv_pred = np.asarray(y_pred)
         return self
 
     def update_and_save_config(self, n_folds: int = 1):
         self.config["num_classes"] = self.data_train["num_classes"]
         self.config["target_cols"] = ",".join(self.data_train["target_cols"])
+        if self.config["task"] == "multiclass":
+            self.config["multiclass_cnt"] = self.data_train["multiclass_cnt"]
         self.config["split_method"] = (
             f"{self.config.get('kfold', 5)}fold_{self.config.get('split', 'random')}")
         # the number of model_{fold} checkpoints the predict side averages

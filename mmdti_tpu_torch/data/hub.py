@@ -1,7 +1,10 @@
 """DataHub: host-side data preparation (port of mmdti_tpu/data/hub.py
 without the MOF branch).
 
-Reads a CSV path, a dict of columns, a table or a SMILES list; fits the
+Reads a CSV path, a dict of columns, a table or a SMILES list; shapes the
+targets by task (regression: scaled float32; classification and
+multiclass: int32 [n, 1], with the config's multiclass_cnt at predict
+time; multilabel classification: float32 that keeps NaN); fits the
 target scaler on the ``raw_data`` CSV's targets when one is given (else on
 this split's), applies it; computes ConR sample weights; featurizes the
 molecules with the host conformer provider (chem/conformer.py), cached in a
@@ -72,6 +75,7 @@ class DataHub:
         self.is_train = is_train
         self.save_path = save_path
         self.task = params.get("task", None)
+        self.multiclass_cnt = params.get("multiclass_cnt", None)
         self.cache_dir_train = params.get("cache_dir_train", None)
         self.cache_dir_test = params.get("cache_dir_test", None)
         self.ss_method = params.get("target_normalize", "none")
@@ -113,11 +117,14 @@ class DataHub:
                     logger.info("Fitted target scaler.")
                 target = scaler.transform(target)
             self.data["target"] = np.asarray(target, dtype=np.float32)
-        elif task in ("classification", "multiclass", "multilabel_classification"):
-            raise NotImplementedError(
-                f"task={task!r} is not ported yet (ROADMAP.md, M5); the port trains "
-                "regression and multilabel_regression"
-            )
+        elif task in ("classification", "multiclass"):
+            self.data["target"] = np.array(raw_target, dtype=np.int32).reshape(-1, 1)
+            if task == "multiclass" and not self.is_train:
+                self.data["multiclass_cnt"] = self.multiclass_cnt
+        elif task == "multilabel_classification":
+            # float32 that keeps NaN: a missing label masks out of the losses
+            # and the column-averaged metrics (an int cast would destroy it)
+            self.data["target"] = np.array(raw_target, dtype=np.float32).reshape(-1, num_classes)
         elif task == "repr":
             self.data["target"] = raw_target
         else:

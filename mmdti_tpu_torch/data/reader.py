@@ -52,6 +52,9 @@ def read_csv(path: str) -> Table:
 
 
 def _cell(v) -> str:
+    if isinstance(v, (np.float32, np.float16)):
+        # numpy's shortest repr of the narrow value, as pandas writes it
+        return "" if math.isnan(v) else str(v)
     if isinstance(v, (float, np.floating)):
         return "" if math.isnan(v) else repr(float(v))
     if isinstance(v, (np.integer,)):
@@ -60,8 +63,9 @@ def _cell(v) -> str:
 
 
 def write_csv(table: Table, path: str, index: bool = False) -> None:
-    """Write a table as pandas' ``to_csv`` does (floats by repr, NaN as an
-    empty cell; ``index=True`` adds the unnamed row-number column first)."""
+    """Write a table as pandas' ``to_csv`` does (floats by their shortest
+    repr in their own width, NaN as an empty cell; ``index=True`` adds the
+    unnamed row-number column first)."""
     cols = list(table)
     n = num_rows(table)
     with open(path, "w", newline="", encoding="utf-8") as f:

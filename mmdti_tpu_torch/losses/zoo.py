@@ -2,7 +2,8 @@
 
 CE / MSE / RMSE, NaN-masked MAE and BCE, masked BCE-with-logits, focal
 (with logits), and GHM classification / regression with their EMA bin state
-passed explicitly.  Every loss computes in fp32.
+passed explicitly, or carried on the device for GHM-C (``GHMCState``).
+Every loss computes in fp32.
 """
 
 from __future__ import annotations
@@ -83,15 +84,21 @@ for _fn in (masked_bce_with_logits, mae_with_nan, bce_with_nan, focal_loss_with_
 
 # ---- GHM with explicit EMA bin state ---------------------------------------
 
-def _ghm_beta(g, last_bin_count, bins, alpha):
-    """(per-element weight, new bin counts) of the gradient-density bins."""
+def _ghm_bins(g, bins):
+    """(bin of each element, counts per bin as float32).  The counts are a
+    one-hot sum: torch.bincount reads its input's max back to the host,
+    which a CUDA graph capture forbids; small integer counts in float32 are
+    exact either way."""
     bin_idx = torch.clamp(torch.floor(g * (bins - 0.0001)).long(), 0, bins - 1)
-    bin_count = torch.bincount(bin_idx.reshape(-1), minlength=bins).float()
-    if last_bin_count is not None:
-        bin_count = alpha * last_bin_count + (1 - alpha) * bin_count
+    onehot = bin_idx.reshape(-1, 1) == torch.arange(bins, device=g.device)
+    return bin_idx, onehot.sum(dim=0, dtype=torch.float32)
+
+
+def _ghm_weight(bin_idx, bin_count, n):
+    """Per-element weight n / (count of its bin x nonempty bins)."""
     nonempty = (bin_count > 0).sum().float()
-    beta = g.numel() / torch.clamp_min(bin_count * nonempty, 1e-4)
-    return beta[bin_idx], bin_count
+    beta = n / torch.clamp_min(bin_count * nonempty, 1e-4)
+    return beta[bin_idx]
 
 
 def ghmc_loss(
@@ -102,7 +109,10 @@ def ghmc_loss(
     x = logits.float()
     y = target.float()
     g = torch.abs(torch.sigmoid(x).detach() - y)
-    weight, bin_count = _ghm_beta(g, last_bin_count, bins, alpha)
+    bin_idx, bin_count = _ghm_bins(g, bins)
+    if last_bin_count is not None:
+        bin_count = alpha * last_bin_count + (1 - alpha) * bin_count
+    weight = _ghm_weight(bin_idx, bin_count, x.numel())
     return (_bce_elementwise(x, y) * weight).mean(), bin_count
 
 
@@ -115,6 +125,45 @@ def ghmr_loss(
     y = target.float()
     d = x - y
     g = torch.abs((d / torch.sqrt(d * d + mu * mu)).detach())
-    weight, bin_count = _ghm_beta(g, last_bin_count, bins, alpha)
-    loss = (torch.sqrt(d * d + mu * mu) - mu) * weight
+    bin_idx, bin_count = _ghm_bins(g, bins)
+    if last_bin_count is not None:
+        bin_count = alpha * last_bin_count + (1 - alpha) * bin_count
+    loss = (torch.sqrt(d * d + mu * mu) - mu) * _ghm_weight(bin_idx, bin_count, x.numel())
     return loss.sum() / x.numel(), bin_count
+
+
+class GHMCState:
+    """GHM-C with its EMA bin counts carried from step to step (the JAX
+    NNModel's ``ghm_stateful`` and its (bins, initialised flag) loss
+    state): a call before any other weighs by the batch's own counts, every
+    later call by the EMA of the carried counts and the batch's.  Each call
+    writes the new counts and sets the flag in place, on the device, so a
+    CUDA graph that records train steps replays the update; ``graph_state``
+    lists the tensors a call writes, ``reset`` starts a fit afresh."""
+
+    def __init__(self, device, bins: int = 10, alpha: float = 0.5):
+        self.bins, self.alpha = bins, alpha
+        self.bin_count = torch.zeros(bins, dtype=torch.float32, device=device)
+        self.flag = torch.zeros((), dtype=torch.float32, device=device)
+
+    @property
+    def graph_state(self):
+        return (self.bin_count, self.flag)
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        self.bin_count.zero_()
+        self.flag.zero_()
+
+    def __call__(self, logits, target):
+        x = logits.float()
+        y = target.float()
+        g = torch.abs(torch.sigmoid(x).detach() - y)
+        bin_idx, counts = _ghm_bins(g, self.bins)
+        ema = self.alpha * self.bin_count + (1 - self.alpha) * counts
+        bin_count = torch.where(self.flag > 0, ema, counts)
+        loss = (_bce_elementwise(x, y) * _ghm_weight(bin_idx, bin_count, x.numel())).mean()
+        with torch.no_grad():
+            self.bin_count.copy_(bin_count)
+            self.flag.fill_(1.0)
+        return loss

@@ -61,9 +61,11 @@ class FitLoopMixin:
                     dump_dir: str, fold: int, target_scaler, collate_fn,
                     use_infonce: bool = False, use_ct: bool = False, use_weight: bool = False,
                     fds_state=None, fds_bucket=(0.0, 1.0), fds_kernel=None,
-                    fds_start_update: int = 0):
+                    fds_start_update: int = 0, stateful_loss=None):
         """Train ``model`` (already on the trainer's device) and return the
-        activated predictions of the best checkpoint on ``valid_dataset``."""
+        activated predictions of the best checkpoint on ``valid_dataset``.
+        ``stateful_loss`` (GHMCState) replaces ``loss_fn`` in the train
+        steps, from a fresh state; validation keeps ``loss_fn``."""
         train_loader = MolDataLoader(train_dataset, self.batch_size, collate_fn,
                                      shuffle=True, drop_last=True, seed=self.seed)
         steps_per_epoch = len(train_loader)
@@ -77,7 +79,9 @@ class FitLoopMixin:
                               self.warmup_ratio, self.max_norm, mu_dtype=self.mu_dtype,
                               accumulate_steps=self.accumulate_steps)
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,
+        if stateful_loss is not None:
+            stateful_loss.reset()
+        programs = TrainPrograms(model, optimizer, stateful_loss or loss_fn, self.task, generator,
                                  fds_state=fds_state, fds_bucket=fds_bucket,
                                  use_infonce=use_infonce, use_ct=use_ct, use_weight=use_weight,
                                  alpha=self.alpha, beta=self.beta, ct_w=self.ct_w)

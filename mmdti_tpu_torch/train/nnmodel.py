@@ -4,9 +4,10 @@ Resolves the task's loss, activation and output width, builds the model
 (models/mm_model.py::build_model) with the tokenizer and atom dictionary,
 draws its initial weights, prepares the FDS state and buckets, and drives
 Trainer.fit_predict (``run``) and the best-checkpoint predict
-(``evaluate``, averaging fold checkpoints).  Pretrained Uni-Mol/ChemBERTa
-ingestion, prefix freezing, k-fold CV and the GHM loss state wait for later
-slices (ROADMAP.md, M5).
+(``evaluate``, averaging fold checkpoints).  multilabel_classification
+with ``loss_key="ghm"`` trains with its EMA bin counts carried on the
+device (losses/zoo.py GHMCState).  Pretrained Uni-Mol/ChemBERTa ingestion,
+prefix freezing and k-fold CV wait for later slices (ROADMAP.md).
 
 ``use_pallas`` keeps the JAX config key: 'auto' or True builds the kernel
 path (the Hopper kernels on a CUDA device, their plain versions on the
@@ -27,6 +28,7 @@ from mmdti_tpu_torch.chem.dictionary import Dictionary
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
 from mmdti_tpu_torch.data.batching import BatchCollator, MolDataset, dataset_pad_lengths
 from mmdti_tpu_torch.data.reader import read_csv
+from mmdti_tpu_torch.losses import zoo
 from mmdti_tpu_torch.losses.fds import fds_bucket_params, fds_kernel_window, init_fds_state
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_loss, resolve_output_dim
 from mmdti_tpu_torch.models.mm_model import build_model
@@ -72,6 +74,11 @@ class NNModel:
                                              data_train.get("multiclass_cnt"))
         self.loss_func = resolve_loss(self.task, self.loss_key)
         self.activation_fn = ACTIVATION_REGISTRY[self.task]
+        # GHM's EMA bin counts persist across train steps; validation scores
+        # the stateless GHM of the registry, as in the JAX package
+        self.stateful_loss = None
+        if self.task == "multilabel_classification" and self.loss_key == "ghm":
+            self.stateful_loss = zoo.GHMCState(self.device)
 
         pad_multiple = int(params.get("pad_multiple", 16))
         pad_mode = params.get("pad_mode", "dataset")
@@ -146,6 +153,7 @@ class NNModel:
             use_infonce=self.using_infonce, use_ct=self.using_ct, use_weight=self.use_weight,
             fds_state=self.fds_state, fds_bucket=self.fds_bucket, fds_kernel=self.fds_kernel,
             fds_start_update=self.model.fds_cfg.start_update if self.fds_state is not None else 0,
+            stateful_loss=self.stateful_loss,
         )
         self._log_fold_metric(0, y_valid, y_pred)
         self.cv["pred"] = y_pred
@@ -155,7 +163,9 @@ class NNModel:
         scaler = self.target_scaler
         if scaler is not None and scaler.scaler is not None:
             y_true, y_pred = scaler.inverse_transform(y_true), scaler.inverse_transform(y_pred)
-        logger.info("fold %s, result %s", fold, self.trainer.metrics.cal_metric(y_true, y_pred))
+        score = self.trainer.metrics.cal_metric(y_true, y_pred,
+                                                label_cnt=self.data_train.get("multiclass_cnt"))
+        logger.info("fold %s, result %s", fold, score)
 
     def evaluate(self, trainer: Optional[Trainer] = None,
                  checkpoints_path: Optional[str] = None):

@@ -211,7 +211,10 @@ class TrainPrograms:
     variant also returns its steps' metrics ([4], or [K, 4]).  The model
     gets ``epoch`` (a 0-dim float32 tensor), ``fds_state`` and
     ``fds_bucket``; ``set_epoch`` and ``set_fds_state`` write the first two
-    in place.
+    in place.  A stateful task loss (losses/zoo.py GHMCState: the JAX
+    package's loss state) writes its state in place each step; its
+    ``graph_state`` is restored after a capture's warm-ups with the
+    optimizer's.
 
     On a CUDA device each K variant is one CUDA graph of K whole steps
     (forward, autograd.grad, clip + Adam + apply and the metrics), recorded
@@ -230,6 +233,7 @@ class TrainPrograms:
                           else {k: v.detach().clone() for k, v in fds_state.items()})
         self.fds_bucket = fds_bucket
         self.metric_sums = torch.zeros(len(METRICS), dtype=torch.float32, device=self.device)
+        self.loss_state = tuple(getattr(loss_fn, "graph_state", ()))
         self.graphs: Dict[tuple, _Graph] = {}
 
     @torch.no_grad()
@@ -287,7 +291,8 @@ class TrainPrograms:
         if prog is None:
             static = tuple(None if x is None else x.clone() for x in inputs)
             graph, out = capture_graph(lambda: run(*static), self.generator,
-                                       state=(*self.optimizer.graph_state, self.metric_sums))
+                                       state=(*self.optimizer.graph_state, self.metric_sums,
+                                              *self.loss_state))
             prog = self.graphs[key] = _Graph(graph, static, out, pins)
         with torch.no_grad():
             for dst, src in zip(prog.inputs, inputs):

@@ -156,13 +156,16 @@ class Trainer(FitLoopMixin, DeviceFeedMixin):
 
         metric_score = None
         if not eval_only and self.metrics is not None:
+            # multiclass log loss pins its labels to the model's classes
+            label_cnt = model.output_dim if self.task == "multiclass" else None
             if self.alpha != 0:
                 if target_scaler is not None and target_scaler.scaler is not None:
                     metric_score = self.metrics.cal_metric(
                         target_scaler.inverse_transform(y_truths),
-                        target_scaler.inverse_transform(y_preds))
+                        target_scaler.inverse_transform(y_preds), label_cnt=label_cnt)
                 else:
-                    metric_score = self.metrics.cal_metric(y_truths, y_preds)
+                    metric_score = self.metrics.cal_metric(y_truths, y_preds,
+                                                           label_cnt=label_cnt)
             else:
                 metric_score = {"ct_loss": weighted_loss_mean(val_losses)}
         return y_preds, val_losses, metric_score

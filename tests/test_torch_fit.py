@@ -15,7 +15,8 @@
   defaults: the device-resident feed ('auto' engages it on this data) and
   4 steps per dispatch (the JAX package's feed: the whole epoch).
 * The fit path runs with jax, flax, pandas, scikit-learn, joblib, PyYAML,
-  msgpack and RDKit blocked.
+  msgpack and RDKit blocked: a regression fit, and a classification fit
+  with its threshold search.
 """
 
 import contextlib
@@ -392,7 +393,7 @@ def test_jax_package_reads_the_port_experiment(both_fits):
     assert restored["params"]["encoder"]["layers_0"]["in_proj"]["kernel"].shape == (32, 96)
 
 
-_BLOCKED_FIT = textwrap.dedent("""
+_BLOCKED_HEADER = textwrap.dedent("""
     import os, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "mmdti_tpu", "pandas", "sklearn",
@@ -412,9 +413,9 @@ _BLOCKED_FIT = textwrap.dedent("""
     from mmdti_tpu_torch.finetune import make_synthetic_dataset
     from mmdti_tpu_torch.splits import random_scaffold_split
 
-    work = sys.argv[1]
+    work, task = sys.argv[1], sys.argv[2]
     data = os.path.join(work, "synthetic.csv")
-    make_synthetic_dataset(data, n=40, seed=0)
+    make_synthetic_dataset(data, n=40, seed=0, task=task)
     paths = {}
     for name, table in zip(("train", "val", "test"), random_scaffold_split(data, 0, 0.2, 0.2)):
         paths[name] = os.path.join(work, name + ".csv")
@@ -425,6 +426,9 @@ _BLOCKED_FIT = textwrap.dedent("""
                  chemberta_overrides=dict(hidden_size=16, num_hidden_layers=1,
                                           num_attention_heads=2, intermediate_size=32),
                  crossmodal_overrides=dict(num_attention_heads=2))
+""")
+
+_BLOCKED_FIT = _BLOCKED_HEADER + textwrap.dedent("""
     MolTrain(task="regression", epochs=1, batch_size=8, metrics="mse", smiles_col="smiles",
              save_path=exp, target_cols=["measured"], using_infonce=True, using_ct=True,
              use_weight=True, fds=True, fds_num=8, raw_data=paths["train"],
@@ -439,10 +443,41 @@ _BLOCKED_FIT = textwrap.dedent("""
     print("PORT_FIT_OK")
 """)
 
+# binary classification: threshold.dat written without joblib and read back,
+# the probability and label columns, the AUC scored
+_BLOCKED_CLASSIFICATION_FIT = _BLOCKED_HEADER + textwrap.dedent("""
+    MolTrain(task="classification", epochs=1, batch_size=8, metrics="auc",
+             smiles_col="smiles", save_path=exp, target_cols=["measured"],
+             using_infonce=True, using_ct=True, threshold_search=True,
+             compute_dtype="float32", device="cpu", **small).fit(paths["train"], paths["val"])
+    out = os.path.join(work, "out")
+    pred = MolPredict(load_model=exp, device="cpu").predict(paths["test"], save_path=out)
+    assert pred.shape[1] == 1 and ((pred >= 0) & (pred <= 1)).all()
+    assert {"config.yaml", "model_0.ckpt", "threshold.dat",
+            "history_0.json"} <= set(os.listdir(exp))
+    with open(os.path.join(out, "test.predict.0.csv")) as f:
+        header = f.readline().strip().split(",")
+    assert header[-2:] == ["prob_measured", "predict_measured"], header
+    assert "test_metric.result" in os.listdir(out)
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+    print("PORT_FIT_OK")
+""")
+
+
+def _run_blocked(script, tmp_path, task):
+    env = {**os.environ, "PYTHONPATH": REPO}
+    return subprocess.run([sys.executable, "-c", script, str(tmp_path), task], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+
 
 def test_fit_path_runs_without_jax_or_host_deps(tmp_path):
-    env = {**os.environ, "PYTHONPATH": REPO}
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_FIT, str(tmp_path)], cwd=REPO,
-                          env=env, capture_output=True, text=True, timeout=300)
+    proc = _run_blocked(_BLOCKED_FIT, tmp_path, "regression")
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "PORT_FIT_OK" in proc.stdout
+
+
+def test_classification_fit_path_runs_without_jax_or_host_deps(tmp_path):
+    proc = _run_blocked(_BLOCKED_CLASSIFICATION_FIT, tmp_path, "classification")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PORT_FIT_OK" in proc.stdout
