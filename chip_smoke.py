@@ -35,12 +35,32 @@ Phases, one result line each; any failure exits non-zero:
    for the same bytes and operations (CUDA events, median of 25 launches).
    Device times come from a torch.profiler window of n calls that must
    hold n times each kernel's launches of one call;
-4. a flagship-width MolServe on the card (weights drawn from a seeded
-   torch.Generator) answers requests of 1, 8 and 20 SMILES; prints the
-   per-request p50, the kernel launch counts of that run (gbf 1, pair-bias
-   15, masked 8 per forward, no backward, all three on the tensor-core
-   route) and the largest logit difference
-   between the kernel path and the same weights on the plain path;
+4. serve: an experiment dir written with the port's own writers
+   (config.yaml from MolTrain's config, model_0.ckpt and model_1.ckpt: the
+   flagship's weights from seeds 0 and 1, model_folds 2) served through
+   MolServe(load_model=...) on the card: (a) requests of 1, 8 and 20
+   SMILES (cache warm) on the eager server (use_graphs off) and the
+   graph-replayed one (one CUDA graph per shape bucket), alternated over
+   2 rounds of 10 each: p50 each way, the first answers, device ms a
+   forward and the port kernels one replay launches (profiler; exactly
+   gbf 1, pair-bias 15 and masked 8 a forward), the launchers' counts
+   (each capture's 2 warm-ups and capture, the eager forwards, nothing for
+   a replay; every gbf and attention launch on the tensor-core route),
+   graph outputs against eager ones (bit-equal, or as close as two eager
+   calls) and the kernel path against the plain path (2e-2); (b)
+   serve_folds="all" (K=2) against the mean of the two single-fold
+   servers (2e-2), its p50 and device ms beside fold 0's; (c)
+   warmup_buckets of the default 7 x 3 x 3 grid: seconds, graphs, memory;
+   then the largest buckets (B 32/64 x N 224/280 x L 384/512) into the
+   same pool: memory again, and (a)'s requests against the eager server
+   (as close as two eager calls); (d) the HTTP front with the dynamic
+   batcher (window 5 ms): 16 client threads x 20 requests of 1-8 SMILES
+   (seeded), requests/s, molecules/s, p50/p95, batches, every reply
+   against a lone predict (within half the least gap between two distinct
+   molecules' lone predictions, at most 2e-2, so a swapped row fails); a cold
+   96-atom bucket recorded while 8 clients keep warm batches in flight
+   (captures, pulls held off by a capture); and one 429 with
+   max_pending=2;
 5. train: the flagship model (bf16 compute, bf16 pair logits) on a batch of
    32 molecules featurized and collated on the host (N=L=64), regression
    (MSE + InfoNCE + ct_regress): (a) one step's loss and gradients, dropout
@@ -137,6 +157,11 @@ SMILES_20 = [
 ]
 REQUESTS = (1, 8, 20)
 REPEATS = 10
+SERVE_ROUNDS = 2   # phase serve: rounds of REPEATS requests each way, eager and graph alternated
+SERVE_DIR = os.path.join(REPO, "build", "chip_smoke_serve")   # the experiment dir phase serve writes
+HTTP_CLIENTS, HTTP_REQUESTS = 16, 20   # phase serve (d): client threads x requests of 1-8 SMILES
+HTTP_WINDOW_MS = 5.0
+COLD_SMILES = "C" * 30   # 94 atoms with hydrogens: the 96-atom bucket, cold until (d) sends it
 TOL = {  # (atol, rtol) per precision; bf16 as tests/test_pallas.py:69-73
     "fp32": {"out": (1e-4, 0.0), "logits": (1e-4, 0.0)},
     "bf16": {"out": (2e-2, 0.0), "logits": (5e-2, 1e-2)},
@@ -1093,84 +1118,591 @@ def _layer_norm_cases(dev, gen, record):
                            extra)
 
 
-def phase_serve(dev):
-    """Flagship MolServe on the card: p50 per request size, launch counts,
-    logits against the plain path on the same weights."""
+def _write_serve_dir(path, seeds):
+    """An experiment dir as MolTrain.fit writes it, through the port's own
+    writers: config.yaml (MolTrain's config for a flagship bf16 regression,
+    model_folds = len(seeds)) and model_{fold}.ckpt, fold f holding the
+    flagship's weights drawn from seeds[f].  Returns (config, state dicts)."""
+    import shutil
+
+    import torch
+
+    from mmdti_tpu_torch import MolTrain
+    from mmdti_tpu_torch.configs.config import save_yaml
+    from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
+    from mmdti_tpu_torch.train.checkpointing import save_checkpoint
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    cfg = MolTrain(task="regression", metrics="mse", target_cols=["y"], compute_dtype="bfloat16",
+                   use_scaler=False, save_path=path, device="cpu").config
+    cfg.update(target_cols="y", num_classes=1, model_folds=len(seeds))
+    save_yaml(cfg, os.path.join(path, "config.yaml"))
+    state_dicts = []
+    for fold, seed in enumerate(seeds):
+        model = _flagship(True).reset_parameters_like_flax(torch.Generator().manual_seed(seed))
+        state_dicts.append(model.state_dict())
+        save_checkpoint(path, fold, state_dict_to_flax_params(state_dicts[-1]))
+    return cfg, state_dicts
+
+
+def _post(url, payload, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _start_http(srv):
+    """(url, the server's thread) of an HTTP front started in a thread."""
+    import threading
+
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return f"http://127.0.0.1:{srv.server_port}", t
+
+
+def _stop_http(srv, thread):
+    srv.shutdown()
+    srv.server_close()
+    thread.join(timeout=60)
+    if thread.is_alive():
+        raise Failed("serve: the HTTP front did not stop")
+
+
+def _timed_predicts(server, requests, times):
+    """REPEATS predicts of each request size, host clock; appends ms to
+    times[n]."""
+    for n, smi in requests.items():
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            server.predict(smi)
+            times[n].append((time.perf_counter() - t0) * 1e3)
+
+
+def _alternated_p50(servers, requests, rounds=SERVE_ROUNDS):
+    """p50 ms per server and request size over `rounds` rounds, the
+    servers' order reversed each round (a, b, b, a); also each round's."""
+    times = {name: {n: [] for n in requests} for name in servers}
+    by_round = {name: [] for name in servers}
+    names = list(servers)
+    for rnd in range(rounds):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            start = {n: len(v) for n, v in times[name].items()}
+            _timed_predicts(servers[name], requests, times[name])
+            by_round[name].append({str(n): statistics.median(v[start[n]:])
+                                   for n, v in times[name].items()})
+    return ({name: {str(n): statistics.median(v) for n, v in t.items()}
+             for name, t in times.items()}, by_round)
+
+
+def _check_launches(counts, per_forward, forwards, what):
+    for k, per in per_forward.items():
+        if counts[k] != per * forwards:
+            raise Failed(f"{what} {k}: {counts[k]} launches, expected {per} x {forwards}")
+
+
+class _GateLog:
+    """A lock that logs (thread, "acquired" | "released", time)."""
+
+    def __init__(self, lock):
+        self.lock, self.log = lock, []
+
+    def locked(self):
+        return self.lock.locked()
+
+    def __enter__(self):
+        import threading
+
+        self.lock.acquire()
+        self.log.append((threading.get_ident(), "acquired", time.perf_counter()))
+        return self
+
+    def __exit__(self, *exc):
+        import threading
+
+        self.log.append((threading.get_ident(), "released", time.perf_counter()))
+        self.lock.release()
+
+    def first(self, thread, what, after=0.0):
+        return min(t for i, w, t in self.log if i == thread and w == what and t >= after)
+
+
+def _capture_beside_pulls(srv, warm, cold):
+    """A capture and the pull of an in-flight batch, made to meet both
+    ways on one server, the pull gate logged: (1) a pull asked for while a
+    capture records takes the gate only after the capture gives it back;
+    (2) a capture asked for while a pull waits on the device (a spin
+    kernel queued behind the batch) takes it only after the pull.  Returns
+    what it saw; raises on a wrong row or an order that did not hold."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    want = srv.predict(warm)["predict"]
+    gate = srv._pull_gate = _GateLog(srv._pull_gate)
+    me = threading.get_ident()
+
+    def wait_locked():
+        deadline = time.monotonic() + 120
+        while not gate.locked() and time.monotonic() < deadline:
+            time.sleep(0.0002)
+        return time.perf_counter()
+
+    try:
+        # (1) a capture in thread t holds the gate; then this thread pulls
+        chunks, feats = srv._dispatch_forward(warm)
+        out = {}
+        t = threading.Thread(target=lambda: out.update(got=srv.predict(cold[0])["predict"]))
+        start1 = time.perf_counter()     # thread ids are reused: read each log from its start
+        t.start()
+        asked = wait_locked()
+        got1 = srv._finalize_forward(chunks, feats, asked)["predict"]
+        t.join(timeout=300)
+        cap_released = gate.first(t.ident, "released", start1)
+        pull_acquired = gate.first(me, "acquired", asked)
+        # (2) a pull in thread p holds the gate on a busy device; then a capture
+        # a copy from pageable memory waits for the stream, so the spin
+        # goes after the batch's launch: its pull then waits ~0.1 s on it
+        chunks, feats = srv._dispatch_forward(warm)
+        torch.cuda._sleep(int(2e8))
+        res = {}
+        p = threading.Thread(target=lambda: res.update(
+            got=srv._finalize_forward(chunks, feats, 0.0)["predict"]))
+        start2 = time.perf_counter()
+        p.start()
+        asked2 = wait_locked()
+        got_cold2 = srv.predict(cold[1])["predict"]
+        p.join(timeout=120)
+        pull_released = gate.first(p.ident, "released", start2)
+        cap_acquired = gate.first(me, "acquired", asked2)
+    finally:
+        srv._pull_gate = gate.lock
+    seen = {
+        "pull_asked_during_capture": asked < cap_released,
+        "pull_took_gate_after_capture": pull_acquired >= cap_released,
+        "pull_waited_ms": (pull_acquired - asked) * 1e3,
+        "capture_asked_during_pull": asked2 < pull_released,
+        "capture_took_gate_after_pull": cap_acquired >= pull_released,
+        "capture_waited_ms": (cap_acquired - asked2) * 1e3,
+        "rows_right": bool(np.array_equal(got1, want) and np.array_equal(res.get("got"), want)
+                           and "got" in out and np.isfinite(got_cold2).all()),
+    }
+    if not all(v for k, v in seen.items() if not k.endswith("_ms")):
+        raise Failed(f"serve: capture beside a pull: {seen}")
+    return seen
+
+
+def phase_serve(dev, card):
+    """MolServe on the card over an experiment dir of the flagship (two
+    seeded folds): (a) eager against graph-replayed, (b) the two-fold
+    ensemble, (c) warmup_buckets of the default grid, (d) the HTTP front
+    with the dynamic batcher.  Returns the launch counts of the eager
+    forwards of (a)."""
     import numpy as np
     import torch
 
     from mmdti_tpu_torch import MolServe
-    from mmdti_tpu_torch.chem.dictionary import Dictionary
-    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
-    from mmdti_tpu_torch.models.mm_model import build_model
+    from mmdti_tpu_torch.api.serve_api import DEFAULT_BATCH_BUCKETS
+    from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
 
-    cfg = {"task": "regression", "compute_dtype": "bfloat16"}  # flagship widths
-    d = Dictionary.load()
-    d.add_symbol("[MASK]", is_special=True)
-    model = build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size)
-    model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
-    sd = model.state_dict()
+    t_phase = time.perf_counter()
+    cfg, state_dicts = _write_serve_dir(SERVE_DIR, seeds=(0, 1))
+    graph = MolServe(SERVE_DIR, device=dev)
+    eager = MolServe(SERVE_DIR, device=dev)
+    plain = MolServe(SERVE_DIR, device=dev, use_kernels=False)
+    eager.use_graphs = plain.use_graphs = False   # the eager comparison path
+    model = graph.model
     n_params = sum(p.numel() for p in model.parameters())
-    server = MolServe(cfg, sd, device=dev)
-    plain = MolServe(cfg, sd, device=dev, use_kernels=False)
-    del model
-
-    requests = {n: SMILES_20[:n] for n in REQUESTS}
-    cold_ms = {}
-    for n, smi in requests.items():  # first answer: featurize + first launches
-        t0 = time.perf_counter()
-        server.predict(smi)
-        cold_ms[n] = (time.perf_counter() - t0) * 1e3
-
-    _reset_counts()
-    lat, outs = {}, {}
-    for n, smi in requests.items():
-        times = []
-        for _ in range(REPEATS):
-            t0 = time.perf_counter()
-            outs[n] = server.predict(smi)
-            times.append((time.perf_counter() - t0) * 1e3)
-        lat[n] = statistics.median(times)
-    launches, routes = _read_counts(), _read_routes()
-
-    forwards = REPEATS * len(REQUESTS)
-    ucfg = server.model.unimol_cfg
-    attn = _attention_launches(ucfg.encoder_layers, server.model.bert.cfg.num_hidden_layers
-                               + 2 * server.model.cross_modal_module.text_attention.cfg.num_layers,
+    ucfg = model.unimol_cfg
+    attn = _attention_launches(ucfg.encoder_layers, model.bert.cfg.num_hidden_layers
+                               + 2 * model.cross_modal_module.text_attention.cfg.num_layers,
                                backward=False)
-    per_fwd = {**attn,
-               "gbf_proj_bwd": 0, "pair_bias_attention_bwd": 0, "masked_attention_bwd": 0}
-    for n, out in outs.items():
-        if out["predict"].shape != (n, 1) or not np.isfinite(out["predict"]).all():
-            raise Failed(f"predict({n}) gave {out['predict']!r}")
+    # the LayerNorm kernels only where MMDTI_PALLAS_LN=1 (off unless set)
+    per_fwd = {**{k: attn.get(k, 0) for k in KERNELS},
+               "layer_norm": _ln_sites(model) if ln_kernels_on() else 0}
+    one_replay = {k: per_fwd[k] for k in KERNEL_MARKERS}
+    requests = {n: SMILES_20[:n] for n in REQUESTS}
+    print(f"serve: flagship {n_params} params a fold, layers={ucfg.encoder_layers} "
+          f"E={ucfg.embed_dim} H={ucfg.attention_heads}, compute bf16, pair {ucfg.pair_dtype}; "
+          f"dir {os.path.relpath(SERVE_DIR, REPO)} (2 folds, {time.perf_counter() - t_phase:.1f} s "
+          f"to write and load); {card}", flush=True)
 
-    # kernel path vs plain path, same weights, same collated 20-SMILES batch
-    feats, n = server._device_feats(server._featurize(requests[20]))
+    # (a) first answers: featurize, then eager launches / each bucket's capture
+    cold_ms = {"eager": {}, "graph": {}}
+    _reset_counts()
+    for n, smi in requests.items():
+        t0 = time.perf_counter()
+        eager.predict(smi)
+        cold_ms["eager"][str(n)] = (time.perf_counter() - t0) * 1e3
+    _check_launches(_read_counts(), per_fwd, len(REQUESTS), "serve eager (cold)")
+    _reset_counts()
+    for n, smi in requests.items():
+        t0 = time.perf_counter()
+        graph.predict(smi)
+        cold_ms["graph"][str(n)] = (time.perf_counter() - t0) * 1e3
+    capture_counts, capture_routes = _read_counts(), _read_routes()
+    n_graphs = len(graph.graphs)
+    _check_launches(capture_counts, per_fwd, (GRAPH_WARMUP + 1) * n_graphs, "serve capture")
+    _check_mma_routes(capture_routes, {k: n * (GRAPH_WARMUP + 1) * n_graphs
+                                       for k, n in attn.items()}, "serve capture")
+
+    # (a) p50, eager and graph alternated: the launchers count only the
+    # eager forwards (a replay goes through no launcher)
+    _reset_counts()
+    p50, p50_rounds = _alternated_p50({"eager": eager, "graph": graph}, requests)
+    launches, routes = _read_counts(), _read_routes()
+    forwards = SERVE_ROUNDS * REPEATS * len(REQUESTS)
+    _check_launches(launches, per_fwd, forwards, "serve eager (timed)")
+    _check_mma_routes(routes, {k: n * forwards for k, n in attn.items()}, "serve eager")
+
+    # (a) outputs: graph against eager, as close as two eager calls
+    out_check = {}
+    for n, smi in requests.items():
+        e1, e2 = eager.predict(smi)["predict"], eager.predict(smi)["predict"]
+        g = graph.predict(smi)["predict"]
+        if g.shape != (n, 1) or not np.isfinite(g).all():
+            raise Failed(f"serve predict({n}) gave {g!r}")
+        out_check[str(n)] = {"bit_equal": bool(np.array_equal(g, e1)),
+                             "graph_vs_eager_max_abs": float(np.abs(g - e1).max()),
+                             "eager_vs_eager_max_abs": float(np.abs(e2 - e1).max())}
+    bad = {n: c for n, c in out_check.items()
+           if c["graph_vs_eager_max_abs"] > c["eager_vs_eager_max_abs"]}
+    if bad:
+        raise Failed(f"serve: graph-replayed outputs differ from eager ones: {bad}")
+
+    # (a) one forward's device time and the port kernels one replay launches
+    smi20 = requests[20]
+    before = _read_counts()
+    g_launch, g_ms, g_kernels = _replay_launches(lambda: graph.predict(smi20))
+    moved = {k: n - before[k] for k, n in _read_counts().items() if n != before[k]}
+    e_launch, e_ms, e_kernels = _replay_launches(lambda: eager.predict(smi20))
+    if g_launch != one_replay or moved:
+        raise Failed(f"serve: one replay launched {g_launch} (expected {one_replay}); "
+                     f"launchers moved {moved}")
+
+    # kernel path against plain path, same weights, same collated batch
+    arrays, n = eager._collate(eager._featurize(smi20))
+    feats = eager._place_feats(arrays)
     with torch.inference_mode():
-        got = server.model(**feats, outputs="logits")["logits"][:n]
+        got = eager.model(**feats, outputs="logits")["logits"][:n]
         want = plain.model(**feats, outputs="logits")["logits"][:n]
     diff = float((got - want).abs().max())
-    plain_pred = plain.predict(requests[20])["predict"]
-    pred_diff = float(np.abs(outs[20]["predict"] - plain_pred).max())
-
-    print(f"serve: flagship {n_params} params, layers={ucfg.encoder_layers} "
-          f"E={ucfg.embed_dim} H={ucfg.attention_heads}, compute bf16, pair {ucfg.pair_dtype}",
-          flush=True)
-    print("serve: " + json.dumps({
-        "p50_ms": {str(k): v for k, v in lat.items()},
-        "cold_first_request_ms": {str(k): v for k, v in cold_ms.items()},
-        "repeats": REPEATS, "forwards": forwards, "launches": launches,
-        "launches_per_forward_expected": per_fwd, "attention_routes": routes,
+    pred_diff = float(np.abs(graph.predict(smi20)["predict"]
+                             - plain.predict(smi20)["predict"]).max())
+    print("serve: (a) " + json.dumps({
+        "p50_ms": p50, "p50_ms_by_round": p50_rounds, "rounds": SERVE_ROUNDS,
+        "repeats": REPEATS, "cold_first_request_ms": cold_ms,
+        "device_ms_per_forward_20_smiles": {"eager": e_ms, "graph": g_ms},
+        "device_kernels_per_forward": {"eager": e_kernels, "graph": g_kernels},
+        "one_replay_port_kernels": g_launch, "one_eager_forward_port_kernels": e_launch,
+        "graphs_recorded": n_graphs, "capture_launches": capture_counts,
+        "eager_launches_timed": launches, "eager_forwards_timed": forwards,
+        "attention_routes": routes, "graph_vs_eager": out_check,
         "logits_max_abs_diff_vs_plain": diff, "predict_max_abs_diff_vs_plain": pred_diff,
-        "logits_tol": LOGITS_TOL,
+        "logits_tol": LOGITS_TOL, "card": card,
     }), flush=True)
-    for k, per in per_fwd.items():
-        if launches[k] != per * forwards:
-            raise Failed(f"serve {k}: {launches[k]} launches, expected {per} x {forwards}")
-    _check_mma_routes(routes, {k: n * forwards for k, n in attn.items()}, "serve")
     if not (diff <= LOGITS_TOL and pred_diff <= LOGITS_TOL):
         raise Failed(f"kernel path differs from plain path: logits {diff}, predict {pred_diff}")
+    del plain
+
+    # (b) the two-fold ensemble against the mean of its folds
+    ens = MolServe(SERVE_DIR, device=dev, serve_folds="all")
+    fold1 = MolServe.from_state_dict(cfg, state_dicts[1], device=dev)
+    ens_diff, fold_gap = {}, {}
+    for n, smi in requests.items():
+        f0, f1 = graph.predict(smi)["predict"], fold1.predict(smi)["predict"]
+        ens_diff[str(n)] = float(np.abs(ens.predict(smi)["predict"] - (f0 + f1) / 2).max())
+        fold_gap[str(n)] = float(np.abs(f0 - f1).max())
+    ens_p50, ens_rounds = _alternated_p50({"fold0": graph, "ensemble": ens}, requests)
+    ens_launch, ens_ms, _ = _replay_launches(lambda: ens.predict(smi20))
+    print("serve: (b) " + json.dumps({
+        "serve_folds": ens.serve_folds, "ensemble_vs_fold_mean_max_abs": ens_diff,
+        "fold0_vs_fold1_max_abs": fold_gap, "tol": LOGITS_TOL, "p50_ms": ens_p50,
+        "p50_ms_by_round": ens_rounds,
+        "device_ms_per_request_20_smiles": {"fold0": g_ms, "ensemble": ens_ms},
+        "one_replay_port_kernels": ens_launch, "card": card,
+    }), flush=True)
+    if max(ens_diff.values()) > LOGITS_TOL:
+        raise Failed(f"serve: the ensemble differs from the mean of its folds: {ens_diff}")
+    if ens_launch != {k: 2 * v for k, v in one_replay.items()}:
+        raise Failed(f"serve: one ensemble replay launched {ens_launch}")
+    del ens, fold1
+
+    # (c) warmup_buckets over the default grid on a fresh server, which (d)
+    # then serves warm
+    grid = MolServe(SERVE_DIR, device=dev)
+    torch.cuda.synchronize()
+    alloc0, reserved0 = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grid.warmup_buckets(DEFAULT_BATCH_BUCKETS)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    expect = len(DEFAULT_BATCH_BUCKETS) * 3 * 3
+    grid_mem = {"peak_allocated_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "allocated_gb_after": torch.cuda.memory_allocated(dev) / 1e9,
+                "reserved_gb_after": torch.cuda.memory_reserved(dev) / 1e9}
+    grid_graphs = len(grid.graphs)
+    # the largest buckets into the same pool: the pool grows to the largest
+    # forward's working set, not by one working set a graph
+    big = {"batch_buckets": list(DEFAULT_BATCH_BUCKETS[-2:]),
+           "atom_buckets": list(grid.collator.atom_buckets[-2:]),
+           "smiles_buckets": list(grid.collator.smiles_buckets[-2:])}
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    grid.warmup_buckets(big["batch_buckets"], big["atom_buckets"], big["smiles_buckets"])
+    torch.cuda.synchronize()
+    big.update(seconds=time.perf_counter() - t0, graphs_recorded=len(grid.graphs) - grid_graphs,
+               peak_allocated_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               allocated_gb_after=torch.cuda.memory_allocated(dev) / 1e9,
+               reserved_gb_after=torch.cuda.memory_reserved(dev) / 1e9)
+    # every graph shares one pool: (a)'s buckets, recorded early, still
+    # answer as the eager server does after the later captures (the largest
+    # last) reused the pool's blocks
+    shared = {}
+    for n, smi in requests.items():
+        e1, e2 = eager.predict(smi)["predict"], eager.predict(smi)["predict"]
+        g = grid.predict(smi)["predict"]
+        shared[str(n)] = {"bit_equal": bool(np.array_equal(g, e1)),
+                          "graph_vs_eager_max_abs": float(np.abs(g - e1).max()),
+                          "eager_vs_eager_max_abs": float(np.abs(e2 - e1).max())}
+    print("serve: (c) " + json.dumps({
+        "warmup_buckets_s": grid_s, "graphs_recorded": grid_graphs,
+        "graphs_expected": expect, "batch_buckets": list(DEFAULT_BATCH_BUCKETS),
+        "atom_buckets": list(grid.collator.atom_buckets[:3]),
+        "smiles_buckets": list(grid.collator.smiles_buckets[:3]),
+        "allocated_gb_before": alloc0 / 1e9, "reserved_gb_before": reserved0 / 1e9,
+        **grid_mem, "largest_buckets": big, "graphs_in_one_pool": len(grid.graphs),
+        "shared_pool_graph_vs_eager": shared, "card": card,
+    }), flush=True)
+    if grid_graphs != expect or big["graphs_recorded"] != 8:
+        raise Failed(f"serve: warmup_buckets recorded {grid_graphs} graphs (not {expect}) "
+                     f"and {big['graphs_recorded']} of the largest (not 8)")
+    bad = {n: c for n, c in shared.items()
+           if c["graph_vs_eager_max_abs"] > c["eager_vs_eager_max_abs"]}
+    if bad:
+        raise Failed(f"serve: a graph in the shared pool differs from eager: {bad}")
+    del graph, eager
+
+    _serve_http_checks(grid, card)
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def _serve_http_checks(graph, card):
+    """(d) the HTTP front with the dynamic batcher over a fold-0 graph
+    server whose default bucket grid is recorded: concurrent clients, a
+    cold bucket under load, 429."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    lone = {s: graph.predict([s])["predict"][0] for s in SMILES_20}
+
+    def reply_gap(smiles, body):
+        got = np.asarray(body["predict"])
+        return float(np.abs(got - np.stack([lone[s] for s in smiles])).max())
+
+    def reply_tol():
+        """Half the least gap between two distinct molecules' lone
+        predictions, at most LOGITS_TOL: a reply carrying another rider's
+        row lies outside it."""
+        rows = list(lone.values())
+        gap = min(float(np.abs(a - b).max()) for i, a in enumerate(rows) for b in rows[i + 1:])
+        return min(LOGITS_TOL, gap / 2), gap
+
+    # concurrent clients of 1-8 SMILES each
+    srv = graph.make_server(port=0, dynamic_batch_window_ms=HTTP_WINDOW_MS)
+    url, thread = _start_http(srv)
+    results, timing, lock = [], [], threading.Lock()
+    graphs0 = len(graph.graphs)
+
+    def client(i):
+        rng = np.random.RandomState(i)
+        for k in range(HTTP_REQUESTS):
+            smi = [SMILES_20[j] for j in rng.randint(0, len(SMILES_20), rng.randint(1, 9))]
+            t0 = time.perf_counter()
+            code, body = _post(url + "/predict", {"smiles": smi})
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                results.append((smi, code, body, ms))
+                timing.append((i, k, t0 - t_start, ms))
+
+    # the interpreter's collections in the clients' window, to tell a
+    # collector pause from a stall elsewhere in the tail
+    pauses = []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            pauses.append([time.perf_counter(), None, info["generation"]])
+        elif pauses and pauses[-1][1] is None:
+            pauses[-1][1] = time.perf_counter()
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_CLIENTS)]
+    # one request first: the client library's first call imports and sets
+    # up what every later one reuses
+    if _post(url + "/predict", {"smiles": SMILES_20[:1]})[0] != 200:
+        raise Failed("serve http: the first request failed")
+    gc.callbacks.append(on_gc)
+    try:
+        t_start = t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    batches = srv.batcher.batches_run
+    _stop_http(srv, thread)
+    if any(t.is_alive() for t in clients) or len(results) != HTTP_CLIENTS * HTTP_REQUESTS:
+        raise Failed(f"serve http: {len(results)} of {HTTP_CLIENTS * HTTP_REQUESTS} answered")
+    codes = sorted({c for _, c, _, _ in results})
+    if codes != [200]:
+        raise Failed(f"serve http: status codes {codes}")
+    gaps = [reply_gap(smi, body) for smi, _, body, _ in results]
+    lat = sorted(ms for *_, ms in results)
+    mols = sum(len(smi) for smi, *_ in results)
+    http = {"clients": HTTP_CLIENTS, "requests_each": HTTP_REQUESTS,
+            "window_ms": HTTP_WINDOW_MS, "wall_s": wall, "requests_per_s": len(results) / wall,
+            "molecules_per_s": mols / wall, "molecules": mols,
+            "p50_ms": statistics.median(lat), "p95_ms": lat[int(0.95 * len(lat))],
+            "batches_run": batches, "graphs_recorded_under_load": len(graph.graphs) - graphs0,
+            "reply_vs_lone_predict_max_abs": max(gaps),
+            "replies_bit_equal_to_lone": sum(g == 0.0 for g in gaps)}
+    # where the tail lies: each client's first request against the rest
+    first = sorted(ms for _, k, _, ms in timing if k == 0)
+    rest = sorted(ms for _, k, _, ms in timing if k > 0)
+    gc_ms = [(b - a) * 1e3 for a, b, _ in pauses if b is not None]
+    http["tail"] = {
+        "first_request_ms_by_client_min_median_max": [first[0], statistics.median(first),
+                                                      first[-1]],
+        "later_requests_p50_ms": statistics.median(rest),
+        "later_requests_p95_ms": rest[int(0.95 * len(rest))],
+        "slowest_client_request_start_s_ms": sorted(timing, key=lambda r: -r[3])[:12],
+        "gc_collections": len(gc_ms), "gc_gen2": sum(g == 2 for *_, g in pauses),
+        "gc_pause_ms_sum": sum(gc_ms), "gc_pause_ms_max": max(gc_ms, default=0.0)}
+    http["tol"], http["least_gap_between_molecules"] = reply_tol()
+    if max(gaps) > http["tol"]:
+        raise Failed(f"serve http: a reply differs from a lone predict by {max(gaps)} "
+                     f"(tol {http['tol']})")
+
+    # captures and pulls made to meet, both orders (bucket B=2 and 4 at 96 atoms)
+    lone[COLD_SMILES] = graph.predict([COLD_SMILES])["predict"][0]
+    beside = _capture_beside_pulls(graph, SMILES_20[:2], ([COLD_SMILES] * 2, [COLD_SMILES] * 3))
+
+    # cold buckets (96 atoms, B >= 8) recorded while 8 clients keep warm
+    # batches in flight (window 1 ms: batches back to back)
+    spans = {"captures": [], "pulls": []}
+    record, pull = graph._record, graph._pull_batched
+
+    def timed(fn, key):
+        def run(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                spans[key].append((t, time.perf_counter()))
+        return run
+
+    graph._record, graph._pull_batched = timed(record, "captures"), timed(pull, "pulls")
+    srv = graph.make_server(port=0, dynamic_batch_window_ms=1.0)
+    url, thread = _start_http(srv)
+    stop, warm, cold = threading.Event(), [], []
+    graphs0 = len(graph.graphs)
+
+    def warm_client(i):
+        rng = np.random.RandomState(100 + i)
+        while not stop.is_set():
+            smi = [SMILES_20[j] for j in rng.randint(0, len(SMILES_20), rng.randint(1, 9))]
+            code, body = _post(url + "/predict", {"smiles": smi})
+            warm.append((smi, code, body))
+
+    def cold_client():
+        for k in (5, 9, 17):
+            code, body = _post(url + "/predict", {"smiles": [COLD_SMILES] * k})
+            cold.append(([COLD_SMILES] * k, code, body))
+
+    try:
+        warms = [threading.Thread(target=warm_client, args=(i,)) for i in range(8)]
+        for t in warms:
+            t.start()
+        time.sleep(0.5)
+        cold_thread = threading.Thread(target=cold_client)
+        cold_thread.start()
+        cold_thread.join(timeout=300)
+        time.sleep(0.2)
+        stop.set()
+        for t in warms:
+            t.join(timeout=300)
+    finally:
+        stop.set()
+        _stop_http(srv, thread)
+        del graph._record, graph._pull_batched
+    recorded = len(graph.graphs) - graphs0
+    caps, pulls = spans["captures"], spans["pulls"]
+    answered = warm + cold
+    codes = sorted({c for _, c, _ in answered})
+    cold_case = {"captures": len(caps), "graphs_recorded": recorded, "pulls": len(pulls),
+                 "pulls_in_progress_at_a_capture_start": sum(
+                     any(p0 < c0 < p1 for c0, _ in caps) for p0, p1 in pulls),
+                 "pulls_started_during_a_capture": sum(
+                     any(c0 < p0 < c1 for c0, c1 in caps) for p0, _ in pulls),
+                 "warm_requests": len(warm), "cold_requests": len(cold), "codes": codes,
+                 "reply_vs_lone_predict_max_abs": max(reply_gap(s, b) for s, _, b in answered
+                                                      if b.get("predict") is not None)}
+    cold_case["tol"], cold_case["least_gap_between_molecules"] = reply_tol()
+    if codes != [200] or len(cold) != 3 or not spans["captures"]:
+        raise Failed(f"serve http cold bucket: {cold_case}")
+    if cold_case["reply_vs_lone_predict_max_abs"] > cold_case["tol"]:
+        raise Failed(f"serve http cold bucket: a reply differs from a lone predict: {cold_case}")
+
+    # 429: max_pending=2 riders held in a stalled dispatch, a third is shed
+    gate = threading.Event()
+    dispatch = graph._dispatch_forward
+
+    def stalled(smiles):
+        gate.wait(60)
+        return dispatch(smiles)
+
+    graph._dispatch_forward = stalled
+    srv = graph.make_server(port=0, dynamic_batch_window_ms=1.0)
+    srv.batcher.max_pending = 2
+    url, thread = _start_http(srv)
+    riders = []
+    try:
+        held = [threading.Thread(target=lambda: riders.append(
+            _post(url + "/predict", {"smiles": ["CCO"]})[0])) for _ in range(2)]
+        for t in held:
+            t.start()
+        deadline = time.monotonic() + 30
+        while srv.batcher._inflight < 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        shed, _ = _post(url + "/predict", {"smiles": ["CCN"]})
+        gate.set()
+        for t in held:
+            t.join(timeout=120)
+    finally:
+        gate.set()
+        del graph._dispatch_forward
+        _stop_http(srv, thread)
+    print("serve: (d) " + json.dumps({**http, "capture_beside_pulls": beside,
+                                      "cold_bucket_under_load": cold_case,
+                                      "overload": {"max_pending": 2, "shed_status": shed,
+                                                   "held_riders_status": sorted(riders)},
+                                      "card": card}), flush=True)
+    if shed != 429 or sorted(riders) != [200, 200]:
+        raise Failed(f"serve http overload: shed {shed}, held riders {riders}")
 
 
 def _flagship(use_kernels, output_dim=1):
@@ -2279,7 +2811,7 @@ def main() -> int:
     card = phase_card()
     phase_build()
     summary = phase_kernels(dev)
-    phase_serve(dev)
+    phase_serve(dev, card)
     train_launches = phase_train(dev)
     graph_fit = phase_graphs(dev)
     fit_launches = phase_fit(dev, graph_fit)

@@ -1,27 +1,58 @@
-"""MolServe: online inference with the model resident on one device (port
-of mmdti_tpu/api/serve_api.py without mesh, HTTP front or fold ensembles).
+"""MolServe: online inference over a trained experiment dir (port of
+mmdti_tpu/api/serve_api.py on one device).
 
-SMILES are featurized on the host (ConformerGen + tokenizer, with a
-per-SMILES LRU cache), collated onto the same static shape buckets as the
-JAX package, run through the MMModel serving forward on the device, and
-post-processed to MolPredict's output contract.
+- The experiment dir that ``MolTrain.fit`` writes (config.yaml,
+  ``model_{fold}.ckpt``, target_scaler.ss, threshold.dat) loads once; the
+  weights stay resident on the device between requests, one model per
+  served fold (api/serve_model.py).
+- Raw SMILES are featurized on the host (ConformerGen + tokenizer, with a
+  per-SMILES LRU cache) and padded onto static (batch, atom, SMILES) shape
+  buckets.
+- On the card each bucket's forward is recorded once as a CUDA graph
+  (train/steps.py ``capture_graph``) with static input buffers, at the
+  bucket's first request or in ``warmup_buckets``, and replayed for every
+  later request of that bucket: one graph launch instead of about 1,220
+  kernel launches a forward.  All of a server's graphs record into one
+  memory pool, so the graph cache holds about one forward's working set
+  however many buckets it has seen.  On the CPU the forward runs eagerly.
+- Post-processing (inverse target scaling, threshold binarization,
+  multiclass argmax) follows MolPredict's output contract.
+- ``make_server`` / ``serve`` put the stdlib HTTP front (api/serve_http.py)
+  and the dynamic batcher (api/serve_batcher.py) in front of it.
+
+Serving over a device mesh (``mesh_shape``) and pair features built on the
+device (``device_pair_feats`` resolving to "device") are not ported and
+raise.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from mmdti_tpu_torch.api.serve_model import load_resident_model, postprocess_predictions
+from mmdti_tpu_torch.api.predict_api import load_threshold
+from mmdti_tpu_torch.api.serve_model import (
+    load_resident_model,
+    postprocess_predictions,
+    resident_model,
+)
+from mmdti_tpu_torch.api.train_api import THRESHOLD_FILE
 from mmdti_tpu_torch.chem.conformer import ConformerGen
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
+from mmdti_tpu_torch.configs.config import load_yaml
 from mmdti_tpu_torch.data.batching import BatchCollator
+from mmdti_tpu_torch.data.hub import _coord_provider
+from mmdti_tpu_torch.data.scaler import TargetScaler
+from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
+from mmdti_tpu_torch.train.steps import _Graph, capture_graph
+from mmdti_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -43,52 +74,138 @@ def _feat_nbytes(feat: Dict[str, Any]) -> int:
     return total
 
 
-def resolve_device(device: Union[str, torch.device]) -> torch.device:
-    """The requested device; a CUDA device without CUDA raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device} requested but CUDA is not available")
-    return device
+def resolve_pair_feats_mode(value) -> str:
+    """The JAX package's device_pair_feats spellings -> "host".  'auto'
+    resolves to "host" off a TPU there, and always here; a spelling of
+    "device" (the [B,N,N] pair arrays built on the device from coordinates)
+    raises: ops/pair_feats.py is not ported."""
+    if value == "auto" or value is None:
+        return "host"
+    if isinstance(value, str):
+        v = value.strip().lower()
+        if v in ("host", "false", "off", "0", "no"):
+            return "host"
+        if v not in ("device", "true", "on", "1", "yes"):
+            raise ValueError(
+                f"device_pair_feats={value!r} not understood: expected 'auto', "
+                "'device'/True, or 'host'/False"
+            )
+    elif not isinstance(value, (bool, int)):
+        raise ValueError(f"device_pair_feats={value!r} not understood")
+    elif not value:
+        return "host"
+    raise NotImplementedError(
+        f"device_pair_feats={value!r}: pair features built on the device "
+        "(pair_feats_from_coords) are not ported yet (ROADMAP.md, M1: the rest of "
+        "the Uni-Mol stream)"
+    )
+
+
+def _tree(fn: Callable, out):
+    """fn over a tensor or over each tensor of a tuple."""
+    return tuple(fn(x) for x in out) if isinstance(out, tuple) else fn(out)
 
 
 class MolServe:
-    """Answer SMILES -> prediction requests with one resident model.
+    """Load a trained experiment dir once; answer SMILES -> prediction
+    requests.
 
     Parameters
     ----------
-    config:          the experiment config as a dict: ``task`` (default
-                     regression), ``target_cols``, ``compute_dtype``
-                     (default bfloat16), ``unimol_overrides`` /
-                     ``chemberta_overrides`` / ``crossmodal_overrides``,
-                     ``num_classes`` / ``multiclass_cnt``, and the
-                     ConformerGen options (``seed``, ``max_atoms``,
-                     ``remove_hs``).
-    state_dict:      the model weights (models/convert.py names).
-    device:          "cuda" (default) or "cpu"; "cuda" without CUDA raises.
+    load_model:      experiment dir written by MolTrain.fit (config.yaml,
+                     model_{fold}.ckpt, target_scaler.ss, threshold.dat).
+    use_kernels:     True runs the hand-written kernels (their plain
+                     versions on CPU tensors); False the plain path.
     batch_buckets:   static batch sizes requests are padded onto; larger
                      requests are chunked at the largest bucket.
-    feature_cache:   LRU entry bound for per-SMILES featurization (0 = off);
+    num_workers:     host featurization threads (0 = inline).
+    feature_cache:   LRU entry bound for per-SMILES featurization (0 = off).
     feature_cache_bytes: host-RAM bound on the same cache.
-    scaler:          optional target scaler (``inverse_transform``) for
-                     regression outputs; threshold: classification cut.
-    use_kernels:     False runs the plain-torch oracle path (for comparison).
+    device_pair_feats: 'auto' | 'host' | False: the dense pair arrays are
+                     built on the host.  'device' / True raise (not ported).
+    serve_folds:     1 (default): fold 0.  K or 'all': the first K (or all)
+                     fold checkpoints of a CV experiment as an ensemble;
+                     the forward is the mean of their activated outputs,
+                     K models resident and K forwards a request.
+    mesh_shape:      None.  Serving over a device mesh raises (not ported).
+    device:          "cuda" (default) or "cpu"; "cuda" without CUDA raises.
+                     On the card each shape bucket's forward is a CUDA
+                     graph; a capture that fails raises.
     """
 
     def __init__(
         self,
+        load_model: str,
+        use_kernels: bool = True,
+        batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
+        num_workers: int = 0,
+        feature_cache: int = 4096,
+        feature_cache_bytes: int = 256 << 20,
+        device_pair_feats: Union[str, bool] = "auto",
+        serve_folds: Union[str, int] = 1,
+        mesh_shape: Optional[Sequence[int]] = None,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if mesh_shape is not None:
+            raise NotImplementedError(
+                f"mesh_shape={tuple(mesh_shape)!r}: serving over a device mesh is not "
+                "ported yet (ROADMAP.md, M8: data parallel)"
+            )
+        resolve_pair_feats_mode(device_pair_feats)
+        if not load_model or not os.path.isdir(load_model):
+            raise ValueError(f"load_model must be an experiment dir, got {load_model!r}")
+        self.load_model = load_model
+        cfg = dict(load_yaml(os.path.join(load_model, "config.yaml")))
+        task = cfg.get("task", "regression")
+        scaler = (
+            TargetScaler(cfg.get("target_normalize", "none"), task, load_model)
+            if cfg.get("use_scaler", True) else None
+        )
+        threshold: Union[float, np.ndarray] = 0.5
+        thr_path = os.path.join(load_model, THRESHOLD_FILE)
+        if os.path.exists(thr_path):
+            threshold = load_threshold(thr_path)
+        self._setup(
+            cfg, lambda dev, d, tok: load_resident_model(
+                load_model, cfg, task, d, tok, dev, use_kernels, serve_folds),
+            device, batch_buckets, num_workers, feature_cache, feature_cache_bytes,
+            scaler, threshold,
+        )
+
+    @classmethod
+    def from_state_dict(
+        cls,
         config: Mapping[str, Any],
         state_dict: Mapping[str, torch.Tensor],
         device: Union[str, torch.device] = "cuda",
+        use_kernels: bool = True,
         batch_buckets: Sequence[int] = DEFAULT_BATCH_BUCKETS,
         num_workers: int = 0,
         feature_cache: int = 4096,
         feature_cache_bytes: int = 256 << 20,
         scaler=None,
         threshold: Union[float, np.ndarray] = 0.5,
-        use_kernels: bool = True,
-    ):
-        self.device = resolve_device(device)
+    ) -> "MolServe":
+        """A server over weights held in memory: ``config`` as config.yaml
+        holds it (``task``, ``target_cols``, ``compute_dtype``, the
+        ``*_overrides``, ``num_classes`` / ``multiclass_cnt`` and the
+        ConformerGen options), ``state_dict`` under models/convert.py's
+        names, one fold."""
+        self = cls.__new__(cls)
+        self.load_model = None
         cfg = dict(config)
+        task = cfg.get("task", "regression")
+        self._setup(
+            cfg, lambda dev, d, tok: resident_model(cfg, [state_dict], task, d, tok, dev,
+                                                    use_kernels),
+            device, batch_buckets, num_workers, feature_cache, feature_cache_bytes,
+            scaler, threshold,
+        )
+        return self
+
+    def _setup(self, cfg, load, device, batch_buckets, num_workers, feature_cache,
+               feature_cache_bytes, scaler, threshold):
+        self.device = resolve_device(device)
         self.config = cfg
         self.task = cfg.get("task", "regression")
         self.target_cols = str(cfg.get("target_cols", "target")).split(",")
@@ -97,7 +214,9 @@ class MolServe:
             raise ValueError("batch_buckets must be non-empty")
 
         self.tokenizer = load_tokenizer(cfg.get("chemberta_dir", "") or None)
-        self.conformer = ConformerGen(**{**cfg, "num_workers": num_workers})
+        self.conformer = ConformerGen(**{**cfg, "num_workers": num_workers,
+                                         "coord_provider": _coord_provider(cfg)})
+        # ConformerGen resolves the atom dictionary as NNModel does
         self.dictionary = self.conformer.dictionary
         self.collator = BatchCollator(
             self.tokenizer, pad_idx=self.dictionary.pad(), pad_mode="bucket",
@@ -105,15 +224,23 @@ class MolServe:
         self.scaler = scaler
         self.threshold = threshold
 
-        rm = load_resident_model(
-            cfg, state_dict, self.task, self.dictionary, self.tokenizer,
-            self.device, use_kernels=use_kernels,
-        )
+        rm = load(self.device, self.dictionary, self.tokenizer)
         self.model = rm.model
         self.output_dim = rm.output_dim
-        self._forward = rm.forward
+        self.serve_folds = rm.serve_folds
+        self._fns = {"forward": rm.forward, "embed": rm.embed}
+        self.use_graphs = self.device.type == "cuda"
+        self.graphs: Dict[tuple, _Graph] = {}
+        # one pool for every graph: its captures and replays are serialized
+        # under _lock, each graph's inputs live outside the pool and its
+        # outputs are held (self.graphs) and cloned before _lock is released
+        self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
         self._shapes_seen: set = set()
+        # _lock serializes the host stage and every launch (eager, capture,
+        # replay); _pull_gate keeps device -> host pulls, which run outside
+        # _lock, from overlapping a capture (_record)
         self._lock = threading.Lock()
+        self._pull_gate = threading.Lock()
         self._feat_cache: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
         self._feat_cache_size = int(feature_cache)
         self._feat_cache_byte_cap = int(feature_cache_bytes)
@@ -121,8 +248,9 @@ class MolServe:
         self.cache_hits = 0
         self._latencies: "deque[float]" = deque(maxlen=1024)
         self._lat_lock = threading.Lock()
-        logger.info("MolServe ready: task=%s output_dim=%d device=%s kernels=%s",
-                    self.task, self.output_dim, self.device, use_kernels)
+        logger.info("MolServe ready: task=%s output_dim=%d folds=%d device=%s graphs=%s",
+                    self.task, self.output_dim, self.serve_folds, self.device,
+                    self.use_graphs)
 
     # ------------------------------------------------------------------
     def _featurize(self, smiles: List[str]) -> List[Dict[str, Any]]:
@@ -163,29 +291,105 @@ class MolServe:
                 self._feat_cache_bytes -= _feat_nbytes(evicted)
         return [resolved[s] for s in smiles]
 
-    def _place_feats(self, feats: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in feats.items()}
-
-    def _device_feats(self, feats_chunk: List[Dict[str, Any]]):
-        """Collate one chunk onto bucketed static shapes, on the device."""
+    def _collate(self, feats_chunk: List[Dict[str, Any]]):
+        """One chunk padded onto its (batch, atom, SMILES) bucket: the
+        model's input arrays and the number of real rows."""
         n = len(feats_chunk)
         bucket = next(b for b in self.batch_buckets if b >= n)
         padded = feats_chunk + [feats_chunk[-1]] * (bucket - n)
         zero = np.zeros(max(1, self.output_dim), dtype=np.float32)
         batch, _ = self.collator([(f, zero) for f in padded])
-        self._shapes_seen.add(
-            (bucket, batch["src_tokens"].shape[1], batch["input_ids"].shape[1])
-        )
-        return self._place_feats({k: batch[k] for k in _FEATURE_KEYS}), n
+        return {k: np.ascontiguousarray(batch[k]) for k in _FEATURE_KEYS}, n
 
-    def _run_batched(self, feats: List[Dict[str, Any]]) -> np.ndarray:
+    def _place_feats(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+
+    # --- one launch of the forward or the embed -------------------------
+    @staticmethod
+    def _graph_key(kind: str, arrays: Dict[str, np.ndarray]) -> tuple:
+        """What a graph freezes beyond the server's own settings: the shape
+        bucket and MMDTI_PALLAS_LN."""
+        return (kind, arrays["src_tokens"].shape[0], arrays["src_tokens"].shape[1],
+                arrays["input_ids"].shape[1], ln_kernels_on())
+
+    def _record(self, kind: str, arrays: Dict[str, np.ndarray]) -> _Graph:
+        """Record ``kind``'s forward at this bucket into a CUDA graph in
+        the server's pool.  The pull gate is held throughout: a device ->
+        host copy synchronizes, which a capture in CUDA's global mode
+        forbids in every thread."""
+        fn = self._fns[kind]
+        inputs = self._place_feats(arrays)
+        with self._pull_gate, torch.no_grad():
+            graph, out = capture_graph(lambda: fn(inputs), pool=self._pool)
+        return _Graph(graph, inputs, out)
+
+    def _launch(self, kind: str, arrays: Dict[str, np.ndarray]):
+        """Run ``kind`` ("forward" or "embed") on one collated chunk; the
+        caller holds _lock.  Returns device tensors the next launch does not
+        overwrite: a replay's static outputs are cloned on the stream
+        before the lock is released."""
+        self._shapes_seen.add((arrays["src_tokens"].shape[0], arrays["src_tokens"].shape[1],
+                               arrays["input_ids"].shape[1]))
+        if not self.use_graphs:
+            with torch.no_grad():
+                return self._fns[kind](self._place_feats(arrays))
+        key = self._graph_key(kind, arrays)
+        prog = self.graphs.get(key)
+        if prog is None:
+            prog = self.graphs[key] = self._record(kind, arrays)
+        with torch.no_grad():
+            for k, t in prog.inputs.items():
+                t.copy_(torch.from_numpy(arrays[k]))
+            prog.graph.replay()
+            return _tree(torch.clone, prog.out)
+
+    # --- staged execution: dispatch (host work + launches) / pull ---------
+    # The dispatch stage returns device tensors still being computed; the
+    # pull waits for them outside the lock, so a pipeline (DynamicBatcher's
+    # completion thread) featurizes request k+1 while the device runs k.
+    def _dispatch_batched(self, feats: List[Dict[str, Any]], kind: str):
+        """Collate chunks (at most the largest batch bucket each) and
+        launch ``kind`` on each: [(device out, n valid), ...] in flight."""
         max_chunk = self.batch_buckets[-1]
-        outs = []
+        chunks = []
         for i in range(0, len(feats), max_chunk):
-            dev, n = self._device_feats(feats[i: i + max_chunk])
-            outs.append(self._forward(dev)[:n].float().cpu().numpy())
+            arrays, n = self._collate(feats[i: i + max_chunk])
+            chunks.append((self._launch(kind, arrays), n))
+        return chunks
+
+    def _pull_batched(self, chunks):
+        """Wait for the dispatched chunks; concatenate their valid rows."""
+        with self._pull_gate:
+            outs = [_tree(lambda x: x[:n].float().cpu().numpy(), out) for out, n in chunks]
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
         return np.concatenate(outs, axis=0)
+
+    def _dispatch_forward(self, smiles: List[str]):
+        """Featurize, collate and launch under the lock; returns (chunks,
+        feats)."""
+        with self._lock:
+            feats = self._featurize(smiles)
+            chunks = self._dispatch_batched(feats, "forward")
+        return chunks, feats
+
+    def _finalize_forward(self, chunks, feats: List[Dict[str, Any]],
+                          t0: float) -> Dict[str, Any]:
+        """Pull the dispatched chunks, postprocess, record the latency.
+        Runs outside the lock."""
+        raw = self._pull_batched(chunks)
+        with self._lat_lock:
+            self._latencies.append(time.perf_counter() - t0)
+        out = postprocess_predictions(
+            self.task, raw, self.scaler, self.threshold, self.config.get("multiclass_cnt"),
+        )
+        out["target_cols"] = self.target_cols
+        # a molecule that fell through the conformer ladder to zero
+        # coordinates still gets a prediction but is flagged
+        out["valid"] = np.array(
+            [not (np.asarray(f["src_coord"]) == 0.0).all() for f in feats]
+        )
+        return out
 
     # ------------------------------------------------------------------
     def predict(self, smiles: Union[str, Sequence[str]]) -> Dict[str, Any]:
@@ -196,19 +400,23 @@ class MolServe:
         if not smi_list:
             raise ValueError("empty SMILES request")
         t0 = time.perf_counter()
+        chunks, feats = self._dispatch_forward(smi_list)
+        return self._finalize_forward(chunks, feats, t0)
+
+    def embed(self, smiles: Union[str, Sequence[str]]):
+        """SMILES -> (cls_repr, pooled) feature matrices of fold 0 (the
+        serving analog of MolPredict(extract_feature=True))."""
+        smi_list = [smiles] if isinstance(smiles, str) else list(smiles)
         with self._lock:
             feats = self._featurize(smi_list)
-            raw = self._run_batched(feats)
-        with self._lat_lock:
-            self._latencies.append(time.perf_counter() - t0)
-        out = postprocess_predictions(
-            self.task, raw, self.scaler, self.threshold, self.config.get("multiclass_cnt"),
-        )
-        out["target_cols"] = self.target_cols
-        out["valid"] = np.array(
-            [not (np.asarray(f["src_coord"]) == 0.0).all() for f in feats]
-        )
-        return out
+            return self._pull_batched(self._dispatch_batched(feats, "embed"))
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,), smiles: str = "CCO"):
+        """Answer one request of each batch size, so that its bucket's
+        graph is recorded before the first real request."""
+        for b in batch_sizes:
+            self.predict([smiles] * int(b))
+        return self
 
     def warmup_buckets(
         self,
@@ -216,9 +424,10 @@ class MolServe:
         atom_buckets: Optional[Sequence[int]] = None,
         smiles_buckets: Optional[Sequence[int]] = None,
     ):
-        """Run the forward once on a grid of shape buckets (dummy inputs),
-        so the first real request of each shape finds the kernels built and
-        the allocator warm."""
+        """Run the forward once on a grid of shape buckets from dummy
+        inputs (on the card: record each bucket's graph), so that no real
+        request pays for it.  Batch sizes beyond the largest bucket clamp
+        to it."""
         atom_buckets = tuple(atom_buckets or self.collator.atom_buckets[:3])
         smiles_buckets = tuple(smiles_buckets or self.collator.smiles_buckets[:3])
         pad = self.dictionary.pad()
@@ -230,20 +439,22 @@ class MolServe:
                 for ns in smiles_buckets:
                     tok = np.full((bucket, na), pad, np.int32)
                     tok[:, 0] = self.dictionary.bos()  # >=1 valid atom: no 0-div pooling
-                    feats = self._place_feats({
+                    arrays = {
                         "src_tokens": tok,
                         "src_distance": np.zeros((bucket, na, na), np.float32),
                         "src_edge_type": np.full((bucket, na, na), pad, np.int32),
                         "input_ids": np.ones((bucket, ns), np.int32),
                         "attention_mask": np.ones((bucket, ns), np.int32),
-                    })
-                    self._forward(feats).cpu()
-                    self._shapes_seen.add((bucket, na, ns))
+                    }
+                    with self._lock:
+                        out = self._launch("forward", arrays)
+                    self._pull_batched([(out, bucket)])
         return self
 
     @property
     def compiled_shapes(self) -> int:
-        return len(self._shapes_seen)
+        """Recorded graphs on the card; shape buckets seen elsewhere."""
+        return len(self.graphs) if self.use_graphs else len(self._shapes_seen)
 
     def latency_stats(self) -> Dict[str, Any]:
         """Rolling p50/p95 over the last 1024 predict() calls (ms)."""
@@ -253,6 +464,27 @@ class MolServe:
             return {"count": 0, "p50_ms": None, "p95_ms": None}
         return {
             "count": len(lats),
-            "p50_ms": float(np.percentile(lats, 50)) * 1e3,
-            "p95_ms": float(np.percentile(lats, 95)) * 1e3,
+            "p50_ms": round(float(np.percentile(lats, 50)) * 1e3, 2),
+            "p95_ms": round(float(np.percentile(lats, 95)) * 1e3, 2),
         }
+
+    # ------------------------------------------------------------------
+    def make_server(self, host: str = "127.0.0.1", port: int = 8000,
+                    dynamic_batch_window_ms: float = 0.0):
+        """Build (without starting) the HTTP front (api/serve_http.py):
+        POST /predict, POST /embed, GET /health.  dynamic_batch_window_ms
+        > 0 coalesces concurrent /predict requests into shared batches
+        (DynamicBatcher, as ``server.batcher``)."""
+        from mmdti_tpu_torch.api.serve_http import make_server
+
+        return make_server(self, host, port, dynamic_batch_window_ms)
+
+    def serve(self, host: str = "127.0.0.1", port: int = 8000,
+              dynamic_batch_window_ms: float = 0.0):
+        """Blocking HTTP serving loop."""
+        server = self.make_server(host, port, dynamic_batch_window_ms)
+        logger.info("MolServe listening on http://%s:%d", host, server.server_port)
+        try:
+            server.serve_forever()
+        finally:
+            server.server_close()

@@ -1,44 +1,72 @@
 """Resident-model loading for MolServe (port of mmdti_tpu/api/serve_model.py).
 
-Builds the model from a config dict, loads a state dict held in memory
-(models/convert.py fills one from flax params), places it on the device and
-returns the serving forward.  Experiment dirs (config.yaml, flax-msgpack
-checkpoints, joblib scalers) and fold ensembles are not read here.
+Builds the model from an experiment dir's config, loads the fold
+checkpoint(s) (``model_{fold}.ckpt``, flax-msgpack, as train/trainer.py's
+``load_weights`` reads them) onto the device and returns the serving
+forward and embed.  A fold ensemble keeps K models resident; its forward
+is the mean of the K activated outputs, MolPredict's ensemble algebra.
+The JAX package vmaps stacked parameters; the port's kernels are ctypes
+launches that ``torch.func.vmap`` cannot map, so the K forwards run in a
+row (on the card inside one CUDA graph, api/serve_api.py).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Optional, Union
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_output_dim
+from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
 from mmdti_tpu_torch.models.mm_model import MMModel, build_model
+from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+
+logger = logging.getLogger("mmdti_tpu_torch")
+
+_NOT_PORTED = ("unimol_dir", "chemberta_dir")
 
 
 @dataclass
 class ResidentModel:
-    model: MMModel
-    forward: Callable          # (feats of device tensors) -> activated preds
+    models: List[MMModel]      # one per served fold, fold 0 first
+    forward: Callable          # (feats of device tensors) -> activated preds, fold mean
+    embed: Callable            # (feats) -> (cls_repr, pooled) of fold 0
     output_dim: int
+    serve_folds: int
+
+    @property
+    def model(self) -> MMModel:
+        return self.models[0]
 
 
-def load_resident_model(
+def chemberta_overrides(cfg: Mapping[str, Any]) -> dict:
+    """The ChemBERTa dims the checkpoint was trained with.  A config that
+    names pretrained weights (``unimol_dir``, ``chemberta_dir``) raises,
+    as train/nnmodel.py does: pretrained ingestion is not ported yet."""
+    for knob in _NOT_PORTED:
+        if cfg.get(knob):
+            raise NotImplementedError(f"{knob}={cfg[knob]!r} is not ported yet "
+                                      "(ROADMAP.md, M5: pretrained-checkpoint ingestion)")
+    return dict(cfg.get("chemberta_overrides") or {})
+
+
+def resident_model(
     cfg: Mapping[str, Any],
-    state_dict: Mapping[str, torch.Tensor],
+    state_dicts: Sequence[Mapping[str, torch.Tensor]],
     task: str,
     dictionary,
     tokenizer,
     device: Union[str, torch.device],
     use_kernels: bool = True,
 ) -> ResidentModel:
-    """Build the model on ``device`` with the given weights.
-
-    The pair dtype defaults to bf16 on CUDA (the kernels store the threaded
-    logits in bf16, as the JAX package does on its kernel path) and to fp32
-    on the CPU; ``cfg["unimol_overrides"]["pair_dtype"]`` overrides it."""
+    """One model per state dict, built on ``device`` as train/nnmodel.py
+    builds it (``use_fds`` from the config, so an FDS-trained checkpoint
+    loads strictly; serving never smooths).  The pair dtype defaults to
+    bf16 on CUDA and fp32 on the CPU; ``cfg["unimol_overrides"]
+    ["pair_dtype"]`` overrides it."""
     device = torch.device(device)
     unimol_overrides = dict(cfg.get("unimol_overrides") or {})
     unimol_overrides.setdefault(
@@ -48,25 +76,71 @@ def load_resident_model(
         task, cfg.get("num_classes"), cfg.get("multiclass_cnt")
     )
     activation = ACTIVATION_REGISTRY[task]
-    model = build_model(
-        output_dim=output_dim,
-        atom_vocab_size=len(dictionary),
-        atom_pad_idx=dictionary.pad(),
-        smiles_vocab_size=getattr(tokenizer, "vocab_size", 600),
-        compute_dtype=cfg.get("compute_dtype", "bfloat16"),
-        use_kernels=use_kernels,
-        unimol_overrides=unimol_overrides,
-        chemberta_overrides=dict(cfg.get("chemberta_overrides") or {}) or None,
-        crossmodal_overrides=dict(cfg.get("crossmodal_overrides") or {}) or None,
-    )
-    model.load_state_dict(state_dict, strict=True)
-    model.to(device).eval()
+    cb_overrides = chemberta_overrides(cfg)
+    models = []
+    for sd in state_dicts:
+        model = build_model(
+            output_dim=output_dim,
+            atom_vocab_size=len(dictionary),
+            atom_pad_idx=dictionary.pad(),
+            smiles_vocab_size=getattr(tokenizer, "vocab_size", 600),
+            compute_dtype=cfg.get("compute_dtype", "bfloat16"),
+            use_kernels=use_kernels,
+            unimol_overrides=unimol_overrides,
+            chemberta_overrides=cb_overrides or None,
+            crossmodal_overrides=dict(cfg.get("crossmodal_overrides") or {}) or None,
+            task=task,
+            use_fds=bool(cfg.get("fds", False)),
+            fds_num=int(cfg.get("fds_num", 30) or 30),
+        )
+        model.load_state_dict(sd, strict=True)
+        models.append(model.to(device).eval())
 
-    @torch.inference_mode()
-    def _forward(feats: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return activation(model(**feats, outputs="logits")["logits"])
+    def _forward(feats):
+        outs = [activation(m(**feats, outputs="logits")["logits"]) for m in models]
+        return outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
 
-    return ResidentModel(model=model, forward=_forward, output_dim=output_dim)
+    def _embed(feats):
+        # representations are per-model quantities: fold 0's ("train"
+        # computes the same cls_repr and pooled as "all", without the pair
+        # outputs)
+        out = models[0](**feats, outputs="train")
+        return out["cls_repr"], out["pooled"]
+
+    return ResidentModel(models=models, forward=_forward, embed=_embed,
+                         output_dim=output_dim, serve_folds=len(models))
+
+
+def load_resident_model(
+    load_model: str,
+    cfg: Mapping[str, Any],
+    task: str,
+    dictionary,
+    tokenizer,
+    device: Union[str, torch.device],
+    use_kernels: bool = True,
+    serve_folds: Union[str, int] = 1,
+) -> ResidentModel:
+    """The first ``serve_folds`` fold checkpoints of the experiment dir
+    ``load_model`` (1, K or "all"), resident on ``device``."""
+    model_folds = int(cfg.get("model_folds", 1) or 1)
+    k = model_folds if serve_folds == "all" else int(serve_folds)
+    if k < 1 or k > model_folds:
+        raise ValueError(
+            f"serve_folds={serve_folds!r} but the experiment dir has "
+            f"{model_folds} fold checkpoint(s)"
+        )
+    if model_folds > 1 and k == 1:
+        logger.info(
+            "experiment dir has %s fold checkpoints; serving fold 0 "
+            "(pass serve_folds='all' for the ensemble, or use MolPredict "
+            "for fold-averaged batch scoring)", model_folds,
+        )
+    state_dicts = [flax_params_to_state_dict(load_checkpoint(load_model, f)["params"])
+                   for f in range(k)]
+    if k > 1:
+        logger.info("serving a %d-fold ensemble", k)
+    return resident_model(cfg, state_dicts, task, dictionary, tokenizer, device, use_kernels)
 
 
 def postprocess_predictions(
@@ -75,7 +149,7 @@ def postprocess_predictions(
     scaler=None,
     threshold: Union[float, np.ndarray] = 0.5,
     multiclass_cnt: Optional[int] = None,
-) -> Dict[str, Any]:
+) -> dict:
     """Map activated model outputs to MolPredict's output contract:
     regression outputs are inverse-scaled (``scaler`` is any object with
     ``inverse_transform``, or None), classification probabilities are

@@ -149,7 +149,7 @@ class Resident:
 
 
 def capture_graph(fn: Callable, generator: Optional[torch.Generator] = None, state=(),
-                  warmup: int = GRAPH_WARMUP):
+                  warmup: int = GRAPH_WARMUP, pool=None):
     """Record ``fn()`` into a torch.cuda.CUDAGraph; returns (graph, what the
     recorded call returned).  Recording runs nothing: call ``replay``.
 
@@ -161,8 +161,10 @@ def capture_graph(fn: Callable, generator: Optional[torch.Generator] = None, sta
     tensors in ``state`` and the generator's state are saved before and
     restored after, so the warm-up leaves no trace.  The generator is
     registered with the graph: each replay draws from where it stands and
-    advances it as the same calls made eagerly would.  A capture that fails
-    raises; nothing falls back to eager calls."""
+    advances it as the same calls made eagerly would.  ``pool`` (from
+    torch.cuda.graph_pool_handle) records into a pool shared with other
+    graphs; None gives the graph its own.  A capture that fails raises;
+    nothing falls back to eager calls."""
     saved = [t.clone() for t in state]
     gen_state = generator.get_state() if generator is not None else None
     side = torch.cuda.Stream()
@@ -179,7 +181,7 @@ def capture_graph(fn: Callable, generator: Optional[torch.Generator] = None, sta
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=pool):
         out = fn()
     return graph, out
 
@@ -191,7 +193,7 @@ def _shape_key(*tensors):
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    inputs: tuple          # the static tensors a call copies its inputs into
+    inputs: object         # the static tensors a call copies its inputs into
     out: object            # what the recorded call returned
     pins: tuple = ()       # objects the key names by id
 

@@ -18,7 +18,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mmdti_tpu_torch.api.serve_api import resolve_device
 from mmdti_tpu_torch.data.batching import MolDataLoader
 from mmdti_tpu_torch.losses.registry import target_is_integer
 from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
@@ -30,6 +29,7 @@ from mmdti_tpu_torch.train.device_feed import (
 )
 from mmdti_tpu_torch.train.fit_loop import FitLoopMixin, weighted_loss_mean
 from mmdti_tpu_torch.train.steps import build_eval_step
+from mmdti_tpu_torch.utils.device import resolve_device
 from mmdti_tpu_torch.utils.metrics import Metrics
 
 logger = logging.getLogger("mmdti_tpu_torch")

@@ -744,3 +744,144 @@ def test_graph_replays_leave_the_layer_norm_tickets_at_zero(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert hl._SCRATCH
     assert all(bool((tickets == 0).all()) for _, tickets in hl._SCRATCH.values())
+
+
+# ---- serving: one CUDA graph per shape bucket -------------------------------------
+
+SERVE_CFG = dict(task="regression", compute_dtype="bfloat16",
+                 unimol_overrides=dict(encoder_layers=2, ffn_embed_dim=512),
+                 chemberta_overrides=dict(num_hidden_layers=1, intermediate_size=512))
+SERVE_SMILES = ["CCO", "CC(=O)O", "c1ccccc1", "Cc1ccccc1", "CC(C)O", "CCCC", "CCN",
+                "c1ccncc1", "CC(=O)Oc1ccccc1C(=O)O", "CC(C)Cc1ccc(cc1)C(C)C(=O)O"]
+
+
+def _serve_pair(cuda):
+    """The shallow flagship-width model of _graph_setup behind two servers
+    on the card: graph-replayed and eager."""
+    from mmdti_tpu_torch.api.serve_api import MolServe
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.models.mm_model import build_model
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+    model = build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                        compute_dtype="bfloat16",
+                        unimol_overrides=SERVE_CFG["unimol_overrides"],
+                        chemberta_overrides=SERVE_CFG["chemberta_overrides"])
+    sd = model.reset_parameters_like_flax(torch.Generator().manual_seed(0)).state_dict()
+    graph = MolServe.from_state_dict(SERVE_CFG, sd, device=cuda)
+    eager = MolServe.from_state_dict(SERVE_CFG, sd, device=cuda)
+    eager.use_graphs = False
+    return graph, eager
+
+
+def test_serve_graph_replay_equals_eager(cuda):
+    """Each bucket's replayed forward equals the eager forward on the
+    card bit for bit; one graph per bucket; replays move no launcher
+    counter."""
+    graph, eager = _serve_pair(cuda)
+    for n in (1, 3, 10):
+        want = eager.predict(SERVE_SMILES[:n])["predict"]
+        graph.predict(SERVE_SMILES[:n])                       # records
+        before = ha.pair_bias_attention_cuda.launches
+        got = graph.predict(SERVE_SMILES[:n])["predict"]      # replays
+        assert ha.pair_bias_attention_cuda.launches == before
+        np.testing.assert_array_equal(got, want)
+    assert graph.compiled_shapes == len(graph.graphs) == 3
+    cls_g, pooled_g = graph.embed(SERVE_SMILES)
+    cls_e, pooled_e = eager.embed(SERVE_SMILES)
+    np.testing.assert_array_equal(cls_g, cls_e)
+    np.testing.assert_array_equal(pooled_g, pooled_e)
+
+
+def test_serve_graphs_share_one_pool(cuda):
+    """Every bucket's graph records into the server's one pool: buckets
+    recorded in one order and replayed in another (each replay reusing
+    blocks another graph's capture was handed) all equal the eager
+    server."""
+    graph, eager = _serve_pair(cuda)
+    sizes = (1, 3, 10, 5, 2)
+    want = {n: eager.predict(SERVE_SMILES[:n])["predict"] for n in sizes}
+    for n in sizes:
+        graph.predict(SERVE_SMILES[:n])                       # records
+    assert len(graph.graphs) == len(sizes) and graph._pool is not None
+    for n in reversed(sizes):
+        np.testing.assert_array_equal(graph.predict(SERVE_SMILES[:n])["predict"], want[n])
+    for n in sizes:
+        np.testing.assert_array_equal(graph.predict(SERVE_SMILES[:n])["predict"], want[n])
+
+
+def test_serve_two_inflight_batches_of_one_bucket(cuda):
+    """Two batches of one bucket dispatched back to back, neither pulled:
+    each finalize gets its own rows (a replay writes the graph's static
+    outputs, which dispatch cloned)."""
+    graph, eager = _serve_pair(cuda)
+    a, b = SERVE_SMILES[:4], SERVE_SMILES[4:8]
+    graph.predict(a)                                          # records the bucket
+    chunks_a, feats_a = graph._dispatch_forward(a)
+    chunks_b, feats_b = graph._dispatch_forward(b)
+    assert len(graph.graphs) == 1
+    out_b = graph._finalize_forward(chunks_b, feats_b, 0.0)["predict"]
+    out_a = graph._finalize_forward(chunks_a, feats_a, 0.0)["predict"]
+    np.testing.assert_array_equal(out_a, eager.predict(a)["predict"])
+    np.testing.assert_array_equal(out_b, eager.predict(b)["predict"])
+    assert not np.array_equal(out_a, out_b)
+
+
+def test_serve_capture_beside_pulls(cuda):
+    """Concurrent requests of a warm bucket, pulled outside the server's
+    lock, while other requests record cold buckets: every capture
+    succeeds and every answer equals the eager server's."""
+    import threading
+
+    graph, eager = _serve_pair(cuda)
+    warm = SERVE_SMILES[:2]
+    want_warm = eager.predict(warm)["predict"]
+    graph.predict(warm)
+    cold = [SERVE_SMILES[:n] for n in (3, 5, 9, 10)] + [["C" * 30], ["C" * 30] * 3]
+    want_cold = [eager.predict(c)["predict"] for c in cold]
+    errors, got_cold = [], {}
+    stop = threading.Event()
+
+    def pull_warm():
+        try:
+            while not stop.is_set():
+                np.testing.assert_array_equal(graph.predict(warm)["predict"], want_warm)
+        except Exception as e:   # surfaced below
+            errors.append(e)
+
+    def record_cold():
+        try:
+            for i, c in enumerate(cold):
+                got_cold[i] = graph.predict(c)["predict"]
+        except Exception as e:
+            errors.append(e)
+
+    pullers = [threading.Thread(target=pull_warm) for _ in range(3)]
+    for t in pullers:
+        t.start()
+    recorder = threading.Thread(target=record_cold)
+    recorder.start()
+    recorder.join(timeout=300)
+    stop.set()
+    for t in pullers:
+        t.join(timeout=60)
+    assert not recorder.is_alive() and not any(t.is_alive() for t in pullers)
+    assert not errors, errors
+    assert len(graph.graphs) == 1 + len(cold)
+    for i, want in enumerate(want_cold):
+        np.testing.assert_array_equal(got_cold[i], want)
+
+
+def test_serve_capture_and_pull_wait_for_each_other(cuda):
+    """chip_smoke.py's check, on the shallow model: a pull asked for during
+    a capture takes the pull gate only after it, and a capture asked for
+    while a pull waits on the device only after the pull; every row right."""
+    import chip_smoke
+
+    graph, _ = _serve_pair(cuda)
+    seen = chip_smoke._capture_beside_pulls(graph, SERVE_SMILES[:2],
+                                            (["C" * 30] * 2, ["C" * 30] * 3))
+    assert seen["rows_right"] and seen["pull_took_gate_after_capture"]
+    assert seen["capture_took_gate_after_pull"]

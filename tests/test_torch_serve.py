@@ -1,7 +1,8 @@
 """mmdti_tpu_torch serving slice on the CPU: host featurization equals the
 JAX package's, MolServe.predict equals the flax model on the same weights
-(atol 1e-4, fp32), and the port (serving and one train step) imports
-nothing of JAX or the JAX package's host dependencies."""
+(atol 1e-4, fp32), and the port (serving from memory and from an
+experiment dir, one HTTP round trip, one train step) imports nothing of
+JAX or the JAX package's host dependencies."""
 
 import os
 import subprocess
@@ -89,8 +90,9 @@ def test_predict_matches_flax_on_same_weights(numpy_refine):
         jax.jit(model.apply)({"params": params}, **feats)["logits"], axis=-1
     )[:, 1:])
 
-    server = MolServe(CONFIG, flax_params_to_state_dict(jax.tree.map(np.asarray, params)),
-                      device="cpu", batch_buckets=(8,))
+    server = MolServe.from_state_dict(
+        CONFIG, flax_params_to_state_dict(jax.tree.map(np.asarray, params)),
+        device="cpu", batch_buckets=(8,))
     out = server.predict(smiles)
     np.testing.assert_allclose(out["proba"], want, atol=1e-4)
     assert out["predict"].shape == (6, 1) and out["valid"].all()
@@ -107,7 +109,7 @@ def test_predict_matches_flax_on_same_weights(numpy_refine):
 def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        MolServe(CONFIG, {}, device="cuda")
+        MolServe.from_state_dict(CONFIG, {}, device="cuda")
 
 
 _BLOCKED_SCRIPT = textwrap.dedent("""
@@ -144,16 +146,40 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
                         chemberta_overrides=cfg["chemberta_overrides"],
                         crossmodal_overrides=cfg["crossmodal_overrides"])
     model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
-    server = MolServe(cfg, model.state_dict(), device="cpu")
+    server = MolServe.from_state_dict(cfg, model.state_dict(), device="cpu")
     out = server.predict(["CCO", "c1ccccc1"])
     assert out["predict"].shape == (2, 1) and np.isfinite(out["predict"]).all()
+
+    # an experiment dir written with the port's writers, served from disk,
+    # and one round trip through the HTTP front
+    import json, os, threading, urllib.request
+    from mmdti_tpu_torch.configs.config import default_config, save_yaml
+    from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
+    from mmdti_tpu_torch.train.checkpointing import save_checkpoint
+
+    exp = sys.argv[1]
+    save_yaml({**default_config(), **cfg, "target_cols": "y", "use_scaler": False,
+               "model_folds": 1}, os.path.join(exp, "config.yaml"))
+    save_checkpoint(exp, 0, state_dict_to_flax_params(model.state_dict()))
+    served = MolServe(exp, device="cpu")
+    np.testing.assert_allclose(served.predict(["CCO", "c1ccccc1"])["predict"],
+                               out["predict"], rtol=1e-6)
+    srv = served.make_server(port=0, dynamic_batch_window_ms=2.0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.server_port}/predict",
+                                 data=json.dumps({"smiles": ["CCO"]}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = json.loads(r.read())
+    srv.shutdown()
+    srv.server_close()
+    np.testing.assert_allclose(body["predict"], served.predict(["CCO"])["predict"], rtol=1e-6)
 
     # one train step, dropout on, on the served model's weights
     from mmdti_tpu_torch.losses.zoo import mse_loss
     from mmdti_tpu_torch.train.optim import FusedAdam
     from mmdti_tpu_torch.train.steps import build_train_step
 
-    feats, _ = server._device_feats(server._featurize(["CCO", "c1ccccc1"]))
+    feats = server._place_feats(server._collate(server._featurize(["CCO", "c1ccccc1"]))[0])
     opt = FusedAdam(dict(server.model.named_parameters()), 1e-4, 10)
     step = build_train_step(server.model, opt, mse_loss, "regression")
     labels = torch.zeros(feats["src_tokens"].shape[0], 1)
@@ -165,9 +191,10 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_slice_runs_without_jax_or_host_deps():
+def test_slice_runs_without_jax_or_host_deps(tmp_path):
     env = {**os.environ, "PYTHONPATH": REPO}
-    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPT], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_SCRIPT, str(tmp_path)], cwd=REPO,
+                          env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PORT_ONLY_OK" in proc.stdout

@@ -1,0 +1,205 @@
+"""mmdti_tpu_torch's MolServe over experiment dirs the JAX package writes,
+on the CPU, against the JAX MolServe on the same dirs:
+
+* a 2-fold CV regression dir (``MolTrain(kfold=2).fit(train)``): predict
+  with serve_folds 1 and "all", embed, valid, batch invariance, within
+  1e-5 abs / 1e-4 rel as tests/torch_task_parity.py holds predictions; the
+  ensemble also equals the port's MolPredict on the same dir;
+* a classification dir: threshold.dat, probabilities and labels;
+* what is refused, with a pointer to ROADMAP.md: a device mesh, pair
+  features built on the device, a JAX-written (joblib) target scaler;
+  serve_folds outside 1..model_folds raises with JAX's message.
+
+Both packages featurize through the port's numpy refinement; torch runs
+on one thread.
+"""
+
+import os
+import shutil
+
+import joblib
+import numpy as np
+import pandas as pd
+import pytest
+
+import mmdti_tpu.chem.native as jax_native
+from mmdti_tpu import MolServe as JaxServe
+from mmdti_tpu import MolTrain as JaxTrain
+from mmdti_tpu.data.scaler import TargetScaler as JaxScaler
+from mmdti_tpu_torch import MolPredict, MolServe
+from mmdti_tpu_torch.api.serve_api import resolve_pair_feats_mode
+from mmdti_tpu_torch.configs.config import load_yaml, save_yaml
+from tests.conftest import SMALL_ARCH, SMILES_20
+from tests.torch_task_parity import PRED_ATOL, PRED_RTOL, one_thread
+
+FIT = dict(epochs=1, learning_rate=1e-3, batch_size=8, early_stopping=5, smiles_col="smiles",
+           seed=42, compute_dtype="float32", use_pallas=False, use_scaler=False, **SMALL_ARCH)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def host_refinement():
+    """The JAX package's built-in provider through the port's numpy path,
+    and torch on one thread, for the whole module."""
+    import torch
+
+    mp = pytest.MonkeyPatch()
+    for fn in ("embed_coords", "refine_coords", "distance_matrix"):
+        mp.setattr(jax_native, fn, lambda *a, **k: None)
+    threads = one_thread()
+    yield
+    torch.set_num_threads(threads)
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def cv_exp(tmp_path_factory, host_refinement):
+    rng = np.random.RandomState(3)
+    tmp = tmp_path_factory.mktemp("serve_dir_cv")
+    csv = str(tmp / "train.csv")
+    pd.DataFrame({"smiles": SMILES_20,
+                  "measured": rng.randn(len(SMILES_20)) * 2 + 1}).to_csv(csv, index=False)
+    exp = str(tmp / "exp")
+    JaxTrain(task="regression", metrics="mse", save_path=exp, target_cols=["measured"],
+             kfold=2, **FIT).fit(csv)
+    return exp, csv
+
+
+@pytest.fixture(scope="module")
+def clf_exp(tmp_path_factory, host_refinement):
+    rng = np.random.RandomState(7)
+    tmp = tmp_path_factory.mktemp("serve_dir_clf")
+    df = pd.DataFrame({"smiles": SMILES_20,
+                       "activity": (rng.rand(len(SMILES_20)) > 0.5).astype(int)})
+    df.loc[:1, "activity"] = [0, 1]
+    df.loc[16:17, "activity"] = [0, 1]
+    train, val = str(tmp / "train.csv"), str(tmp / "val.csv")
+    df.iloc[:16].to_csv(train, index=False)
+    df.iloc[16:].to_csv(val, index=False)
+    exp = str(tmp / "exp")
+    JaxTrain(task="classification", metrics="auc", save_path=exp, target_cols=["activity"],
+             **FIT).fit(train, val)
+    return exp
+
+
+@pytest.fixture(scope="module")
+def jax_out(cv_exp):
+    """The JAX MolServe's answers on the CV dir: predict with one fold and
+    with both, and embed."""
+    exp, _ = cv_exp
+    one = JaxServe(exp)
+    return {1: one.predict(SMILES_20), "all": JaxServe(exp, serve_folds="all").predict(SMILES_20),
+            "embed": one.embed(SMILES_20)}
+
+
+@pytest.fixture(scope="module")
+def servers(cv_exp):
+    exp, _ = cv_exp
+    return {k: MolServe(exp, device="cpu", serve_folds=k) for k in (1, "all")}
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, atol=PRED_ATOL, rtol=PRED_RTOL)
+
+
+@pytest.mark.parametrize("folds", [1, "all"])
+def test_predict_matches_jax(servers, jax_out, folds):
+    got, want = servers[folds].predict(SMILES_20), jax_out[folds]
+    assert servers[folds].serve_folds == (1 if folds == 1 else 2)
+    assert got["target_cols"] == want["target_cols"] == ["measured"]
+    assert got["proba"] is None and want["proba"] is None
+    assert got["predict"].shape == (20, 1)
+    _close(got["predict"], want["predict"])
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+
+
+def test_ensemble_is_the_mean_of_its_folds(servers, jax_out):
+    """The two folds differ, and "all" is their activated mean."""
+    out_all = servers["all"].predict(SMILES_20)["predict"]
+    fold0 = servers[1].predict(SMILES_20)["predict"]
+    assert not np.allclose(out_all, fold0, atol=1e-4)
+    fold1 = 2 * jax_out["all"]["predict"] - jax_out[1]["predict"]
+    _close(out_all, (fold0 + fold1) / 2)
+
+
+def test_embed_matches_jax(servers, jax_out):
+    for folds in (1, "all"):   # fold 0's representations either way
+        cls_r, pooled = servers[folds].embed(SMILES_20)
+        assert cls_r.shape == (20, SMALL_ARCH["unimol_overrides"]["embed_dim"])
+        _close(cls_r, jax_out["embed"][0])
+        _close(pooled, jax_out["embed"][1])
+
+
+def test_batch_invariance(servers, jax_out):
+    srv = servers["all"]
+    onebyone = np.concatenate([srv.predict(s)["predict"] for s in SMILES_20[:6]])
+    _close(onebyone, jax_out["all"]["predict"][:6])
+
+
+def test_valid_flag(servers):
+    """A molecule that fell to zero coordinates is flagged, still predicted."""
+    import copy
+
+    srv = servers[1]
+    srv.predict(["CCO"])
+    fake = copy.deepcopy(srv._feat_cache["CCO"])
+    fake["src_coord"] = np.zeros_like(np.asarray(fake["src_coord"]))
+    srv._feat_cache["FAKEMOL"] = fake
+    out = srv.predict(["CCO", "FAKEMOL"])
+    assert out["valid"].tolist() == [True, False]
+    assert np.isfinite(out["predict"]).all()
+
+
+def test_ensemble_equals_molpredict(servers, cv_exp, tmp_path):
+    exp, csv = cv_exp
+    y_batch = MolPredict(load_model=exp, device="cpu").predict(csv)
+    _close(servers["all"].predict(SMILES_20)["predict"], y_batch)
+
+
+def test_classification_threshold_and_proba(clf_exp):
+    from mmdti_tpu_torch.api.predict_api import load_threshold
+
+    jx = JaxServe(clf_exp)
+    srv = MolServe(clf_exp, device="cpu")
+    assert os.path.exists(os.path.join(clf_exp, "threshold.dat"))
+    np.testing.assert_array_equal(srv.threshold, jx.threshold)
+    np.testing.assert_array_equal(
+        srv.threshold, load_threshold(os.path.join(clf_exp, "threshold.dat")))
+    got, want = srv.predict(SMILES_20), jx.predict(SMILES_20)
+    assert got["proba"].shape == (20, 1)
+    assert ((got["proba"] >= 0) & (got["proba"] <= 1)).all()
+    _close(got["proba"], want["proba"])
+    np.testing.assert_array_equal(got["predict"], (got["proba"] > srv.threshold).astype(int))
+    np.testing.assert_array_equal(got["predict"], want["predict"])
+
+
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1)), dict(device_pair_feats="device"),
+                                dict(device_pair_feats=True)])
+def test_refusals_point_to_the_roadmap(cv_exp, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        MolServe(cv_exp[0], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("folds", [0, 3])
+def test_serve_folds_out_of_range(cv_exp, folds):
+    msg = f"serve_folds={folds!r} but the experiment dir has 2 fold checkpoint"
+    with pytest.raises(ValueError, match=msg):
+        MolServe(cv_exp[0], device="cpu", serve_folds=folds)
+
+
+def test_host_pair_feature_spellings():
+    for v in ("auto", "host", "false", False, None):
+        assert resolve_pair_feats_mode(v) == "host"
+    with pytest.raises(ValueError):
+        resolve_pair_feats_mode("sideways")
+
+
+def test_jax_joblib_scaler_refused(cv_exp, tmp_path):
+    exp = str(tmp_path / "exp_scaled")
+    shutil.copytree(cv_exp[0], exp)
+    cfg = load_yaml(os.path.join(exp, "config.yaml"))
+    cfg.update(use_scaler=True, target_normalize="standard")
+    save_yaml(cfg, os.path.join(exp, "config.yaml"))
+    JaxScaler("standard", "regression").fit(np.linspace(-3, 5, 20).reshape(-1, 1), exp)
+    assert joblib.load(os.path.join(exp, "target_scaler.ss")) is not None
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        MolServe(exp, device="cpu")
