@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
-the train step, fit-and-predict through MolTrain/MolPredict, and the
-classification tasks.
+the train step, fit-and-predict through MolTrain/MolPredict, the
+classification tasks, and cross-validation, resume and the fit profiler.
 
     python3 chip_smoke.py
 
@@ -130,8 +130,28 @@ Phases, one result line each; any failure exits non-zero:
    loss_key="ghm" replayed from one CUDA graph against 4 eager steps from
    the same state, held as phase 6 (a) holds them, GHM bin counts and flag
    included;
-9. one JSON line with every kernel's summary (each task's launches
-   beside the main path's), then {"ok": true, ...}.
+9. cv, with MMDTI_PALLAS_LN=1 (restored after), on phase 7's
+   400-molecule set: (a) MolTrain(kfold=3, split="scaffold").fit with the
+   defaults (the feed, 4 steps a CUDA graph) at the flagship width and
+   depth (bf16, B=32, 2 epochs, the target scaler): the artifacts
+   (model_folds 3), the out-of-fold predictions covering every row once,
+   no scaffold in two folds, per-fold seconds, the launcher counts exactly
+   the graphs recorded (a fold reuses the last fold's train graph and
+   validation sweep when its shapes agree; every gbf and attention launch
+   on "mma"), the reused second fold bit-equal to a fit of that fold
+   alone, MolPredict.predict(test) against the mean of the three
+   single-fold predictions (1e-5) with one sweep graph for the three
+   folds, MolServe(serve_folds="all") against it and the plain path
+   against it (2e-2); (b) fit(train, val) for 3 epochs twice
+   uninterrupted, and stopped after epoch 2 then resumed
+   (checkpoint_interval=1): the last history row, the weights and the
+   predictions of the resumed fit as close to the uninterrupted one as
+   the two uninterrupted fits are to each other, the train state's bytes,
+   its save seconds (async and sync) and load seconds; (c) a fit with
+   profile_dir writes a trace holding every port kernel's name, and a fit
+   with debug_nans and a NaN target raises FloatingPointError;
+10. one JSON line with every kernel's summary (each task's and phase cv's
+   launches beside the main path's), then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -139,8 +159,10 @@ file, it prints no result and exits 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -218,6 +240,12 @@ FIT_MOLECULES, FIT_EPOCHS = 400, 3
 TASK_FITS = ("classification", "multiclass", "multilabel_classification")
 TASK_EPOCHS = 3
 GRAPH_K = 4   # steps a train graph holds: the fit's default steps_per_call
+# phase cv: folds and epochs of the CV fit; epochs of the resume fits and the
+# epoch the interrupted one stops after; the ensemble against the mean of
+# its folds' predictions (fp32 means of the same fp32 outputs, inverse-scaled)
+CV_FOLDS, CV_EPOCHS = 3, 2
+RESUME_EPOCHS, RESUME_STOP = 3, 2
+CV_ENSEMBLE_TOL = 1e-5
 # phase graphs (c): rounds, and replays of a K-step graph a round (3 x 4 =
 # 12 steps each way, 10 rounded up to whole replays)
 GRAPH_ROUNDS, GRAPH_REPLAYS = 2, 3
@@ -2079,6 +2107,20 @@ def _graph_resident(dev, atom_pad, smiles_pad, B=32):
                     torch.ones(B, 1, device=dev))
 
 
+@contextlib.contextmanager
+def _ln_kernels_on():
+    """MMDTI_PALLAS_LN=1 inside the block, restored after it."""
+    previous = os.environ.get("MMDTI_PALLAS_LN")
+    os.environ["MMDTI_PALLAS_LN"] = "1"
+    try:
+        yield
+    finally:
+        if previous is None:
+            os.environ.pop("MMDTI_PALLAS_LN")
+        else:
+            os.environ["MMDTI_PALLAS_LN"] = previous
+
+
 def _set_ln(way):
     if way == "off":
         os.environ.pop("MMDTI_PALLAS_LN", None)
@@ -2321,19 +2363,12 @@ def phase_graphs(dev):
                      "did not run its steps and sweeps as graph replays")
 
     # (e) bulk predict: the sweep against the per-batch path
-    previous = os.environ.get("MMDTI_PALLAS_LN")
-    os.environ["MMDTI_PALLAS_LN"] = "1"
-    try:
+    with _ln_kernels_on():
         swept = MolPredict(load_model=exp)
         test_pred = swept.predict(paths["test"])
         per_batch = MolPredict(load_model=exp)
         per_batch.config["device_feed"] = False
         test_per_batch = per_batch.predict(paths["test"])
-    finally:
-        if previous is None:
-            os.environ.pop("MMDTI_PALLAS_LN")
-        else:
-            os.environ["MMDTI_PALLAS_LN"] = previous
     diff = float(np.abs(test_pred - test_per_batch).max())
     print("graphs: (e) " + json.dumps({
         "rows": int(test_pred.shape[0]),
@@ -2388,9 +2423,7 @@ def _run_fit(paths, exp, **dispatch):
 
     from mmdti_tpu_torch import MolTrain
 
-    previous = os.environ.get("MMDTI_PALLAS_LN")
-    os.environ["MMDTI_PALLAS_LN"] = "1"
-    try:
+    with _ln_kernels_on():
         _reset_counts()
         t0 = time.perf_counter()
         clf = MolTrain(task="regression", epochs=FIT_EPOCHS, learning_rate=1e-4, batch_size=32,
@@ -2402,11 +2435,6 @@ def _run_fit(paths, exp, **dispatch):
         clf.fit(paths["train"], paths["val"])
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-    finally:
-        if previous is None:
-            os.environ.pop("MMDTI_PALLAS_LN")
-        else:
-            os.environ["MMDTI_PALLAS_LN"] = previous
     with open(os.path.join(exp, "history_0.json")) as f:
         history = json.load(f)
     return {"clf": clf, "fit_s": fit_s, "counts": _read_counts(), "routes": _read_routes(),
@@ -2436,11 +2464,9 @@ def phase_fit(dev, graph_fit):
     paths, sizes, work = graph_fit["paths"], graph_fit["sizes"], os.path.dirname(
         graph_fit["paths"]["train"])
     exp = os.path.join(work, "exp")
-    previous = os.environ.get("MMDTI_PALLAS_LN")
     fit = _run_fit(paths, exp, device_feed=False, steps_per_call=1)
     clf, fit_counts, fit_routes, history = fit["clf"], fit["counts"], fit["routes"], fit["history"]
-    os.environ["MMDTI_PALLAS_LN"] = "1"
-    try:
+    with _ln_kernels_on():
         test_pred = MolPredict(load_model=exp).predict(paths["test"],
                                                       save_path=os.path.join(work, "out"))
         launches = _read_counts()
@@ -2448,11 +2474,6 @@ def phase_fit(dev, graph_fit):
         plain = MolPredict(load_model=exp)
         plain.config["use_pallas"] = False
         val_plain = plain.predict(paths["val"])
-    finally:
-        if previous is None:
-            os.environ.pop("MMDTI_PALLAS_LN")
-        else:
-            os.environ["MMDTI_PALLAS_LN"] = previous
     torch.cuda.synchronize()
 
     model = clf.model.model
@@ -2531,9 +2552,7 @@ def _task_fit(task, paths, caches, work):
 
     exp, out = os.path.join(work, f"exp_{task}"), os.path.join(work, f"out_{task}")
     target_cols = MULTILABEL_COLS if task == "multilabel_classification" else ["measured"]
-    previous = os.environ.get("MMDTI_PALLAS_LN")
-    os.environ["MMDTI_PALLAS_LN"] = "1"
-    try:
+    with _ln_kernels_on():
         _reset_counts()
         t0 = time.perf_counter()
         clf = MolTrain(task=task, epochs=TASK_EPOCHS, learning_rate=1e-4, batch_size=32,
@@ -2554,11 +2573,6 @@ def _task_fit(task, paths, caches, work):
         plain = MolPredict(load_model=exp, cache_dir=caches["val"])
         plain.config["use_pallas"] = False
         val_plain = plain.predict(paths["val"])
-    finally:
-        if previous is None:
-            os.environ.pop("MMDTI_PALLAS_LN")
-        else:
-            os.environ["MMDTI_PALLAS_LN"] = previous
     with open(os.path.join(exp, "history_0.json")) as f:
         history = json.load(f)
     test = read_csv(paths["test"])
@@ -2788,6 +2802,340 @@ def phase_tasks(dev):
     return launches
 
 
+def _cv_kwargs(save_path, **extra):
+    """MolTrain at the flagship width and depth with the defaults (the
+    resident feed, 4 steps a CUDA graph): bf16, B=32, dropout, InfoNCE, CT,
+    the target scaler."""
+    return {**dict(task="regression", epochs=CV_EPOCHS, learning_rate=1e-4, batch_size=32,
+                   early_stopping=20, metrics="mse", smiles_col="smiles", save_path=save_path,
+                   target_cols=["measured"], using_infonce=True, using_ct=True, seed=42,
+                   use_scaler=True, device="cuda"), **extra}
+
+
+def _add_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _max_leaf_gap(a, b):
+    """Largest absolute difference between two flax parameter trees."""
+    import numpy as np
+
+    def leaves(t):
+        return ([x for k in sorted(t) for x in leaves(t[k])] if isinstance(t, dict)
+                else [np.asarray(t, np.float64)])
+
+    return max(float(np.abs(x - y).max()) for x, y in zip(leaves(a), leaves(b)))
+
+
+def _cv_expected_graphs(splits, per_forward):
+    """The launcher counts of a CV fit: a fold records a train graph when
+    its batches a epoch or its resident train rows differ from the fold
+    before it (train/fit_loop.py reuses the last fold's programs and
+    resident arrays), and a validation sweep graph when its resident
+    validation rows do; each graph's warm-ups and capture launch, the
+    replays do not."""
+    from mmdti_tpu_torch.train.device_feed import row_bucket
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+
+    want, graphs, last_train, last_val = {}, [], None, None
+    for tr, va in splits:
+        nb = len(tr) // 32
+        if (nb, row_bucket(len(tr))) != last_train:
+            k = _snap_to_divisor(GRAPH_K, nb)
+            graphs.append(("train", k))
+            want = _add_counts(want, _graph_launches(per_forward, k, 0))
+        if row_bucket(len(va)) != last_val:
+            graphs.append(("val_sweep", 1))
+            want = _add_counts(want, _graph_launches(per_forward, 0, 1))
+        last_train, last_val = (nb, row_bucket(len(tr))), row_bucket(len(va))
+    return want, graphs
+
+
+def _cv_fit_check(work, data, test_csv, caches):
+    """(a) MolTrain(kfold=3, split="scaffold").fit on the whole set, its
+    artifacts and folds, the launcher counts, the reused fold against a
+    fresh fit of it, and the predict side on the test split."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolServe, MolTrain
+    from mmdti_tpu_torch.configs.config import load_yaml, save_yaml
+    from mmdti_tpu_torch.data.reader import read_csv
+    from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+
+    exp = os.path.join(work, "exp_cv")
+    with _ln_kernels_on():
+        _reset_counts()
+        t0 = time.perf_counter()
+        clf = MolTrain(kfold=CV_FOLDS, split="scaffold", cache_dir_train=caches["all"],
+                       **_cv_kwargs(exp)).fit(data)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, routes = _read_counts(), _read_routes()
+    model = clf.model.model
+    n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+    per_forward = {"gbf_proj": 1, "pair_bias_attention": model.unimol_cfg.encoder_layers,
+                   "masked_attention": n_masked, "layer_norm": _ln_sites(model)}
+    splits = clf._cv_splits(CV_FOLDS)
+    want, graphs = _cv_expected_graphs(splits, per_forward)
+    n = len(clf.data_train["target"])
+    covered = np.sort(np.concatenate([va for _, va in splits]))
+    groups = np.asarray(clf.data_train["group"])
+    fold_of = {}
+    spanning = 0
+    for f, (_, va) in enumerate(splits):
+        for g in set(groups[va].tolist()):
+            spanning += g in fold_of
+            fold_of[g] = f
+    config = load_yaml(os.path.join(exp, "config.yaml"))
+
+    # the second fold (programs reset in place, graphs replayed) against a
+    # fit of that fold alone on a fresh trainer
+    fresh_exp = os.path.join(work, "exp_cv_fold1_alone")
+    with _ln_kernels_on():
+        t0 = time.perf_counter()
+        fresh = MolTrain(kfold=CV_FOLDS, split="scaffold", cache_dir_train=caches["all"],
+                         **_cv_kwargs(fresh_exp))
+        fresh._cv_splits = lambda k: [splits[1]]
+        fresh.fit(data)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+    reuse_gap = _max_leaf_gap(load_checkpoint(exp, 1)["params"],
+                              load_checkpoint(fresh_exp, 0)["params"])
+    oof_gap = float(np.abs(clf.cv_pred[splits[1][1]] - fresh.cv_pred[splits[1][1]]).max())
+
+    # the predict side: the ensemble, each fold alone, the plain path, the server
+    solo_dirs = []
+    for fold in range(CV_FOLDS):
+        solo = os.path.join(work, f"exp_cv_solo{fold}")
+        shutil.copytree(exp, solo)
+        cfg = load_yaml(os.path.join(solo, "config.yaml"))
+        cfg["model_folds"] = 1
+        save_yaml(cfg, os.path.join(solo, "config.yaml"))
+        for f in range(CV_FOLDS):
+            if f != fold:
+                os.remove(os.path.join(solo, f"model_{f}.ckpt"))
+        os.replace(os.path.join(solo, f"model_{fold}.ckpt"), os.path.join(solo, "model_0.ckpt"))
+        solo_dirs.append(solo)
+    smiles = list(read_csv(test_csv)["smiles"])
+    with _ln_kernels_on():
+        _reset_counts()
+        ens = MolPredict(load_model=exp, cache_dir=caches["test"]).predict(test_csv)
+        torch.cuda.synchronize()
+        pred_counts, pred_routes = _read_counts(), _read_routes()
+        singles = [MolPredict(load_model=d, cache_dir=caches["test"]).predict(test_csv)
+                   for d in solo_dirs]
+        plain = MolPredict(load_model=exp, cache_dir=caches["test"])
+        plain.config["use_pallas"] = False
+        plain_pred = plain.predict(test_csv)
+        server = MolServe(exp, serve_folds="all")
+        served = np.asarray(server.predict(smiles)["predict"])
+    mean_gap = float(np.abs(ens - np.mean(np.stack(singles), axis=0)).max())
+    serve_gap = float(np.abs(served.reshape(ens.shape) - ens).max())
+    plain_gap = float(np.abs(plain_pred - ens).max())
+    fold_spread = float(np.abs(singles[0] - singles[1]).max())
+    want_pred = _graph_launches(per_forward, 0, sweeps=1)
+    result = {
+        "model": {"layers": model.unimol_cfg.encoder_layers, "E": model.unimol_cfg.embed_dim,
+                  "H": model.unimol_cfg.attention_heads, "compute": "bf16", "batch": 32},
+        "dispatch": "defaults: device_feed auto (engaged), steps_per_call 4, MMDTI_PALLAS_LN=1",
+        "molecules": n, "folds": CV_FOLDS, "epochs": CV_EPOCHS,
+        "fold_sizes": [[len(tr), len(va)] for tr, va in splits],
+        "fit_wall_s": fit_s, "fold_wall_s": clf.model.fold_seconds,
+        "fold1_alone_wall_s": fresh_s,
+        "artifacts": sorted(os.listdir(exp)), "model_folds": config.get("model_folds"),
+        "split_method": config.get("split_method"),
+        "oof_rows_covered_once": bool(np.array_equal(covered, np.arange(n))),
+        "oof_finite": bool(np.isfinite(clf.cv_pred).all()),
+        "scaffolds": len(fold_of), "scaffolds_in_two_folds": spanning,
+        "programs_built": clf.trainer.programs_built, "graphs_recorded": graphs,
+        "fit_launches": counts, "fit_launches_expected": want,
+        "reused_fold_vs_fresh_fit_params_max_abs": reuse_gap,
+        "reused_fold_vs_fresh_fit_oof_max_abs": oof_gap,
+        "predict_launches": pred_counts, "predict_launches_expected": want_pred,
+        "ensemble_vs_mean_of_folds_max_abs": mean_gap, "ensemble_tol": CV_ENSEMBLE_TOL,
+        "fold_spread_max_abs": fold_spread,
+        "serve_all_vs_molpredict_max_abs": serve_gap, "serve_graphs": len(server.graphs),
+        "kernel_vs_plain_max_abs": plain_gap, "plain_tol": LOGITS_TOL,
+    }
+    print("cv: (a) " + json.dumps(result), flush=True)
+    if result["model_folds"] != CV_FOLDS or not all(
+            f"model_{f}.ckpt" in result["artifacts"] for f in range(CV_FOLDS)) or (
+            "target_scaler.ss" not in result["artifacts"]):
+        raise Failed(f"cv: artifacts {result['artifacts']}, model_folds {result['model_folds']}")
+    if not (result["oof_rows_covered_once"] and result["oof_finite"]):
+        raise Failed("cv: the out-of-fold predictions do not cover every row once, finite")
+    if spanning:
+        raise Failed(f"cv: {spanning} scaffolds span two folds")
+    if counts != want:
+        raise Failed(f"cv fit: the launchers counted {counts}, expected {want} ({graphs})")
+    _check_mma_routes(routes, {k: n for k, n in counts.items() if k in routes}, "cv fit")
+    if reuse_gap != 0.0 or oof_gap != 0.0:
+        raise Failed(f"cv: the reused second fold differs from a fresh fit of it by {reuse_gap} "
+                     f"(weights), {oof_gap} (predictions)")
+    if pred_counts != want_pred:
+        raise Failed(f"cv predict: the launchers counted {pred_counts}, expected {want_pred}")
+    _check_mma_routes(pred_routes, {k: n for k, n in pred_counts.items() if k in pred_routes},
+                      "cv predict")
+    if not mean_gap <= CV_ENSEMBLE_TOL:
+        raise Failed(f"cv: the ensemble differs from the mean of its folds by {mean_gap}")
+    if not (serve_gap <= LOGITS_TOL and plain_gap <= LOGITS_TOL):
+        raise Failed(f"cv: MolServe(serve_folds='all') differs from MolPredict by {serve_gap}, "
+                     f"the plain path by {plain_gap}")
+    del server, clf, fresh
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _resume_check(work, paths, caches):
+    """(b) fit(train, val) for RESUME_EPOCHS epochs twice uninterrupted,
+    and stopped after RESUME_STOP then resumed (checkpoint_interval=1):
+    the last epoch's history row, the weights and the predictions."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolTrain
+    from mmdti_tpu_torch.train.checkpointing import (
+        load_checkpoint,
+        load_train_state,
+        train_state_path,
+    )
+
+    kw = dict(epochs=RESUME_EPOCHS, cache_dir_train=caches["train"], cache_dir_test=caches["val"],
+              raw_data=paths["train"], use_weight=True, fds=True, fds_num=30,
+              fds_raw_path=paths["train"], fds_col_data="measured")
+    runs = {}
+    with _ln_kernels_on():
+        for name, exp, extra in (
+                ("whole_1", "exp_whole1", {}), ("whole_2", "exp_whole2", {}),
+                ("stopped", "exp_parted", {"stop_after_epoch": RESUME_STOP,
+                                           "checkpoint_interval": 1}),
+                ("resumed", "exp_parted", {"resume": True, "checkpoint_interval": 1})):
+            exp = os.path.join(work, exp)
+            t0 = time.perf_counter()
+            clf = MolTrain(**_cv_kwargs(exp, **kw, **extra)).fit(paths["train"], paths["val"])
+            torch.cuda.synchronize()
+            with open(os.path.join(exp, "history_0.json")) as f:
+                history = json.load(f)
+            runs[name] = {"exp": exp, "s": time.perf_counter() - t0, "history": history,
+                          "cv_pred": np.asarray(clf.cv_pred), "saves": clf.trainer.state_saves,
+                          "params": load_checkpoint(exp, 0)["params"]}
+            del clf
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    load_train_state(runs["resumed"]["exp"], 0)
+    load_s = time.perf_counter() - t0
+    state_bytes = os.path.getsize(train_state_path(runs["resumed"]["exp"], 0))
+
+    def gaps(a, b):
+        ra, rb = _without_times([a["history"][-1]])[0], _without_times([b["history"][-1]])[0]
+        return {"last_row": max(abs(ra[k] - rb[k]) for k in ra),
+                "params": _max_leaf_gap(a["params"], b["params"]),
+                "predictions": float(np.abs(a["cv_pred"] - b["cv_pred"]).max())}
+
+    whole = gaps(runs["whole_1"], runs["whole_2"])
+    parted = gaps(runs["whole_1"], runs["resumed"])
+    result = {
+        "epochs": RESUME_EPOCHS, "stop_after_epoch": RESUME_STOP,
+        "history_epochs_resumed": [r["epoch"] for r in runs["resumed"]["history"]],
+        "uninterrupted_vs_uninterrupted": whole, "uninterrupted_vs_resumed": parted,
+        "fit_wall_s": {k: r["s"] for k, r in runs.items()},
+        "train_state_bytes": state_bytes,
+        "saves_stopped_run": runs["stopped"]["saves"],
+        "saves_resumed_run": runs["resumed"]["saves"],
+        "train_state_load_s": load_s,
+        # against the second uninterrupted fit: the first also wrote the
+        # conformer caches every later fit reads
+        "resume_overhead_s": runs["stopped"]["s"] + runs["resumed"]["s"] - runs["whole_2"]["s"],
+    }
+    print("cv: (b) " + json.dumps(result), flush=True)
+    if result["history_epochs_resumed"] != list(range(1, RESUME_EPOCHS + 1)):
+        raise Failed(f"cv resume: history epochs {result['history_epochs_resumed']}")
+    if [(s["epoch"], s["async"]) for s in runs["stopped"]["saves"]] != [(1, True), (2, False)]:
+        raise Failed(f"cv resume: the stopped run saved {runs['stopped']['saves']}")
+    for k, gap in parted.items():
+        if gap > whole[k]:
+            raise Failed(f"cv resume: the resumed fit differs from the uninterrupted one by {gap} "
+                         f"({k}); two uninterrupted fits differ by {whole[k]}")
+
+
+def _profile_and_nan_check(work, paths, caches):
+    """(c) a fit with profile_dir writes a trace holding the port kernels'
+    names; a fit with debug_nans and a NaN target raises
+    FloatingPointError."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolTrain
+    from mmdti_tpu_torch.data.reader import read_csv, take_rows, write_csv
+    from mmdti_tpu_torch.train.profiler import trace_file
+
+    trace_dir = os.path.join(work, "trace")
+    with _ln_kernels_on():
+        t0 = time.perf_counter()
+        MolTrain(**_cv_kwargs(os.path.join(work, "exp_profiled"), epochs=1,
+                              cache_dir_train=caches["train"], cache_dir_test=caches["val"],
+                              profile_dir=trace_dir, profile_steps=1)).fit(paths["train"],
+                                                                          paths["val"])
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    path = trace_file(trace_dir, "fold0")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(m in name for name in kernels) > 0 for k, m in KERNEL_MARKERS.items()}
+
+    table = read_csv(paths["train"])
+    bad = take_rows(table, list(range(min(96, len(table["smiles"])))))
+    measured = np.asarray(bad["measured"], np.float64).copy()
+    measured[5] = np.nan
+    bad["measured"] = measured
+    bad_csv = os.path.join(work, "train_nan.csv")
+    write_csv(bad, bad_csv)
+    raised = None
+    with _ln_kernels_on():
+        try:
+            MolTrain(**_cv_kwargs(os.path.join(work, "exp_nan"), epochs=1, debug_nans=True,
+                                  target_anomaly_check="none", use_scaler=False,
+                                  cache_dir_test=caches["val"])).fit(bad_csv, paths["val"])
+        except FloatingPointError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    result = {"trace": os.path.relpath(path, REPO), "trace_bytes": os.path.getsize(path),
+              "trace_kernel_names": len(kernels), "port_kernels_in_trace": found,
+              "profiled_fit_wall_s": profiled_s, "debug_nans_raised": raised}
+    print("cv: (c) " + json.dumps(result), flush=True)
+    if not all(found.values()):
+        raise Failed(f"cv profile: the trace lacks port kernels: {found}")
+    if raised is None:
+        raise Failed("cv debug_nans: a NaN target trained on without FloatingPointError")
+
+
+def phase_cv(dev, graph_fit):
+    """Cross-validation, resume, the profiler and the NaN check on the
+    card, on phase fit's 400-molecule set.  Returns the launch counts of
+    the CV fit."""
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_cv")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = graph_fit["paths"]
+    data = os.path.join(os.path.dirname(paths["train"]), "synthetic.csv")
+    caches = {k: os.path.join(work, f"{k}.features.pkl") for k in ("all", "train", "val", "test")}
+    t_phase = time.perf_counter()
+    counts = _cv_fit_check(work, data, paths["test"], caches)
+    _resume_check(work, paths, caches)
+    _profile_and_nan_check(work, paths, caches)
+    torch.cuda.empty_cache()
+    print(f"cv: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
@@ -2816,19 +3164,21 @@ def main() -> int:
     graph_fit = phase_graphs(dev)
     fit_launches = phase_fit(dev, graph_fit)
     task_launches = phase_tasks(dev)
+    cv_launches = phase_cv(dev, graph_fit)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
         if n == 0:
             raise Failed(f"{name} was not launched on its path")
-    for task, counts in task_launches.items():
+    for task, counts in {**task_launches, "cv": cv_launches}.items():
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **summary[name],
-         "task_launches": {task: counts[name] for task, counts in task_launches.items()}}
+         "task_launches": {task: counts[name] for task, counts in task_launches.items()},
+         "cv_launches": cv_launches[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

@@ -12,8 +12,8 @@ the input carries its targets (not the -1.0 placeholder) the probability
 columns are scored into test_metric.result.  threshold.dat is read
 without joblib: a standard pickle, or joblib's array format (the JAX
 package's searched thresholds), through an unpickler that accepts numpy
-arrays and scalars and nothing else.  ``device`` is "cuda" unless the
-caller asks for the CPU.
+arrays and scalars and nothing else (utils/joblib_pickle.py).  ``device``
+is "cuda" unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -32,62 +32,16 @@ from mmdti_tpu_torch.data.hub import DataHub
 from mmdti_tpu_torch.data.reader import write_csv
 from mmdti_tpu_torch.train.nnmodel import NNModel
 from mmdti_tpu_torch.train.trainer import Trainer
+from mmdti_tpu_torch.utils.joblib_pickle import RestrictedUnpickler
 
 logger = logging.getLogger("mmdti_tpu_torch")
-
-_NUMPY_CLASSES = {("numpy", "ndarray"), ("numpy", "dtype")} | {
-    (mod, name) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")
-    for name in ("_reconstruct", "scalar")}
-
-
-class _JoblibArray:
-    """joblib's NumpyArrayWrapper: an array's subclass, shape, order and
-    dtype, whose raw bytes follow its pickle in the file."""
-
-    def read(self, f) -> np.ndarray:
-        if self.dtype.hasobject:
-            raise pickle.UnpicklingError("threshold.dat holds an object array")
-        if getattr(self, "numpy_array_alignment_bytes", None) is not None:
-            f.read(int.from_bytes(f.read(1), "little"))      # alignment padding
-        count = int(np.prod(self.shape, dtype=np.int64))
-        data = f.read(count * self.dtype.itemsize)
-        if len(data) != count * self.dtype.itemsize:
-            raise pickle.UnpicklingError("threshold.dat ends inside its array")
-        array = np.frombuffer(data, dtype=self.dtype).copy()
-        if self.order == "F":
-            return array.reshape(self.shape[::-1]).transpose()
-        return array.reshape(self.shape)
-
-
-class _ThresholdUnpickler(pickle._Unpickler):
-    """Reads a float, a numpy scalar or array, pickled plainly or by joblib;
-    any other class raises."""
-
-    def __init__(self, f):
-        super().__init__(f)
-        self._f = f
-
-    def find_class(self, module, name):
-        if (module, name) == ("joblib.numpy_pickle", "NumpyArrayWrapper"):
-            return _JoblibArray
-        if (module, name) in _NUMPY_CLASSES:
-            return super().find_class(module, name)
-        raise pickle.UnpicklingError(f"threshold.dat names {module}.{name}")
-
-    def load_build(self):
-        super().load_build()
-        if isinstance(self.stack[-1], _JoblibArray):
-            self.stack.append(self.stack.pop().read(self._f))
-
-    dispatch = dict(pickle._Unpickler.dispatch)
-    dispatch[pickle.BUILD[0]] = load_build
 
 
 def load_threshold(path: str):
     """The classification threshold(s) in ``path``: a float or an array
     with one per target column."""
     with open(path, "rb") as f:
-        return _ThresholdUnpickler(f).load()
+        return RestrictedUnpickler(f, "threshold.dat").load()
 
 
 class MolPredict:

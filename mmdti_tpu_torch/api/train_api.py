@@ -9,9 +9,13 @@ classification tasks (0.5, or the per-column search on the validation
 predictions with ``threshold_search=True``; a standard pickle, which
 joblib.load reads too), model_0.ckpt (flax-msgpack,
 train/checkpointing.py) and history_0.json, and keeps the inverse-scaled
-validation predictions in ``cv_pred``.  ``fit(train)`` (k-fold CV) waits
-for a later slice (ROADMAP.md).  ``device`` is "cuda" unless the caller
-asks for the CPU; it is not written to the config.
+validation predictions in ``cv_pred``.  ``fit(train)`` runs k-fold
+cross-validation: ``kfold`` models on the folds of splits.Splitter
+(``split``: random, scaffold, group or stratified), model_{fold}.ckpt and
+history_{fold}.json each, ``model_folds: kfold`` in config.yaml, and the
+out-of-fold predictions in ``cv_pred`` (the threshold search takes the
+out-of-fold labels).  ``device`` is "cuda" unless the caller asks for the
+CPU; it is not written to the config.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 
 from mmdti_tpu_torch.configs.config import default_config, save_yaml
 from mmdti_tpu_torch.data.hub import DataHub
+from mmdti_tpu_torch.splits import Splitter
 from mmdti_tpu_torch.train.nnmodel import NNModel
 from mmdti_tpu_torch.train.trainer import Trainer
 
@@ -139,12 +144,18 @@ class MolTrain:
         self.device = device
 
     def fit(self, data_train, data_val=None):
-        """Fit one model (fold 0) on ``data_train`` against the held-out
-        ``data_val`` (CSV paths, dicts of columns or tables)."""
+        """Fit on ``data_train`` (a CSV path, a dict of columns or a
+        table): one model (fold 0) against ``data_val`` when it is given
+        (``kfold`` then only names the split in the config), else k-fold
+        cross-validation."""
+        kfold = int(self.config.get("kfold", 5) or 1)
         if data_val is None:
-            raise NotImplementedError(
-                "fit(data_train) runs k-fold cross-validation, which is not ported yet "
-                "(ROADMAP.md, M5); pass data_val")
+            if kfold <= 1:
+                raise ValueError(
+                    "fit(data_train) without a validation set requires kfold > 1 for "
+                    f"cross-validation (got kfold={kfold}); pass data_val for a single "
+                    "train/val run")
+            return self._fit_cv(data_train, kfold)
         self.datahub = DataHub(data=data_train, is_train=True, save_path=self.save_path,
                                **self.config)
         self.datahub_1 = DataHub(data=data_val, is_train=False, save_path=self.save_path,
@@ -155,11 +166,47 @@ class MolTrain:
         self.trainer = Trainer(save_path=self.save_path, device=self.device, **self.config)
         self.model = NNModel(self.data_train, self.data_test, self.trainer, **self.config)
         self.model.run()
-        return self._finalize()
+        return self._finalize(np.asarray(self.data_test["target"], dtype=float))
 
-    def _finalize(self):
-        """Inverse-scale the validation predictions into ``cv_pred``; write
-        threshold.dat for the thresholded tasks."""
+    def _fit_cv(self, data_train, kfold: int):
+        """Cross-validation: featurize and scale once, build one model whose
+        initial weights every fold starts from, and fit the folds in turn."""
+        self.datahub = DataHub(data=data_train, is_train=True, save_path=self.save_path,
+                               **self.config)
+        self.data_train = self.datahub.data
+        self.data_test = self.data_train      # the pad lengths' source; folds slice it
+        self.update_and_save_config(n_folds=kfold)
+        self.trainer = Trainer(save_path=self.save_path, device=self.device, **self.config)
+        self.model = NNModel(self.data_train, self.data_train, self.trainer, **self.config)
+        self.model.run_cv(self._cv_splits(kfold))
+        return self._finalize(np.asarray(self.data_train["target"], dtype=float))
+
+    def _cv_splits(self, kfold: int):
+        """The folds' (train, validation) index pairs: scaffold and group
+        splits keep each group (the scaffolds of the SMILES, or the
+        ``split_group_col`` column) in one fold, stratified splits balance
+        the first target column's classes."""
+        method = str(self.config.get("split", "random"))
+        splitter = Splitter(f"{kfold}fold_{method}", seed=int(self.config.get("seed", 42)))
+        target = np.asarray(self.data_train["target"])
+        idx = np.arange(target.shape[0])
+        if method in ("scaffold", "group"):
+            group = self.data_train.get("group")
+            if group is None:
+                raise ValueError(
+                    f"split='{method}' needs group labels: provide the "
+                    f"'{self.config.get('split_group_col', 'scaffold')}' column or SMILES "
+                    "input (scaffolds are derived from it)")
+            return splitter.split(idx, group=np.asarray(group))
+        if method == "stratified":
+            return splitter.split(idx, target=target[:, 0].astype(int))
+        return splitter.split(idx)
+
+    def _finalize(self, val_true: np.ndarray):
+        """Inverse-scale the predictions into ``cv_pred``; write
+        threshold.dat for the thresholded tasks, searched against
+        ``val_true`` (the labels the predictions align with: the
+        validation set's, or the whole train set's out of fold)."""
         scaler = self.data_train["target_scaler"]
         y_pred = self.model.cv["pred"]
         if scaler is not None and scaler.scaler is not None:
@@ -168,8 +215,7 @@ class MolTrain:
             threshold = 0.5
             if self.config.get("threshold_search"):
                 threshold = self.trainer.metrics.search_threshold(
-                    np.asarray(self.data_test["target"], dtype=float),
-                    np.asarray(self.model.cv["pred"], dtype=float))
+                    val_true, np.asarray(self.model.cv["pred"], dtype=float))
                 logger.info("Searched classification thresholds: %s", threshold)
             with open(os.path.join(self.save_path, THRESHOLD_FILE), "wb") as f:
                 pickle.dump(threshold, f, protocol=4)

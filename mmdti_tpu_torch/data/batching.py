@@ -3,7 +3,8 @@
 Port of mmdti_tpu.data.batching: ``MolDataset``, ``MolDataLoader`` (the
 same numpy shuffle, so both packages see the same batches for one seed; its
 ``epoch_index_matrix`` gives an epoch as row indices for the device-resident
-feed), ``CachedLoader``, ``collate_dataset``, ``dataset_pad_lengths`` and
+feed, ``advance_epochs`` skips the epochs a resumed fit already ran),
+``CachedLoader``, ``collate_dataset``, ``dataset_pad_lengths`` and
 ``BatchCollator`` with host pair features only:
 pad src_tokens with the dictionary pad index, src_distance with 0.0,
 src_edge_type with the pad index, tokenize the SMILES strings into
@@ -156,6 +157,13 @@ class MolDataLoader:
         if self.shuffle:
             self.rng.shuffle(idx)
         return idx
+
+    def advance_epochs(self, n: int) -> None:
+        """Draw and drop n epochs' shuffles: a resumed fit's fresh loader
+        then orders its next epoch as the uninterrupted fit's loader did
+        (both for __iter__ and epoch_index_matrix)."""
+        for _ in range(max(int(n), 0)):
+            self._epoch_order()
 
     def __iter__(self):
         idx = self._epoch_order()

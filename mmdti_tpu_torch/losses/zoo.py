@@ -139,7 +139,8 @@ class GHMCState:
     later call by the EMA of the carried counts and the batch's.  Each call
     writes the new counts and sets the flag in place, on the device, so a
     CUDA graph that records train steps replays the update; ``graph_state``
-    lists the tensors a call writes, ``reset`` starts a fit afresh."""
+    lists the tensors a call writes, ``reset`` starts a fit afresh, and
+    ``state_dict``/``load_state_dict`` save and restore them (a resume)."""
 
     def __init__(self, device, bins: int = 10, alpha: float = 0.5):
         self.bins, self.alpha = bins, alpha
@@ -149,6 +150,16 @@ class GHMCState:
     @property
     def graph_state(self):
         return (self.bin_count, self.flag)
+
+    def state_dict(self):
+        """The bins and flag by name (the tensors themselves)."""
+        return {"bin_count": self.bin_count, "flag": self.flag}
+
+    @torch.no_grad()
+    def load_state_dict(self, state) -> None:
+        """Copy saved bins and flag in, in place."""
+        self.bin_count.copy_(state["bin_count"])
+        self.flag.copy_(state["flag"])
 
     @torch.no_grad()
     def reset(self) -> None:

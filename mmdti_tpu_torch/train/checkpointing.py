@@ -1,5 +1,5 @@
-"""Best-weights checkpoint and per-epoch history (port of the matching
-parts of mmdti_tpu/train/checkpointing.py).
+"""Best-weights checkpoint, train state and resume, and the per-epoch
+history (port of mmdti_tpu/train/checkpointing.py on one device).
 
 ``model_{fold}.ckpt`` keeps the JAX package's flax-msgpack format:
 ``{"params": <flax parameter tree>, "fds": {<FDS state>}}``, each array as
@@ -10,16 +10,35 @@ int, float, bool, nil, ext) without the msgpack package, so either package
 restores the other's checkpoint.  The parameter names are the flax paths
 that models/convert.py maps onto the port's state dict.
 ``history_{fold}.json`` is the per-epoch scalar log.
+
+``train_state_{fold}.ckpt`` is the whole state a fit carries from epoch to
+epoch, in the same codec: the optimizer's flat parameter, moment and
+count buffers (and the accumulation buffers), the FDS state, the task
+loss's state (GHM's bins and flag), the dropout generator's state, the
+epoch and global step, the best weights and FDS state so far, and the
+early-stop triple.  ``CheckpointResumeMixin`` writes it every
+``checkpoint_interval`` epochs and at ``stop_after_epoch``, and
+``resume=True`` copies it back into the same tensors (a CUDA graph holds
+their addresses) and realigns the loader's shuffle, so the resumed fit
+continues the uninterrupted trajectory bit for bit.  The file is the
+port's own: the JAX package's train state holds optax trees that map onto
+no buffer here, and either package refuses the other's.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import struct
+import threading
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+logger = logging.getLogger("mmdti_tpu_torch")
 
 EXT_NDARRAY = 1     # flax _MsgpackExtType.ndarray
 EXT_NPSCALAR = 3    # flax _MsgpackExtType.npscalar
@@ -138,8 +157,9 @@ def msgpack_serialize(tree) -> bytes:
 
 
 class _Reader:
-    def __init__(self, data: bytes, raw: bool):
+    def __init__(self, data: bytes, raw: bool, bfloat16_bits: bool = False):
         self.data, self.pos, self.raw = memoryview(data), 0, raw
+        self.bfloat16_bits = bfloat16_bits
 
     def take(self, n: int) -> bytes:
         if self.pos + n > len(self.data):
@@ -162,7 +182,9 @@ class _Reader:
             shape, dtype_name, buffer = unpackb(data, raw=True)
             name = dtype_name.decode() if isinstance(dtype_name, bytes) else dtype_name
             if name == "bfloat16":
-                raise ValueError("bfloat16 arrays are not read by this codec")
+                if not self.bfloat16_bits:
+                    raise ValueError("bfloat16 arrays are not read by this codec")
+                name = "uint16"      # the raw bits
             arr = np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape, order="C").copy()
             return arr if code == EXT_NDARRAY else arr[()]
         raise ValueError(f"unknown msgpack extension type {code}")
@@ -213,8 +235,10 @@ class _Reader:
         return out
 
 
-def unpackb(data: bytes, raw: bool = False):
-    r = _Reader(data, raw)
+def unpackb(data: bytes, raw: bool = False, bfloat16_bits: bool = False):
+    """The object msgpack ``data`` holds; bfloat16 arrays raise, or come
+    back as their uint16 bits with ``bfloat16_bits``."""
+    r = _Reader(data, raw, bfloat16_bits)
     obj = r.read()
     if r.pos != len(r.data):
         raise ValueError("trailing bytes after the msgpack object")
@@ -275,3 +299,193 @@ def _write_history(dump_dir: Optional[str], fold: int, history) -> None:
     with open(history_path(dump_dir, fold), "w") as f:
         json.dump(history, f, indent=1)
 
+
+
+def _load_history(dump_dir: Optional[str], fold: int, upto_epoch: int):
+    """A previous run's history rows up to ``upto_epoch`` (1-based); a
+    missing or unreadable file gives none."""
+    if not dump_dir or not os.path.exists(history_path(dump_dir, fold)):
+        return []
+    try:
+        with open(history_path(dump_dir, fold)) as f:
+            rows = json.load(f)
+        return [r for r in rows if int(r.get("epoch", 0)) <= upto_epoch]
+    except (OSError, ValueError, TypeError, AttributeError):
+        return []
+
+
+# ---- train state ------------------------------------------------------------------
+
+TRAIN_STATE_FORMAT = "mmdti_tpu_torch.train_state.1"
+
+
+def train_state_path(dump_dir: str, fold: int) -> str:
+    return os.path.join(dump_dir, f"train_state_{fold}.ckpt")
+
+
+def _encode(tree):
+    """Tensors -> numpy leaves (a bfloat16 tensor -> {"bfloat16_bits":
+    its int16 bits}); dicts, lists and scalars as they are."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return {"bfloat16_bits": t.view(torch.int16).numpy()}
+        return t.numpy()
+    if isinstance(tree, dict):
+        return {k: _encode(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_encode(v) for v in tree]
+    return tree
+
+
+def _decode(tree):
+    """numpy leaves -> CPU tensors (the inverse of _encode)."""
+    if isinstance(tree, np.ndarray):
+        return torch.from_numpy(tree)
+    if isinstance(tree, dict):
+        if set(tree) == {"bfloat16_bits"}:
+            return torch.from_numpy(tree["bfloat16_bits"].astype(np.int16)).view(torch.bfloat16)
+        return {k: _decode(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_decode(v) for v in tree]
+    return tree
+
+
+def save_train_state(dump_dir: str, fold: int, state: Dict[str, Any]) -> int:
+    """Write ``state`` (a tree of dicts, lists, scalars and CPU tensors or
+    arrays) atomically; returns the file's bytes."""
+    os.makedirs(dump_dir, exist_ok=True)
+    blob = msgpack_serialize({"format": TRAIN_STATE_FORMAT, **_encode(state)})
+    path = train_state_path(dump_dir, fold)
+    with open(path + ".tmp", "wb") as f:
+        f.write(blob)
+    os.replace(path + ".tmp", path)
+    return len(blob)
+
+
+def load_train_state(dump_dir: str, fold: int) -> Dict[str, Any]:
+    """The state save_train_state wrote, tensors on the CPU.  A file that
+    does not decode, or that another writer made, raises."""
+    path = train_state_path(dump_dir, fold)
+    with open(path, "rb") as f:
+        blob = f.read()
+    try:
+        tree = unpackb(blob, bfloat16_bits=True)
+    except (ValueError, struct.error, UnicodeDecodeError) as e:
+        raise ValueError(f"{path} is not a readable train state ({e}); the resume stops "
+                         "here rather than start the fit afresh") from e
+    if not isinstance(tree, dict) or tree.get("format") != TRAIN_STATE_FORMAT:
+        if isinstance(tree, dict) and "opt_state" in tree:
+            raise ValueError(
+                f"{path} is the JAX package's train state: its optax optimizer tree maps "
+                "onto none of the port's buffers, so the port does not resume it "
+                "(ROADMAP.md §3, known differences)")
+        raise ValueError(f"{path} is not a train state of this package")
+    tree.pop("format")
+    return _decode(tree)
+
+
+class _AsyncSaver:
+    """Background train-state writer, one save in flight: ``submit`` waits
+    for the previous save first, and a failed write raises at the next
+    ``submit`` or ``wait``."""
+
+    def __init__(self):
+        self._thread = None
+        self._exc = None
+
+    def submit(self, fn) -> None:
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # raised at the next join
+                self._exc = e
+
+        self._thread = threading.Thread(target=run, daemon=True, name="mmdti-ckpt-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+
+def _host(tree):
+    """A tree of tensors pulled to the host (copies)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host(v) for v in tree]
+    return tree
+
+
+class CheckpointResumeMixin:
+    """The fit loop's resume and its epoch-end train-state saves (config on
+    the Trainer: resume, checkpoint_interval, stop_after_epoch,
+    async_checkpoint, max_epochs).  ``state_saves`` records each save:
+    epoch, async, the loop's seconds, the write's seconds and the bytes."""
+
+    def _resume_fit_state(self, dump_dir, fold, programs, train_loader):
+        """Copy a saved train state into ``programs`` (TrainPrograms: the
+        optimizer's buffers, the FDS and loss state, the generator) in
+        place and skip the loader's finished epochs.  Returns (start
+        epoch, global step, the saved best state or None)."""
+        if not (self.resume and os.path.exists(train_state_path(dump_dir, fold))):
+            return 0, 0, None
+        state = load_train_state(dump_dir, fold)
+        programs.load_state(state["programs"])
+        start_epoch = int(state["epoch"]) + 1
+        train_loader.advance_epochs(start_epoch)
+        logger.info("Resumed train state from epoch %d", start_epoch)
+        return start_epoch, int(state["global_step"]), state
+
+    def _save_epoch_state(self, saver: _AsyncSaver, dump_dir, fold, epoch, global_step,
+                          programs, best_params, best_fds, min_val_loss, wait,
+                          best_score) -> bool:
+        """The train state at the end of ``epoch`` (0-based), written every
+        checkpoint_interval epochs and when stop_after_epoch ends this run.
+        Returns whether it ends (a later resume=True run continues it).
+
+        The tensors are pulled to the host here, on the loop's thread: a
+        pull from another thread could meet a CUDA graph capture of this
+        one.  With async_checkpoint the encoding and the write then run on
+        the writer thread."""
+        stopping = bool(self.stop_after_epoch and epoch + 1 >= self.stop_after_epoch
+                        and epoch + 1 < self.max_epochs)
+        interval = bool(self.checkpoint_interval and (epoch + 1) % self.checkpoint_interval == 0)
+        if not (interval or stopping):
+            return stopping
+        t0 = time.perf_counter()
+        state = {
+            "programs": _host(programs.state_dict()),
+            "epoch": int(epoch), "global_step": int(global_step),
+            "best_params": _host(best_params), "best_fds": _host(best_fds or {}),
+            "early_stop": {"min_val_loss": float(min_val_loss), "wait": int(wait),
+                           "best_score": float("nan") if best_score is None else float(best_score)},
+        }
+        record = {"epoch": epoch + 1, "async": bool(self.async_checkpoint and not stopping)}
+        self.state_saves.append(record)
+
+        def write():
+            t1 = time.perf_counter()
+            record["bytes"] = save_train_state(dump_dir, fold, state)
+            record["write_s"] = time.perf_counter() - t1
+
+        try:
+            # an earlier async save writes the same file: it lands first
+            saver.wait()
+        except Exception:
+            logger.exception("the previous train-state save failed; training continues")
+        if record["async"]:
+            saver.submit(write)
+        else:
+            write()
+        record["loop_s"] = time.perf_counter() - t0
+        return stopping

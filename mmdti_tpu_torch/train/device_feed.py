@@ -58,10 +58,20 @@ def row_bucket(n: int) -> int:
     return max(128, -(-n // 128) * 128)
 
 
+def _tensors(resident: Resident):
+    return [*(resident.feats[k] for k in sorted(resident.feats)), resident.labels,
+            *(() if resident.weights is None else (resident.weights,))]
+
+
+def _layout(resident: Resident):
+    return (tuple(sorted(resident.feats)), resident.weights is None,
+            [(tuple(t.shape), t.dtype) for t in _tensors(resident)])
+
+
 class DeviceFeedMixin:
     """The feed's decisions and its host-to-device plumbing for the
-    Trainer (which holds device, batch_size, device_feed and
-    device_feed_bytes)."""
+    Trainer (which holds device, batch_size, device_feed,
+    device_feed_bytes and the resident slots)."""
 
     def feed_engaged(self, collate_fn, *datasets) -> bool:
         """Does the resident feed run?  device_feed=False: never.  True:
@@ -97,10 +107,15 @@ class DeviceFeedMixin:
             return False
         return True
 
-    def dataset_to_device(self, dataset, collate_fn):
+    def dataset_to_device(self, dataset, collate_fn, slot=None):
         """Collate ``dataset`` once and put it on the trainer's device, rows
         padded with zeros up to row_bucket.  Returns (Resident, the host
-        label rows without padding)."""
+        label rows without padding).  With ``slot`` (a name: a fit's
+        "train" or "val") the rows are copied into the Resident the last
+        call with that slot returned when every array has its shape and
+        dtype, so graphs recorded over it replay for the new rows (the next
+        fold of a cross-validation); otherwise the new Resident takes the
+        slot."""
         batch, labels = collate_dataset(dataset, collate_fn)
         rows = row_bucket(labels.shape[0])
 
@@ -111,7 +126,17 @@ class DeviceFeedMixin:
             return np.concatenate([x, np.zeros((rows - x.shape[0],) + x.shape[1:], x.dtype)])
 
         feats, weights = self._split_batch({k: pad_rows(v) for k, v in batch.items()})
-        return Resident(feats, self._labels(pad_rows(labels)), weights), labels
+        resident = Resident(feats, self._labels(pad_rows(labels)), weights)
+        if slot is None:
+            return resident, labels
+        held = self._slots.get(slot)
+        if held is not None and _layout(held) == _layout(resident):
+            with torch.no_grad():
+                for dst, src in zip(_tensors(held), _tensors(resident)):
+                    dst.copy_(src)
+            return held, labels
+        self._slots[slot] = resident
+        return resident, labels
 
     def eval_sweep(self, model, loss_fn, activation_fn, with_pooled: bool = False) -> EvalSweep:
         """The sweep of this model and loss (one per Trainer, so its graphs
@@ -125,12 +150,13 @@ class DeviceFeedMixin:
         return hit[1]
 
     def build_eval_device_data(self, model, dataset, collate_fn, loss_fn, activation_fn,
-                               eval_sweep=None):
-        """What predict(device_data=...) sweeps: the resident dataset, its
-        batches in loader order as a [nb, B] index matrix (the last batch
-        padded by repeating its last row), the valid rows per batch, the
-        host labels and the sweep."""
-        resident, labels_host = self.dataset_to_device(dataset, collate_fn)
+                               eval_sweep=None, slot=None):
+        """What predict(device_data=...) sweeps: the resident dataset (in
+        ``slot``, as dataset_to_device keeps it), its batches in loader
+        order as a [nb, B] index matrix (the last batch padded by repeating
+        its last row), the valid rows per batch, the host labels and the
+        sweep."""
+        resident, labels_host = self.dataset_to_device(dataset, collate_fn, slot=slot)
         idx, valid_ns = MolDataLoader(dataset, self.batch_size, collate_fn).epoch_index_matrix()
         return {
             "resident": resident,

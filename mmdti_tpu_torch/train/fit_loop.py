@@ -5,13 +5,24 @@ from the checkpoint written.
 
 With the device-resident feed (train/device_feed.py) an epoch is [K, B]
 index blocks of ``MolDataLoader.epoch_index_matrix``, K steps each, and
-validation and the FDS feature pass sweep the resident arrays; without it,
-K shape-equal host batches are stacked per dispatch and any left over run
+validation and the FDS pass sweep the resident arrays; without it, K
+shape-equal host batches are stacked per dispatch and any left over run
 one step at a time.  On a CUDA device a K-step dispatch and a sweep's
 batch are CUDA graph replays (train/steps.py).  Dispatch grouping never
 changes the math: the same batches in the same order, the same dropout
-draws from the fit's generator.  The profiler hooks and resume are left
-out (ROADMAP.md, M5).
+draws from the fit's generator.
+
+Cross-validation calls fit_predict once a fold.  A fold whose train
+programs would be the same as the last fold's (the same model, losses,
+schedule length and flags) reuses them: the optimizer's moments and
+counts go back to zero in place, the generator to its seed, the FDS and
+loss state to their start, and its datasets are copied into the last
+fold's resident arrays when their shapes agree, so the CUDA graphs
+recorded for the first fold replay for the next.  The hooks of
+train/checkpointing.py (resume, periodic and stop-after train states) and
+train/profiler.py (a trace of the first dispatches, the dispatch timer)
+run where the JAX loop runs them; ``debug_nans`` checks each dispatch's
+losses and gradient norms.
 """
 
 from __future__ import annotations
@@ -25,11 +36,19 @@ import torch
 from mmdti_tpu_torch.data.batching import CachedLoader, MolDataLoader
 from mmdti_tpu_torch.losses.fds import fds_epoch_update
 from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
-from mmdti_tpu_torch.train.checkpointing import _write_history, save_checkpoint
+from mmdti_tpu_torch.train.checkpointing import (
+    _AsyncSaver,
+    _load_history,
+    _write_history,
+    save_checkpoint,
+)
 from mmdti_tpu_torch.train.optim import FusedAdam
+from mmdti_tpu_torch.train.profiler import DispatchProfiler
 from mmdti_tpu_torch.train.steps import METRICS, TrainPrograms, build_eval_step
 
 logger = logging.getLogger("mmdti_tpu_torch")
+
+_CHECKED = [METRICS.index("loss"), METRICS.index("grad_norm")]
 
 
 def weighted_loss_mean(val_losses) -> float:
@@ -54,6 +73,19 @@ def _snap_to_divisor(k: int, nb: int) -> int:
     return next(d for d in range(k, 0, -1) if nb % d == 0)
 
 
+def check_finite(metrics: torch.Tensor, epoch: int, first_step: int) -> None:
+    """debug_nans: raise FloatingPointError naming the epoch (1-based) and
+    the global step of the first step of a dispatch whose loss or gradient
+    norm is not finite (``metrics`` [M] or [K, M])."""
+    rows = metrics.reshape(-1, len(METRICS))[:, _CHECKED]
+    bad = torch.nonzero(~torch.isfinite(rows).all(dim=1)).flatten().tolist()
+    if bad:
+        row = rows[bad[0]].tolist()
+        raise FloatingPointError(
+            f"debug_nans: non-finite loss or gradient norm at epoch {epoch + 1}, step "
+            f"{first_step + bad[0]} (loss {row[0]}, grad_norm {row[1]})")
+
+
 class FitLoopMixin:
     """fit_predict; state and config live on the Trainer."""
 
@@ -75,16 +107,9 @@ class FitLoopMixin:
         # the schedule runs in optimizer updates: with accumulation one
         # comes every accumulate_steps mini-steps
         num_updates = max(1, steps_per_epoch * self.max_epochs // self.accumulate_steps)
-        optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate, num_updates,
-                              self.warmup_ratio, self.max_norm, mu_dtype=self.mu_dtype,
-                              accumulate_steps=self.accumulate_steps)
-        generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        if stateful_loss is not None:
-            stateful_loss.reset()
-        programs = TrainPrograms(model, optimizer, stateful_loss or loss_fn, self.task, generator,
-                                 fds_state=fds_state, fds_bucket=fds_bucket,
-                                 use_infonce=use_infonce, use_ct=use_ct, use_weight=use_weight,
-                                 alpha=self.alpha, beta=self.beta, ct_w=self.ct_w)
+        programs = self._train_programs(
+            model, stateful_loss or loss_fn, num_updates, fds_state, fds_bucket,
+            use_infonce=use_infonce, use_ct=use_ct, use_weight=use_weight)
         fds_state = programs.fds_state
         eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
 
@@ -92,9 +117,9 @@ class FitLoopMixin:
         feed_on = self.feed_engaged(collate_fn, train_dataset, valid_dataset)
         val_device_data = None
         if feed_on:
-            train_res, _ = self.dataset_to_device(train_dataset, collate_fn)
+            train_res, _ = self.dataset_to_device(train_dataset, collate_fn, slot="train")
             val_device_data = self.build_eval_device_data(model, valid_dataset, collate_fn,
-                                                          loss_fn, activation_fn)
+                                                          loss_fn, activation_fn, slot="val")
             if use_fds:
                 # the FDS pass sweeps the full batches in order (drop_last),
                 # as the loader path does
@@ -123,8 +148,34 @@ class FitLoopMixin:
         use_metric_stop = isinstance(self.metrics_str, str) and self.metrics_str not in (
             "loss", "none", "")
         wait = 0
-        history = []
-        for epoch in range(self.max_epochs):
+        start_epoch, global_step, resumed = self._resume_fit_state(dump_dir, fold, programs,
+                                                                   train_loader)
+        # per-epoch scalars; a resumed fit keeps the earlier run's rows
+        history = _load_history(dump_dir, fold, start_epoch)
+        if resumed is not None:
+            best_params = {k: v.to(self.device) for k, v in resumed["best_params"].items()}
+            best_fds = ({k: v.to(self.device) for k, v in resumed["best_fds"].items()}
+                        if fds_state is not None else None)
+            es = resumed["early_stop"]
+            min_val_loss, wait = float(es["min_val_loss"]), int(es["wait"])
+            if use_metric_stop and not np.isnan(es["best_score"]):
+                best_score = float(es["best_score"])
+        saver = _AsyncSaver()
+        prof = DispatchProfiler(self.profile_dir, self.profile_steps, name=f"fold{fold}")
+
+        def dispatch(call, *args):
+            """One train dispatch with the profiler's and debug_nans' hooks;
+            returns its steps' metrics."""
+            nonlocal global_step
+            prof.begin(epoch == start_epoch)
+            m = call(*args)
+            prof.end(m)
+            if self.debug_nans:
+                check_finite(m, epoch, global_step)
+            global_step += 1 if m.dim() == 1 else m.shape[0]
+            return m
+
+        for epoch in range(start_epoch, self.max_epochs):
             t0 = time.time()
             programs.set_epoch(epoch)
             programs.metric_sums.zero_()
@@ -132,17 +183,18 @@ class FitLoopMixin:
                 idx_mat, _ = train_loader.epoch_index_matrix()
                 nb = idx_mat.shape[0]
                 k_feed = _snap_to_divisor(K, nb)
-                if k_feed != min(K, nb) and epoch == 0:
+                if k_feed != min(K, nb) and epoch == start_epoch:
                     # a trailing partial block would be a second graph
                     logger.info("steps_per_call %d does not divide the %d-batch epoch; using "
                                 "%d per dispatch (avoids a second graph for the trailing "
                                 "block)", K, nb, k_feed)
                 idx_dev = torch.from_numpy(idx_mat.astype(np.int64)).to(self.device)
                 for k0 in range(0, nb, k_feed):
-                    programs.feed(train_res, idx_dev[k0:k0 + k_feed])
+                    dispatch(programs.feed, train_res, idx_dev[k0:k0 + k_feed])
                 count = nb
             else:
-                count = self._train_epoch_from_host(programs, train_loader, K)
+                count = self._train_epoch_from_host(programs, train_loader, K, dispatch)
+            prof.epoch_summary(epoch)
             train_means = dict(zip(METRICS, (v / max(count, 1)
                                              for v in programs.metric_sums.tolist())))
 
@@ -206,10 +258,24 @@ class FitLoopMixin:
                 best_fds = _clone(fds_state)
             else:
                 wait += 1
+            if self._save_epoch_state(saver, dump_dir, fold, epoch, global_step, programs,
+                                      best_params, best_fds, min_val_loss, wait, best_score):
+                logger.info("Stopping after epoch %d (stop_after_epoch=%d of %d); train state "
+                            "saved: continue with resume=True", epoch + 1,
+                            self.stop_after_epoch, self.max_epochs)
+                break
             if wait >= self.patience:
                 logger.warning("Early stopping at epoch: %d", epoch + 1)
                 break
 
+        prof.close()
+        # an in-flight save lands before the fit returns; its failure is
+        # logged, not raised, so the best checkpoint is still written
+        try:
+            saver.wait()
+        except Exception:
+            logger.exception("the periodic train-state save failed; still writing the best "
+                             "checkpoint")
         save_checkpoint(dump_dir, fold, state_dict_to_flax_params(best_params), best_fds)
         # the final predict reloads the artifact just written
         y_preds, _, _ = self.predict(model, valid_dataset, activation_fn, target_scaler,
@@ -217,23 +283,55 @@ class FitLoopMixin:
                                      load_from=(dump_dir, fold), device_data=val_device_data)
         return y_preds
 
-    def _train_epoch_from_host(self, programs: TrainPrograms, loader, K: int) -> int:
+    def _train_programs(self, model, loss_fn, num_updates: int, fds_state, fds_bucket,
+                        **loss_kw) -> TrainPrograms:
+        """The TrainPrograms of a fit: the last fit's, reset to a fresh
+        start in place, when it would be built the same (cross-validation's
+        next fold: its CUDA graphs replay again), else a new one with its
+        optimizer over the model's parameters and a generator from the
+        seed."""
+        key = (id(model), id(loss_fn), num_updates, fds_state is None, tuple(fds_bucket),
+               tuple(sorted(loss_kw.items())))
+        if self._last_programs is not None and self._last_programs[0] == key:
+            programs = self._last_programs[2]
+            programs.optimizer.reset()
+            programs.generator.manual_seed(self.seed)
+            if fds_state is not None:
+                programs.set_fds_state(fds_state)
+        else:
+            # the old programs and their graphs go before new buffers come
+            self._last_programs = None
+            optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate,
+                                  num_updates, self.warmup_ratio, self.max_norm,
+                                  mu_dtype=self.mu_dtype, accumulate_steps=self.accumulate_steps)
+            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+            programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,
+                                     fds_state=fds_state, fds_bucket=fds_bucket,
+                                     alpha=self.alpha, beta=self.beta, ct_w=self.ct_w, **loss_kw)
+            self.programs_built += 1
+            self._last_programs = (key, (model, loss_fn), programs)
+        if hasattr(loss_fn, "reset"):
+            loss_fn.reset()
+        return programs
+
+    def _train_epoch_from_host(self, programs: TrainPrograms, loader, K: int, dispatch) -> int:
         """One epoch of host-collated batches: K shape-equal batches stacked
         per dispatch, the rest one step at a time (a batch whose shapes
         differ from the pending ones flushes them as single steps, as under
-        pad_mode='bucket').  Returns the number of steps."""
+        pad_mode='bucket'); ``dispatch(call, *args)`` runs each.  Returns
+        the number of steps."""
         count, pending, pend_sig = 0, [], None
 
         def run_pending():
             for feats, labels, weights in pending:
-                programs.single(feats, labels, weights)
+                dispatch(programs.single, feats, labels, weights)
 
         for batch, labels in loader:
             feats, weights = self._split_batch(batch)
             item = (feats, self._labels(labels), weights)
             count += 1
             if K <= 1:
-                programs.single(*item)
+                dispatch(programs.single, *item)
                 continue
             sig = tuple(sorted((k, tuple(v.shape)) for k, v in feats.items()))
             if pending and sig != pend_sig:
@@ -245,7 +343,8 @@ class FitLoopMixin:
                 feats_k = {k: torch.stack([p[0][k] for p in pending]) for k in feats}
                 weights_k = (None if weights is None
                              else torch.stack([p[2] for p in pending]))
-                programs.stacked(feats_k, torch.stack([p[1] for p in pending]), weights_k)
+                dispatch(programs.stacked, feats_k, torch.stack([p[1] for p in pending]),
+                         weights_k)
                 pending = []
         run_pending()
         return count

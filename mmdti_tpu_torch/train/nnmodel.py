@@ -3,11 +3,13 @@
 Resolves the task's loss, activation and output width, builds the model
 (models/mm_model.py::build_model) with the tokenizer and atom dictionary,
 draws its initial weights, prepares the FDS state and buckets, and drives
-Trainer.fit_predict (``run``) and the best-checkpoint predict
-(``evaluate``, averaging fold checkpoints).  multilabel_classification
-with ``loss_key="ghm"`` trains with its EMA bin counts carried on the
-device (losses/zoo.py GHMCState).  Pretrained Uni-Mol/ChemBERTa ingestion,
-prefix freezing and k-fold CV wait for later slices (ROADMAP.md).
+Trainer.fit_predict (``run``: one train/validation pair; ``run_cv``: one
+fold after another, every fold from the same initial weights, with
+out-of-fold predictions) and the best-checkpoint predict (``evaluate``,
+averaging fold checkpoints).  multilabel_classification with
+``loss_key="ghm"`` trains with its EMA bin counts carried on the device
+(losses/zoo.py GHMCState).  Pretrained Uni-Mol/ChemBERTa ingestion and
+prefix freezing wait for a later slice (ROADMAP.md).
 
 ``use_pallas`` keeps the JAX config key: 'auto' or True builds the kernel
 path (the Hopper kernels on a CUDA device, their plain versions on the
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -142,22 +145,54 @@ class NNModel:
         from the trainer's seed."""
         self.model.reset_parameters_like_flax(torch.Generator().manual_seed(self.trainer.seed))
 
-    def run(self):
-        logger.info("start training the MM-DTI model")
-        y_train = np.asarray(self.data_train["target"])
-        y_valid = np.asarray(self.data_test["target"])
-        y_pred = self.trainer.fit_predict(
-            self.model, MolDataset(self.features_train, y_train),
-            MolDataset(self.features_test, y_valid), self.loss_func, self.activation_fn,
-            self.save_path, 0, self.target_scaler, self.collator,
+    def _fit_fold(self, fold: int, train_dataset, valid_dataset):
+        return self.trainer.fit_predict(
+            self.model, train_dataset, valid_dataset, self.loss_func, self.activation_fn,
+            self.save_path, fold, self.target_scaler, self.collator,
             use_infonce=self.using_infonce, use_ct=self.using_ct, use_weight=self.use_weight,
             fds_state=self.fds_state, fds_bucket=self.fds_bucket, fds_kernel=self.fds_kernel,
             fds_start_update=self.model.fds_cfg.start_update if self.fds_state is not None else 0,
             stateful_loss=self.stateful_loss,
         )
+
+    def run(self):
+        logger.info("start training the MM-DTI model")
+        y_train = np.asarray(self.data_train["target"])
+        y_valid = np.asarray(self.data_test["target"])
+        y_pred = self._fit_fold(0, MolDataset(self.features_train, y_train),
+                                MolDataset(self.features_test, y_valid))
         self._log_fold_metric(0, y_valid, y_pred)
         self.cv["pred"] = y_pred
         return y_pred
+
+    def run_cv(self, splits):
+        """K-fold cross-validation over the training data: ``splits`` is a
+        list of (train indices, validation indices) (MolTrain._cv_splits).
+        Each fold starts from the same initial weights, copied back into
+        the model's own parameter tensors (a CUDA graph of the last fold
+        holds their addresses), with fresh FDS and loss state, and writes
+        model_{fold}.ckpt.  Returns the out-of-fold predictions in dataset
+        order: each row predicted once, by the model that did not see it."""
+        y_all = np.asarray(self.data_train["target"])
+        feats = self.features_train
+        initial = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        oof = None
+        self.fold_seconds = []
+        for fold, (tr_idx, va_idx) in enumerate(splits):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for k, v in self.model.state_dict().items():
+                    v.copy_(initial[k])
+            y_pred = self._fit_fold(fold, MolDataset([feats[i] for i in tr_idx], y_all[tr_idx]),
+                                    MolDataset([feats[i] for i in va_idx], y_all[va_idx]))
+            if oof is None:
+                oof = np.zeros((len(y_all),) + y_pred.shape[1:], dtype=y_pred.dtype)
+            oof[np.asarray(va_idx)] = y_pred
+            self.fold_seconds.append(time.perf_counter() - t0)
+            self._log_fold_metric(fold, y_all[va_idx], y_pred)
+        self._log_fold_metric("cv (out-of-fold)", y_all, oof)
+        self.cv["pred"] = oof
+        return oof
 
     def _log_fold_metric(self, fold, y_true, y_pred) -> None:
         scaler = self.target_scaler

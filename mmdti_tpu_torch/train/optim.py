@@ -73,13 +73,17 @@ def _bias_correction(b: float) -> np.ndarray:
 @dataclasses.dataclass
 class AdamState:
     """Adam's moments by parameter name, its step count and the schedule's
-    step count (optax keeps the two counts apart).  ``FusedAdam.state``
-    reads the counts back from the device."""
+    step count (optax keeps the two counts apart), and with
+    ``accumulate_steps > 1`` optax.MultiSteps' running gradient mean
+    (flat) and mini-step count.  ``FusedAdam.state`` reads the counts back
+    from the device."""
 
     count: int
     mu: Dict[str, torch.Tensor]
     nu: Dict[str, torch.Tensor]
     schedule_count: int
+    acc: Optional[torch.Tensor] = None
+    mini: int = 0
 
 
 class FusedAdam:
@@ -153,20 +157,51 @@ class FusedAdam:
 
     @property
     def state(self) -> AdamState:
-        """The moments (views of the flat buffers) and the counts, read from
-        the device."""
+        """The moments (views of the flat buffers), the counts read from the
+        device, and the accumulation buffer and mini-step count."""
         count, schedule_count = self._counts.tolist()
+        acc, mini = None, 0
+        if self.accumulate_steps > 1:
+            acc, mini = self._acc, int(self._mini)
         return AdamState(count=count, mu=self._mu_views, nu=self._nu_views,
-                         schedule_count=schedule_count)
+                         schedule_count=schedule_count, acc=acc, mini=mini)
+
+    @property
+    def named_state(self) -> Dict[str, torch.Tensor]:
+        """Every tensor an update writes, by name: the flat parameters,
+        moments, counts and (accumulating) the running mean and mini-step
+        count."""
+        state = {"params": self._flat, "mu": self._mu, "nu": self._nu, "counts": self._counts}
+        if self.accumulate_steps > 1:
+            state.update(acc=self._acc, mini=self._mini)
+        return state
 
     @property
     def graph_state(self):
         """Every tensor an update writes: a caller that runs updates it must
         undo (a CUDA graph's warm-up) saves and restores these."""
-        state = [self._flat, self._mu, self._nu, self._counts]
-        if self.accumulate_steps > 1:
-            state += [self._acc, self._mini]
-        return state
+        return list(self.named_state.values())
+
+    @torch.no_grad()
+    def load_named_state(self, state: Mapping[str, torch.Tensor]) -> None:
+        """Copy a ``named_state`` in, in place; the names must match."""
+        mine = self.named_state
+        if set(state) != set(mine):
+            raise ValueError(f"optimizer state holds {sorted(state)}, this optimizer "
+                             f"{sorted(mine)} (another accumulate_steps?)")
+        for k, t in mine.items():
+            if tuple(state[k].shape) != tuple(t.shape) or state[k].dtype != t.dtype:
+                raise ValueError(f"optimizer state {k!r}: {tuple(state[k].shape)} "
+                                 f"{state[k].dtype}, expected {tuple(t.shape)} {t.dtype}")
+            t.copy_(state[k])
+
+    @torch.no_grad()
+    def reset(self) -> None:
+        """Moments, counts and accumulation back to zero, in place (the
+        parameters stay): a fresh optimizer over the same buffers."""
+        for k, t in self.named_state.items():
+            if k != "params":
+                t.zero_()
 
     def _view(self, flat: torch.Tensor, name: str) -> torch.Tensor:
         off, shape = self._slices[name]
@@ -174,11 +209,18 @@ class FusedAdam:
 
     @torch.no_grad()
     def load_state(self, state: AdamState) -> None:
-        """Copy ``state`` (moments by parameter name, counts) in."""
+        """Copy ``state`` (moments by parameter name, counts, and the
+        accumulation buffer and mini-step count) in, in place."""
         for n in self.params:
             self._mu_views[n].copy_(state.mu[n])
             self._nu_views[n].copy_(state.nu[n])
         self._counts.copy_(torch.tensor([state.count, state.schedule_count]))
+        if self.accumulate_steps > 1:
+            if state.acc is None:
+                self._acc.zero_()
+            else:
+                self._acc.copy_(state.acc)
+            self._mini.fill_(int(state.mini))
 
     def _pick(self, table: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         """table[min(index, end)] as a 0-dim tensor, without a host sync."""

@@ -31,7 +31,9 @@ from mmdti_tpu_torch.losses.contrastive import CT_REGISTRY
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.train.optim import FusedAdam
 
-METRICS = ("loss", "m_loss", "infonce_loss", "ct_loss")
+# a train step's metrics: its losses and the global norm of its gradients
+# (before the clip), which debug_nans reads
+METRICS = ("loss", "m_loss", "infonce_loss", "ct_loss", "grad_norm")
 GRAPH_WARMUP = 2   # eager runs on a side stream before a capture
 
 
@@ -70,7 +72,8 @@ def build_train_loss(loss_fn: Callable, task: str, use_infonce: bool = True,
 def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, **loss_kw):
     """``train_step(feats, labels, weights, generator) -> metrics``: the
     loss of build_train_loss (``loss_kw`` are its options), its gradients
-    with respect to ``optimizer.params``, and one optimizer update.
+    with respect to ``optimizer.params``, and one optimizer update; the
+    metrics add the gradients' global norm as "grad_norm".
 
     ``feats`` holds the model's five input tensors; ``generator`` (a
     torch.Generator on their device) draws every dropout mask of the step,
@@ -86,7 +89,7 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
                    **model_kw) -> Dict[str, torch.Tensor]:
         total, metrics = train_loss(model, feats, labels, weights, generator, **model_kw)
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        optimizer.apply(dict(zip(names, grads)))
+        metrics["grad_norm"] = optimizer.apply(dict(zip(names, grads)))
         return metrics
 
     return train_step
@@ -210,13 +213,15 @@ class TrainPrograms:
 
     Each step adds its metrics (METRICS) into ``metric_sums`` in step order,
     so an epoch's sums do not depend on how its steps are grouped; each
-    variant also returns its steps' metrics ([4], or [K, 4]).  The model
+    variant also returns its steps' metrics ([M], or [K, M]).  The model
     gets ``epoch`` (a 0-dim float32 tensor), ``fds_state`` and
     ``fds_bucket``; ``set_epoch`` and ``set_fds_state`` write the first two
     in place.  A stateful task loss (losses/zoo.py GHMCState: the JAX
     package's loss state) writes its state in place each step; its
     ``graph_state`` is restored after a capture's warm-ups with the
-    optimizer's.
+    optimizer's.  ``state_dict`` names every tensor a step carries to the
+    next (the optimizer's buffers, the FDS state, the loss state) and the
+    generator's state; ``load_state`` copies such a state back in place.
 
     On a CUDA device each K variant is one CUDA graph of K whole steps
     (forward, autograd.grad, clip + Adam + apply and the metrics), recorded
@@ -228,6 +233,7 @@ class TrainPrograms:
     def __init__(self, model, optimizer: FusedAdam, loss_fn: Callable, task: str,
                  generator: torch.Generator, fds_state=None, fds_bucket=(0.0, 1.0), **loss_kw):
         self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.loss_fn = loss_fn
         self._train_step = build_train_step(model, optimizer, loss_fn, task, **loss_kw)
         self.device = optimizer._flat.device
         self.epoch = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -250,6 +256,30 @@ class TrainPrograms:
         staged = {k: state[k].clone() for k in self.fds_state}
         for k, v in self.fds_state.items():
             v.copy_(staged[k])
+
+    def state_dict(self) -> Dict[str, object]:
+        """What a step carries to the next, by name (the live tensors) and
+        the generator's state (a copy)."""
+        state = {"optimizer": self.optimizer.named_state,
+                 "generator": self.generator.get_state()}
+        if self.fds_state is not None:
+            state["fds"] = dict(self.fds_state)
+        if hasattr(self.loss_fn, "state_dict"):
+            state["loss"] = self.loss_fn.state_dict()
+        return state
+
+    @torch.no_grad()
+    def load_state(self, state: Mapping[str, object]) -> None:
+        """Copy a ``state_dict`` (tensors on any device) back in place."""
+        self.optimizer.load_named_state(state["optimizer"])
+        if ("fds" in state) != (self.fds_state is not None) or (
+                "loss" in state) != hasattr(self.loss_fn, "state_dict"):
+            raise ValueError("the saved train state was made with other FDS or loss settings")
+        if self.fds_state is not None:
+            self.set_fds_state(state["fds"])
+        if "loss" in state:
+            self.loss_fn.load_state_dict(state["loss"])
+        self.generator.set_state(state["generator"])
 
     def single(self, feats, labels, weights=None) -> torch.Tensor:
         metrics = self._train_step(feats, labels, weights, self.generator,

@@ -6,8 +6,11 @@ batch from the host, or one sweep over a device-resident dataset), and
 
 Without a mesh there is nothing to place or shard: a Trainer holds the
 device its model runs on ("cuda" unless the caller asks for the CPU).
-Knobs of JAX machinery that the port leaves out (resume, periodic train
-state, orbax, profiling, meshes, NaN debugging) raise when set.
+The JAX knobs of resume and train states (``resume``,
+``checkpoint_interval``, ``stop_after_epoch``, ``async_checkpoint``),
+profiling (``profile_dir``, ``profile_steps``) and ``debug_nans`` work as
+there; ``checkpoint_backend="orbax"`` (TPU tooling) and ``mesh_shape``
+raise.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from mmdti_tpu_torch.data.batching import MolDataLoader
 from mmdti_tpu_torch.losses.registry import target_is_integer
 from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
-from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+from mmdti_tpu_torch.train.checkpointing import CheckpointResumeMixin, load_checkpoint
 from mmdti_tpu_torch.train.device_feed import (
     FEATURE_KEYS,
     DeviceFeedMixin,
@@ -35,10 +38,10 @@ from mmdti_tpu_torch.utils.metrics import Metrics
 logger = logging.getLogger("mmdti_tpu_torch")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# knob -> the value that means "off"; anything else is not ported yet
-_NOT_PORTED = {"resume": False, "checkpoint_interval": 0, "stop_after_epoch": 0,
-               "checkpoint_backend": "msgpack", "profile_dir": None,
-               "mesh_shape": None, "debug_nans": False}
+# knob -> the value that means "off"; anything else is not ported
+_NOT_PORTED = {"checkpoint_backend": ("msgpack", "orbax checkpoints are TPU tooling the port "
+                                      "leaves out (ROADMAP.md, leave-behind list)"),
+               "mesh_shape": (None, "meshes are not ported yet (ROADMAP.md §1 item 7, M8)")}
 
 
 def load_weights(model, dump_dir: str, fold: int):
@@ -48,12 +51,11 @@ def load_weights(model, dump_dir: str, fold: int):
     return ckpt
 
 
-class Trainer(FitLoopMixin, DeviceFeedMixin):
+class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
     def __init__(self, save_path: Optional[str] = None, device="cuda", **params):
-        for knob, off in _NOT_PORTED.items():
+        for knob, (off, why) in _NOT_PORTED.items():
             if params.get(knob) is not None and params[knob] != off:
-                raise NotImplementedError(
-                    f"{knob}={params[knob]!r} is not ported yet (ROADMAP.md, M5)")
+                raise NotImplementedError(f"{knob}={params[knob]!r}: {why}")
         self.save_path = save_path
         self.device = resolve_device(device)
         self.task = params.get("task", None)
@@ -87,7 +89,27 @@ class Trainer(FitLoopMixin, DeviceFeedMixin):
         # into one update; batch-coupled losses (InfoNCE negatives, CT
         # pairs) see the mini-batch
         self.accumulate_steps = int(params.get("accumulate_steps", 1) or 1)
+        # train states (train/checkpointing.py): every checkpoint_interval
+        # epochs (0: never) and at stop_after_epoch (an absolute 1-based
+        # epoch; 0: none), written on a background thread unless
+        # async_checkpoint is off; resume continues from one
+        self.checkpoint_interval = int(params.get("checkpoint_interval", 0) or 0)
+        self.stop_after_epoch = int(params.get("stop_after_epoch", 0) or 0)
+        self.async_checkpoint = bool(params.get("async_checkpoint", True))
+        self.resume = bool(params.get("resume", False))
+        self.state_saves = []
+        # a trace of the first profile_steps dispatches into profile_dir
+        # (train/profiler.py); debug_nans checks every dispatch's losses and
+        # gradient norm
+        self.profile_dir = params.get("profile_dir", None)
+        self.profile_steps = int(params.get("profile_steps", 5) or 5)
+        self.debug_nans = bool(params.get("debug_nans", False))
         self._sweeps = {}
+        # the last fit's TrainPrograms and the fit's resident datasets by
+        # slot, which the next fold of a cross-validation reuses
+        self._last_programs = None
+        self._slots = {}
+        self.programs_built = 0
 
     # ---- host -> device ------------------------------------------------
     def _split_batch(self, batch):

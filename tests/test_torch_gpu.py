@@ -746,6 +746,72 @@ def test_graph_replays_leave_the_layer_norm_tickets_at_zero(cuda, monkeypatch):
     assert all(bool((tickets == 0).all()) for _, tickets in hl._SCRATCH.values())
 
 
+@pytest.mark.parametrize("ln", ["0", "1"])
+def test_graph_fit_resumes_from_a_saved_train_state(cuda, monkeypatch, tmp_path, ln):
+    """Two K=3 replays uninterrupted, against one replay, the train state
+    written to disk (train/checkpointing.py) and read into a new model,
+    optimizer and generator whose graph is recorded afresh, then the second
+    replay: parameters, moments, counts, metrics and the generator's state
+    bit-equal.  The generator's state after K replays equals its state
+    after K eager steps from the same start."""
+    from mmdti_tpu_torch.train.checkpointing import _host, load_train_state, save_train_state
+
+    monkeypatch.setenv("MMDTI_PALLAS_LN", ln)
+    _, opt, gen, progs, res = _graph_setup(cuda)
+    B, K = 8, 3
+    idx = torch.arange(2 * K * B, device=cuda).view(2, K, B) % res.labels.shape[0]
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    _eager_feed(progs, res, idx[0])
+    torch.cuda.synchronize()
+    gen_eager = gen.get_state()
+    _restore(opt, progs, gen, saved, gen0)
+    progs.feed(res, idx[0])
+    torch.cuda.synchronize()
+    assert torch.equal(gen.get_state(), gen_eager)
+    save_train_state(str(tmp_path), 0, {"programs": _host(progs.state_dict())})
+    m_whole = progs.feed(res, idx[1])
+    torch.cuda.synchronize()
+    whole, gen_whole = _train_state(opt, progs), gen.get_state()
+
+    _, opt2, gen2, progs2, res2 = _graph_setup(cuda, seed=1)   # other weights and draws
+    progs2.load_state(load_train_state(str(tmp_path), 0)["programs"])
+    m_resumed = progs2.feed(res, idx[1])
+    torch.cuda.synchronize()
+    assert len(progs2.graphs) == 1
+    assert torch.equal(m_resumed, m_whole)
+    for a, b in zip(whole[:-1], _train_state(opt2, progs2)[:-1]):
+        assert torch.equal(a, b)
+    assert torch.equal(gen2.get_state(), gen_whole)
+
+
+def test_cv_fold_reset_replays_the_recorded_graph(cuda):
+    """Cross-validation's reuse: after a fold, the parameters copied back
+    to their start, the optimizer reset in place and the generator
+    reseeded, a replay of the fold's graph on new rows equals the same
+    steps on a freshly built model, optimizer, generator and graph."""
+    model, opt, gen, progs, res = _graph_setup(cuda)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    B, K = 8, 3
+    idx = torch.arange(2 * K * B, device=cuda).view(2, K, B) % res.labels.shape[0]
+    progs.feed(res, idx[0])
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(start[k])
+    opt.reset()
+    gen.manual_seed(0)
+    progs.metric_sums.zero_()
+    m_reused = progs.feed(res, idx[1])
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1
+    _, opt2, gen2, progs2, _ = _graph_setup(cuda)
+    m_fresh = progs2.feed(res, idx[1])
+    torch.cuda.synchronize()
+    assert torch.equal(m_reused, m_fresh)
+    for a, b in zip(_train_state(opt, progs), _train_state(opt2, progs2)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen.get_state(), gen2.get_state())
+
+
 # ---- serving: one CUDA graph per shape bucket -------------------------------------
 
 SERVE_CFG = dict(task="regression", compute_dtype="bfloat16",

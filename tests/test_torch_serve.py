@@ -1,8 +1,9 @@
 """mmdti_tpu_torch serving slice on the CPU: host featurization equals the
 JAX package's, MolServe.predict equals the flax model on the same weights
 (atol 1e-4, fp32), and the port (serving from memory and from an
-experiment dir, one HTTP round trip, one train step) imports nothing of
-JAX or the JAX package's host dependencies."""
+experiment dir, one HTTP round trip, one train step, a k-fold CV fit and
+its ensemble predict, a stopped and resumed fit) imports nothing of JAX or
+the JAX package's host dependencies."""
 
 import os
 import subprocess
@@ -185,6 +186,38 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     labels = torch.zeros(feats["src_tokens"].shape[0], 1)
     metrics = step(feats, labels, None, torch.Generator().manual_seed(0))
     assert all(torch.isfinite(v) for v in metrics.values()), metrics
+
+    # k-fold cross-validation (scaffold folds, the scaler written as
+    # joblib writes scikit-learn's), then a fit stopped after epoch 1 and
+    # resumed from its train state
+    from mmdti_tpu_torch import MolPredict, MolTrain
+    from mmdti_tpu_torch.data.reader import read_csv, take_rows, write_csv
+    from mmdti_tpu_torch.finetune import make_synthetic_dataset
+
+    data = os.path.join(exp, "synthetic.csv")
+    make_synthetic_dataset(data, n=32, seed=0)
+    fit = dict(task="regression", batch_size=8, metrics="mse", smiles_col="smiles",
+               target_cols=["measured"], compute_dtype="float32", device="cpu",
+               **{k: v for k, v in cfg.items() if k.endswith("_overrides")})
+    cv = MolTrain(epochs=1, kfold=2, split="scaffold", save_path=os.path.join(exp, "cv"),
+                  **fit).fit(data)
+    assert cv.cv_pred.shape == (len(cv.data_train["target"]), 1)
+    assert np.isfinite(cv.cv_pred).all()
+    ens = MolPredict(load_model=os.path.join(exp, "cv"), device="cpu").predict(data)
+    assert ens.shape == (32, 1) and np.isfinite(ens).all()
+    table = read_csv(data)
+    halves = {}
+    for name, rows in (("train", list(range(24))), ("val", list(range(24, 32)))):
+        halves[name] = os.path.join(exp, name + ".csv")
+        write_csv(take_rows(table, rows), halves[name])
+    resumed = os.path.join(exp, "resumed")
+    MolTrain(epochs=2, stop_after_epoch=1, save_path=resumed, **fit).fit(halves["train"],
+                                                                          halves["val"])
+    assert os.path.exists(os.path.join(resumed, "train_state_0.ckpt"))
+    MolTrain(epochs=2, resume=True, save_path=resumed, **fit).fit(halves["train"],
+                                                                  halves["val"])
+    with open(os.path.join(resumed, "history_0.json")) as f:
+        assert [r["epoch"] for r in json.load(f)] == [1, 2]
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("PORT_ONLY_OK")

@@ -6,8 +6,9 @@ on the CPU, against the JAX MolServe on the same dirs:
   1e-5 abs / 1e-4 rel as tests/torch_task_parity.py holds predictions; the
   ensemble also equals the port's MolPredict on the same dir;
 * a classification dir: threshold.dat, probabilities and labels;
+* a JAX-written (joblib) StandardScaler, read without joblib;
 * what is refused, with a pointer to ROADMAP.md: a device mesh, pair
-  features built on the device, a JAX-written (joblib) target scaler;
+  features built on the device, a scaler mode the port lacks;
   serve_folds outside 1..model_folds raises with JAX's message.
 
 Both packages featurize through the port's numpy refinement; torch runs
@@ -194,6 +195,9 @@ def test_host_pair_feature_spellings():
 
 
 def test_jax_joblib_scaler_refused(cv_exp, tmp_path):
+    """A JAX-written (joblib) StandardScaler is read and serves as the JAX
+    MolServe does; a scaler of a mode the port lacks is refused with a
+    pointer to ROADMAP.md."""
     exp = str(tmp_path / "exp_scaled")
     shutil.copytree(cv_exp[0], exp)
     cfg = load_yaml(os.path.join(exp, "config.yaml"))
@@ -201,5 +205,9 @@ def test_jax_joblib_scaler_refused(cv_exp, tmp_path):
     save_yaml(cfg, os.path.join(exp, "config.yaml"))
     JaxScaler("standard", "regression").fit(np.linspace(-3, 5, 20).reshape(-1, 1), exp)
     assert joblib.load(os.path.join(exp, "target_scaler.ss")) is not None
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    got = MolServe(exp, device="cpu").predict(SMILES_20)
+    want = JaxServe(exp).predict(SMILES_20)
+    np.testing.assert_allclose(got["predict"], want["predict"], atol=PRED_ATOL, rtol=PRED_RTOL)
+    JaxScaler("minmax", "regression").fit(np.linspace(-3, 5, 20).reshape(-1, 1), exp)
+    with pytest.raises(NotImplementedError, match="MinMaxScaler.*ROADMAP.md"):
         MolServe(exp, device="cpu")
