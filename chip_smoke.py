@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
 the train step, fit-and-predict through MolTrain/MolPredict, the
-classification tasks, and cross-validation, resume and the fit profiler.
+classification tasks, cross-validation, resume and the fit profiler, and
+fine-tuning from pretrained checkpoints with layers frozen.
 
     python3 chip_smoke.py
 
@@ -150,8 +151,34 @@ Phases, one result line each; any failure exits non-zero:
    its save seconds (async and sync) and load seconds; (c) a fit with
    profile_dir writes a trace holding every port kernel's name, and a fit
    with debug_nans and a NaN target raises FloatingPointError;
-10. one JSON line with every kernel's summary (each task's and phase cv's
-   launches beside the main path's), then {"ok": true, ...}.
+10. pretrained, with MMDTI_PALLAS_LN=1 (restored after), on phase 7's
+   400-molecule set and phase cv's conformer caches: (a) flagship-width
+   synthetic checkpoints written from seeds with torch and the standard
+   library (a unicore Uni-Mol file: ``unimat.`` fp32 tensors of the 15
+   layers, gbf and gbf_proj, the pretraining heads, ``args``,
+   ``optimizer_history``, ``extra_state``, the dictionary beside it; a
+   ChemBERTa dir: config.json, bf16 model.safetensors with ``roberta.``
+   and ``lm_head.`` tensors, the BPE fixture's tokenizer files), their
+   bytes, the seconds to read and to convert each and the converters'
+   counts (every mappable tensor loaded, nothing missing or mismatched);
+   (b) MolTrain.fit(train, val) from them with the defaults for 2 epochs:
+   the initial weights bit-equal to the files widened to fp32, the
+   launchers counting exactly one train graph's and one sweep graph's
+   warm-ups and capture, one replay's port kernels (profiler) and its
+   device ms a step; (c) the same fit with ChemBERTa, the embedding, gbf,
+   gbf_proj, the embedding LayerNorm and Uni-Mol layers 0-7 frozen: a
+   step launches the backward of pair-bias 7 times (15 unfrozen), masked
+   2 (8), gbf 0 (1) and LayerNorm at the sites autograd reaches (hooks
+   count them), every forward as before; the frozen tensors of
+   model_0.ckpt bit-equal to the files, every trainable one moved; step
+   device ms and epoch seconds beside the unfrozen fit's; (d) MolPredict
+   and MolServe(load_model=...) on that dir (the BPE tokenizer from
+   chemberta_dir): serve against predict (2e-3), the kernel path against
+   the plain path (2e-2), graph replays against eager forwards (as close
+   as two eager calls);
+11. one JSON line with every kernel's summary (each task's, phase cv's and
+   phase pretrained's launches beside the main path's), then
+   {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -3136,6 +3163,551 @@ def phase_cv(dev, graph_fit):
     return counts
 
 
+# ---- synthetic pretrained checkpoints ------------------------------------------------
+
+BPE_FIXTURE = os.path.join(REPO, "tests", "data", "chemberta_bpe")
+BPE_FILES = ("vocab.json", "merges.txt", "tokenizer_config.json", "special_tokens_map.json")
+# the pretraining heads a unicore Uni-Mol checkpoint carries beside the
+# encoder, and RobertaForMaskedLM's lm_head: no port name, skipped
+UNICORE_HEADS = ("lm_head.dense", "lm_head.layer_norm", "pair2coord_proj.linear1",
+                 "pair2coord_proj.linear2", "dist_head.dense", "dist_head.out_proj")
+SAFETENSORS_DTYPE = {"torch.float32": "F32", "torch.float16": "F16", "torch.bfloat16": "BF16"}
+
+
+def write_safetensors(path, tensors):
+    """A safetensors file of ``tensors`` (name -> float tensor), written
+    with the standard library: the little-endian header length, the JSON
+    header (padded to 8 bytes) and the raw little-endian bytes."""
+    import struct
+
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().contiguous().cpu().view(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": SAFETENSORS_DTYPE[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def _draws(seed):
+    """(normal(shape, std), uniform(shape, lo, hi)) drawing from one seeded
+    CPU generator, fp32."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(shape, std=0.02, mean=0.0):
+        return torch.randn(shape, generator=gen) * std + mean
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen) * (hi - lo) + lo
+
+    return normal, uniform
+
+
+def write_unicore_checkpoint(path, seed, vocab, embed_dim=512, layers=15, heads=64, ffn=2048,
+                             kernels=128):
+    """A unicore Uni-Mol checkpoint (torch.save) from ``seed``: ``model``
+    with ``unimat.``-prefixed fp32 tensors of the encoder (``layers``
+    layers), gbf and gbf_proj for an atom vocabulary of ``vocab``, and the
+    pretraining heads; ``args`` (an argparse.Namespace),
+    ``optimizer_history`` and ``extra_state``.  Returns the model state
+    dict as written."""
+    import argparse
+
+    import torch
+
+    normal, uniform = _draws(seed)
+    E, sd = embed_dim, {}
+
+    def lin(name, din, dout):
+        sd[f"{name}.weight"] = normal((dout, din))
+        sd[f"{name}.bias"] = normal((dout,))
+
+    def ln(name, d=E):
+        sd[f"{name}.weight"] = normal((d,), 0.1, 1.0)
+        sd[f"{name}.bias"] = normal((d,), 0.1)
+
+    sd["embed_tokens.weight"] = normal((vocab, E))
+    sd["gbf.means.weight"] = uniform((1, kernels), 0.0, 3.0)
+    sd["gbf.stds.weight"] = uniform((1, kernels), 0.5, 3.0)
+    sd["gbf.mul.weight"] = normal((vocab * vocab, 1), 0.1, 1.0)
+    sd["gbf.bias.weight"] = normal((vocab * vocab, 1), 0.1)
+    lin("gbf_proj.linear1", kernels, kernels)
+    lin("gbf_proj.linear2", kernels, heads)
+    ln("encoder.emb_layer_norm")
+    ln("encoder.final_layer_norm")
+    for i in range(layers):
+        t = f"encoder.layers.{i}"
+        lin(f"{t}.self_attn.in_proj", E, 3 * E)
+        lin(f"{t}.self_attn.out_proj", E, E)
+        ln(f"{t}.self_attn_layer_norm")
+        ln(f"{t}.final_layer_norm")
+        lin(f"{t}.fc1", E, ffn)
+        lin(f"{t}.fc2", ffn, E)
+    lin("lm_head.dense", E, E)
+    ln("lm_head.layer_norm")
+    lin("pair2coord_proj.linear1", heads, heads)
+    lin("pair2coord_proj.linear2", heads, 1)
+    lin("dist_head.dense", heads, heads)
+    lin("dist_head.out_proj", heads, 1)
+    torch.save({
+        "model": {f"unimat.{k}": v for k, v in sd.items()},
+        "args": argparse.Namespace(arch="unimol_base", encoder_layers=layers,
+                                   encoder_embed_dim=E, encoder_attention_heads=heads,
+                                   encoder_ffn_embed_dim=ffn, seed=seed, lr=[1e-4]),
+        "optimizer_history": [{"criterion_name": "UniMolLoss", "optimizer_name": "FP16Optimizer",
+                               "lr_scheduler_state": {"best": 0.5}, "num_updates": 1000}],
+        "extra_state": {"train_iterator": {"epoch": 3, "iterations_in_epoch": 0},
+                        "previous_training_time": 1234.5},
+    }, path)
+    return sd
+
+
+def write_chemberta_dir(path, seed, hidden=512, layers=6, heads=8, intermediate=2048,
+                        max_positions=515, dtype="bfloat16"):
+    """An HF ChemBERTa (RobertaForMaskedLM) dir from ``seed``: config.json
+    with these dims, the vocabulary of the BPE fixture and pad 1;
+    model.safetensors in ``dtype`` with ``roberta.``-prefixed tensors and
+    the lm_head's; the fixture's tokenizer files.  Returns the tensors as
+    written."""
+    import torch
+
+    normal, _ = _draws(seed)
+    with open(os.path.join(BPE_FIXTURE, "vocab.json"), encoding="utf-8") as f:
+        vocab = len(json.load(f))
+    E, sd = hidden, {}
+
+    def lin(name, din, dout):
+        sd[f"{name}.weight"] = normal((dout, din))
+        sd[f"{name}.bias"] = normal((dout,))
+
+    def ln(name):
+        sd[f"{name}.weight"] = normal((E,), 0.1, 1.0)
+        sd[f"{name}.bias"] = normal((E,), 0.1)
+
+    r = "roberta"
+    sd[f"{r}.embeddings.word_embeddings.weight"] = normal((vocab, E))
+    sd[f"{r}.embeddings.position_embeddings.weight"] = normal((max_positions, E))
+    sd[f"{r}.embeddings.token_type_embeddings.weight"] = normal((1, E))
+    ln(f"{r}.embeddings.LayerNorm")
+    for i in range(layers):
+        t = f"{r}.encoder.layer.{i}"
+        for part in ("self.query", "self.key", "self.value", "output.dense"):
+            lin(f"{t}.attention.{part}", E, E)
+        ln(f"{t}.attention.output.LayerNorm")
+        lin(f"{t}.intermediate.dense", E, intermediate)
+        lin(f"{t}.output.dense", intermediate, E)
+        ln(f"{t}.output.LayerNorm")
+    lin("lm_head.dense", E, E)
+    ln("lm_head.layer_norm")
+    sd["lm_head.bias"] = normal((vocab,))
+    sd = {k: v.to(getattr(torch, dtype)) for k, v in sd.items()}
+    os.makedirs(path, exist_ok=True)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    config = {"architectures": ["RobertaForMaskedLM"], "model_type": "roberta",
+              "vocab_size": vocab, "hidden_size": E, "num_hidden_layers": layers,
+              "num_attention_heads": heads, "intermediate_size": intermediate,
+              "hidden_act": "gelu", "hidden_dropout_prob": 0.1,
+              "attention_probs_dropout_prob": 0.1, "max_position_embeddings": max_positions,
+              "type_vocab_size": 1, "layer_norm_eps": 1e-12, "pad_token_id": 1,
+              "bos_token_id": 0, "eos_token_id": 2, "torch_dtype": dtype}
+    with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=1)
+    for name in BPE_FILES:
+        shutil.copy(os.path.join(BPE_FIXTURE, name), os.path.join(path, name))
+    return sd
+
+
+def unicore_port_name(key):
+    """The port's state-dict name of a unicore Uni-Mol tensor name, or None
+    for a pretraining head (the converter's map, restated here)."""
+    import re
+
+    if key.startswith(UNICORE_HEADS):
+        return None
+    if key.startswith("gbf.") and key.count(".") == 2:
+        return key[: -len(".weight")]
+    key = re.sub(r"^encoder\.layers\.(\d+)\.self_attn\.", r"encoder.layers_\1.", key)
+    key = re.sub(r"^encoder\.layers\.(\d+)\.", r"encoder.layers_\1.", key)
+    return re.sub(r"layer_norm\.(weight|bias)$", r"layer_norm.ln.\1", key)
+
+
+def roberta_port_name(key):
+    """The port's state-dict name of an HF RoBERTa tensor name, or None for
+    the lm_head (the converter's map, restated here)."""
+    import re
+
+    if not key.startswith("roberta."):
+        return None
+    key = "bert." + key[len("roberta."):]
+    for old, new in ((r"encoder\.layer\.(\d+)\.attention\.self\.(query|key|value)",
+                      r"layer_\1.attn_\2"),
+                     (r"encoder\.layer\.(\d+)\.attention\.output\.dense", r"layer_\1.attn_output"),
+                     (r"encoder\.layer\.(\d+)\.attention\.output\.LayerNorm",
+                      r"layer_\1.attn_LayerNorm"),
+                     (r"encoder\.layer\.(\d+)\.intermediate\.dense", r"layer_\1.intermediate"),
+                     (r"encoder\.layer\.(\d+)\.output\.dense", r"layer_\1.output"),
+                     (r"encoder\.layer\.(\d+)\.output\.LayerNorm", r"layer_\1.output_LayerNorm")):
+        key = re.sub(old, new, key)
+    return key
+
+
+# ---- phase pretrained ---------------------------------------------------------------
+
+PRETRAINED_EPOCHS = 2
+FROZEN_UNIMOL_LAYERS = 8   # the lower half of the flagship's 15 Uni-Mol layers
+PRETRAINED_FREEZE = dict(
+    freeze_layers=",".join(["embed_tokens.", "gbf.", "gbf_proj.", "encoder.emb_layer_norm."]
+                           + [f"encoder.layers_{i}." for i in range(FROZEN_UNIMOL_LAYERS)]),
+    freeze_module="bert")
+SERVE_PREDICT_TOL = 2e-3
+
+
+def _write_pretrained(work):
+    """(a) Flagship-width synthetic checkpoints from seeds 0 and 1: a
+    unicore Uni-Mol file with the dictionary beside it and a ChemBERTa dir
+    in bf16 safetensors; the seconds to read and to convert each into a
+    flagship state dict on the host, and the converters' counts.  Returns
+    ({unimol_dir, chemberta_dir}, {port name: the file's tensor in fp32})."""
+    import torch
+
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.models.convert import (
+        convert_hf_roberta,
+        convert_unimol_checkpoint,
+        hf_chemberta_overrides,
+    )
+    from mmdti_tpu_torch.models.hf_weights import read_hf_state_dict, read_unicore_checkpoint
+    from mmdti_tpu_torch.models.mm_model import build_model
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+    os.makedirs(os.path.join(work, "unimol"))
+    shutil.copy(os.path.join(REPO, "mmdti_tpu_torch", "chem", "mol.dict.txt"),
+                os.path.join(work, "unimol"))
+    dirs = {"unimol_dir": os.path.join(work, "unimol", "unimol.pt"),
+            "chemberta_dir": os.path.join(work, "chemberta")}
+    t0 = time.perf_counter()
+    unimol = write_unicore_checkpoint(dirs["unimol_dir"], 0, vocab=len(d))
+    chemberta = write_chemberta_dir(dirs["chemberta_dir"], 1)
+    write_s = time.perf_counter() - t0
+    expected = {}
+    for key, t in unimol.items():
+        name = unicore_port_name(key)
+        if name is not None:
+            expected[name] = t.reshape(-1) if name in ("gbf.means", "gbf.stds") else t
+    expected.update({roberta_port_name(k): t.float() for k, t in chemberta.items()
+                     if roberta_port_name(k) is not None})
+
+    model = build_model(1, len(d), d.pad(), 0, compute_dtype="bfloat16", use_kernels=True,
+                        unimol_overrides={"pair_dtype": "bfloat16"},
+                        chemberta_overrides=hf_chemberta_overrides(dirs["chemberta_dir"]))
+    sd = dict(model.state_dict())
+    stats = {"unimol": {}, "chemberta": {}}
+    t0 = time.perf_counter()
+    ckpt = read_unicore_checkpoint(dirs["unimol_dir"])
+    t1 = time.perf_counter()
+    convert_unimol_checkpoint(ckpt, sd, stats=stats["unimol"])
+    t2 = time.perf_counter()
+    hf = read_hf_state_dict(dirs["chemberta_dir"])
+    t3 = time.perf_counter()
+    convert_hf_roberta(hf, sd, stats=stats["chemberta"])
+    t4 = time.perf_counter()
+    counts = {k: {"loaded": v["loaded"], "missing": len(v["missing"]),
+                  "shape_mismatched": len(v["shape"])} for k, v in stats.items()}
+    mappable = {"unimol": sum(unicore_port_name(k) is not None for k in unimol),
+                "chemberta": sum(roberta_port_name(k) is not None for k in chemberta)}
+    landed = sum(torch.equal(sd[k], v) for k, v in expected.items())
+    result = {
+        "unimol_file_bytes": os.path.getsize(dirs["unimol_dir"]),
+        "chemberta_file_bytes": os.path.getsize(os.path.join(dirs["chemberta_dir"],
+                                                             "model.safetensors")),
+        "chemberta_dtype": "bfloat16", "write_s": write_s,
+        "unimol_read_s": t1 - t0, "unimol_convert_s": t2 - t1,
+        "chemberta_read_s": t3 - t2, "chemberta_convert_s": t4 - t3,
+        "counts": counts, "mappable": mappable,
+        "pretraining_head_tensors_skipped": {"unimol": len(unimol) - mappable["unimol"],
+                                             "chemberta": len(chemberta) - mappable["chemberta"]},
+        "tensors_equal_to_the_files": landed, "tensors_expected": len(expected),
+    }
+    print("pretrained: (a) " + json.dumps(result), flush=True)
+    for k, c in counts.items():
+        if c != {"loaded": mappable[k], "missing": 0, "shape_mismatched": 0}:
+            raise Failed(f"pretrained ingestion {k}: {c}, expected {mappable[k]} loaded")
+    if landed != len(expected):
+        raise Failed(f"pretrained ingestion: {landed} of {len(expected)} tensors equal the files")
+    return dirs, expected
+
+
+@contextlib.contextmanager
+def _initial_weights():
+    """Inside the block, each NNModel records its initial weights (after
+    the pretrained ingestion) and the ingestion's counts."""
+    from mmdti_tpu_torch.train import nnmodel
+
+    seen = {}
+    real_init, real_load = nnmodel.NNModel._init_params, nnmodel.load_pretrained
+
+    def init(self, params):
+        real_init(self, params)
+        seen["state"] = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+    def load(sd, **dirs):
+        return real_load(sd, stats=seen.setdefault("stats", {}), **dirs)
+
+    nnmodel.NNModel._init_params, nnmodel.load_pretrained = init, load
+    try:
+        yield seen
+    finally:
+        nnmodel.NNModel._init_params, nnmodel.load_pretrained = real_init, real_load
+
+
+def _ln_backward_sites(model, feats):
+    """The LayerNorm kernel sites of one train forward whose backward
+    autograd calls: those whose input or parameters require grad (a
+    forward with hooks; its launches are not part of any counted run)."""
+    import torch
+
+    from mmdti_tpu_torch.models.layers import FusedLN
+    from mmdti_tpu_torch.ops.hopper_ln import ln_kernel_enabled
+
+    sites = []
+
+    def hook(m, args):
+        x = args[0]
+        if ln_kernel_enabled(m.use_kernels, x.shape):
+            sites.append(x.requires_grad or any(p.requires_grad for p in m.parameters()))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, FusedLN)]
+    try:
+        with torch.enable_grad():
+            model(**feats, outputs="train")
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(sites), len(sites)
+
+
+def _pretrained_fit(work, name, dirs, paths, caches, **freeze):
+    """MolTrain.fit(train, val) with the defaults (the feed, K steps a CUDA
+    graph) from the pretrained dirs, MMDTI_PALLAS_LN=1: the initial
+    weights, the launch counts and routes, the train graph's step device
+    ms and port kernels (profiler, one replay after the fit), the epoch
+    seconds, and the LayerNorm backward sites of a step."""
+    import torch
+
+    from mmdti_tpu_torch import MolTrain
+
+    exp = os.path.join(work, name)
+    with _ln_kernels_on(), _initial_weights() as init:
+        _reset_counts()
+        t0 = time.perf_counter()
+        clf = MolTrain(**_cv_kwargs(exp, epochs=PRETRAINED_EPOCHS, cache_dir_train=caches["train"],
+                                    cache_dir_test=caches["val"], **dirs, **freeze))
+        clf.fit(paths["train"], paths["val"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, routes = _read_counts(), _read_routes()
+        programs = clf.trainer._last_programs[2]
+        ((key, graph),) = programs.graphs.items()
+        k = key[1]
+        resident = graph.pins[0]
+        ln_bwd, ln_fwd = _ln_backward_sites(
+            clf.model.model, resident.take(torch.arange(32, device=programs.device))[0])
+        replay, replay_ms, _ = _replay_launches(graph.graph.replay)
+    with open(os.path.join(exp, "history_0.json")) as f:
+        history = json.load(f)
+    model = clf.model.model
+    out = {"exp": exp, "fit_s": fit_s, "counts": counts, "routes": routes, "k": k,
+           "init": init["state"], "stats": init.get("stats", {}), "frozen": clf.model.frozen,
+           "ln_sites": (ln_fwd, ln_bwd), "replay_launches": replay,
+           "step_device_ms": replay_ms / k, "epoch_s": [r["seconds"] for r in history],
+           "trainable_tensors": sum(p.requires_grad for p in model.parameters()),
+           "per_forward": {"gbf_proj": 1, "pair_bias_attention": model.unimol_cfg.encoder_layers,
+                           "masked_attention": model.bert.cfg.num_hidden_layers
+                           + 2 * model.cross_modal_module.cfg.num_layers,
+                           "layer_norm": _ln_sites(model)}}
+    del clf, programs, graph, resident
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pretrained_expected(fit, per_step_bwd):
+    """Launcher counts of a default fit: one train graph of k steps and one
+    validation sweep graph, each warmed up and captured; a step launches
+    ``per_step_bwd`` backwards."""
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
+
+    runs = GRAPH_WARMUP + 1
+    want = {}
+    for name, n in fit["per_forward"].items():
+        want[name] = runs * (fit["k"] + 1) * n
+        want[name + "_bwd"] = runs * fit["k"] * per_step_bwd[name + "_bwd"]
+    return want
+
+
+def _check_pretrained_fit(name, fit, expected, per_step_bwd):
+    """The initial weights equal the files (fp32, bit for bit), the
+    launcher counts what the reckoning gives, the routes, and one replay's
+    port kernels k times a step's."""
+    import torch
+
+    init = fit["init"]
+    landed = sum(torch.equal(init[k].cpu(), v) for k, v in expected.items())
+    if landed != len(expected):
+        raise Failed(f"pretrained {name}: {landed} of {len(expected)} initial tensors equal the "
+                     "files")
+    want = _pretrained_expected(fit, per_step_bwd)
+    if fit["counts"] != want:
+        raise Failed(f"pretrained {name}: the launchers counted {fit['counts']}, expected {want}")
+    _check_mma_routes(fit["routes"], {k: n for k, n in fit["counts"].items()
+                                      if k in fit["routes"]}, f"pretrained {name}")
+    want_replay = {k: fit["k"] * (fit["per_forward"][k] if k in fit["per_forward"]
+                                  else per_step_bwd[k]) for k in KERNELS}
+    if fit["replay_launches"] != want_replay:
+        raise Failed(f"pretrained {name}: one replay launched {fit['replay_launches']}, "
+                     f"expected {want_replay}")
+
+
+def _predict_and_serve(exp, paths, caches):
+    """(d) MolPredict and MolServe(load_model=exp) on the test split: the
+    BPE tokenizer from chemberta_dir, serve against predict, the kernel
+    path against the plain path, graph replays against eager forwards."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolServe
+    from mmdti_tpu_torch.data.reader import read_csv
+
+    smiles = list(read_csv(paths["test"])["smiles"])
+    with _ln_kernels_on():
+        _reset_counts()
+        pred = MolPredict(load_model=exp, cache_dir=caches["test"]).predict(paths["test"])
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        plain = MolPredict(load_model=exp, cache_dir=caches["test"])
+        plain.config["use_pallas"] = False
+        plain_pred = plain.predict(paths["test"])
+        server = MolServe(exp)
+        graph = np.asarray(server.predict(smiles)["predict"]).reshape(pred.shape)
+        server.use_graphs = False
+        e1 = np.asarray(server.predict(smiles)["predict"]).reshape(pred.shape)
+        e2 = np.asarray(server.predict(smiles)["predict"]).reshape(pred.shape)
+        tokenizer = type(server.tokenizer).__name__
+        graphs = len(server.graphs)
+    del server
+    torch.cuda.empty_cache()
+    return {"predict_launches": counts, "tokenizer": tokenizer, "serve_graphs": graphs,
+            "rows": int(pred.shape[0]), "finite": bool(np.isfinite(pred).all()),
+            "serve_vs_predict_max_abs": float(np.abs(graph - pred).max()),
+            "serve_tol": SERVE_PREDICT_TOL,
+            "kernel_vs_plain_max_abs": float(np.abs(plain_pred - pred).max()),
+            "plain_tol": LOGITS_TOL, "graph_bit_equal_eager": bool(np.array_equal(graph, e1)),
+            "graph_vs_eager_max_abs": float(np.abs(graph - e1).max()),
+            "eager_vs_eager_max_abs": float(np.abs(e2 - e1).max())}
+
+
+def phase_pretrained(dev, card, graph_fit):
+    """Fine-tuning from pretrained checkpoints on the card, on phase fit's
+    400-molecule set (its conformer caches from phase cv): (a) the
+    synthetic flagship checkpoints and their ingestion; (b) a fit from them
+    with nothing frozen; (c) the same fit with ChemBERTa and the lower half
+    of the Uni-Mol stream frozen; (d) predict and serve that fit's dir.
+    Returns the launch counts of the phase (both fits and the predict)."""
+    import torch
+
+    work = os.path.join(REPO, "build", "chip_smoke_pretrained")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = graph_fit["paths"]
+    caches = {k: os.path.join(REPO, "build", "chip_smoke_cv", f"{k}.features.pkl")
+              for k in ("train", "val", "test")}
+    t_phase = time.perf_counter()
+    dirs, expected = _write_pretrained(work)
+
+    full = _pretrained_fit(work, "exp_pretrained", dirs, paths, caches)
+    per_step_full = {k + "_bwd": n for k, n in full["per_forward"].items()}
+    _check_pretrained_fit("fit", full, expected, per_step_full)
+
+    frozen = _pretrained_fit(work, "exp_frozen", dirs, paths, caches, **PRETRAINED_FREEZE)
+    ln_fwd, ln_bwd = frozen["ln_sites"]
+    # a frozen step: no gbf backward, the pair-bias backward of the 7
+    # trainable Uni-Mol layers only, the masked backward of the 2
+    # cross-modal attentions only (ChemBERTa's 6 frozen), and the
+    # LayerNorm backward of the sites autograd still reaches
+    per_step_frozen = {"gbf_proj_bwd": 0, "pair_bias_attention_bwd": 15 - FROZEN_UNIMOL_LAYERS,
+                       "masked_attention_bwd": 8 - 6, "layer_norm_bwd": ln_bwd}
+    flagship = {"gbf_proj": 1, "pair_bias_attention": 15, "masked_attention": 8,
+                "layer_norm": LN_SITES}
+    if frozen["per_forward"] != flagship or full["per_forward"] != flagship or (
+            ln_fwd != LN_SITES):
+        raise Failed(f"pretrained: launches a forward {frozen['per_forward']}, {ln_fwd} "
+                     f"LayerNorm sites hooked; expected {flagship}")
+    _check_pretrained_fit("frozen fit", frozen, expected, per_step_frozen)
+
+    from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
+    from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+
+    saved = flax_params_to_state_dict(load_checkpoint(frozen["exp"], 0)["params"])
+    init = {k: v.cpu() for k, v in frozen["init"].items()}
+    frozen_equal = sum(torch.equal(saved[k], expected[k]) and torch.equal(saved[k], init[k])
+                       for k in frozen["frozen"])
+    trainable = [k for k in saved if k not in frozen["frozen"]]
+    moved = sum(not torch.equal(saved[k], init[k]) for k in trainable)
+    served = _predict_and_serve(frozen["exp"], paths, caches)
+
+    def summary(fit):
+        return {"fit_wall_s": fit["fit_s"], "epoch_s": fit["epoch_s"], "k": fit["k"],
+                "step_device_ms": fit["step_device_ms"], "launches": fit["counts"],
+                "one_replay_launches": fit["replay_launches"],
+                "trainable_tensors": fit["trainable_tensors"],
+                "ingestion_loaded": {k: v["loaded"] for k, v in fit["stats"].items()}}
+
+    result = {
+        "card": card, "molecules": graph_fit["sizes"], "epochs": PRETRAINED_EPOCHS,
+        "dispatch": "defaults: device_feed auto (engaged), steps_per_call 4, MMDTI_PALLAS_LN=1",
+        "freeze": PRETRAINED_FREEZE, "frozen_tensors": len(frozen["frozen"]),
+        "per_step_backward": {"unfrozen": per_step_full, "frozen": per_step_frozen},
+        "layer_norm_sites": {"forward": ln_fwd, "backward_frozen": ln_bwd},
+        "unfrozen": summary(full), "frozen": summary(frozen),
+        "frozen_equal_to_file": frozen_equal, "trainable_moved": moved,
+        "trainable": len(trainable), **served,
+    }
+    print("pretrained: (b)-(d) " + json.dumps(result), flush=True)
+    if frozen_equal != len(frozen["frozen"]) or moved != len(trainable):
+        raise Failed(f"pretrained: {frozen_equal} of {len(frozen['frozen'])} frozen tensors "
+                     f"equal the files, {moved} of {len(trainable)} trainable ones moved")
+    if served["tokenizer"] != "RobertaBPETokenizer" or not served["finite"]:
+        raise Failed(f"pretrained predict: tokenizer {served['tokenizer']}, finite "
+                     f"{served['finite']}")
+    want_pred = _pretrained_expected({**frozen, "k": 0}, per_step_frozen)
+    if served["predict_launches"] != want_pred:
+        raise Failed(f"pretrained predict: the launchers counted {served['predict_launches']}, "
+                     f"expected {want_pred}")
+    if not (served["serve_vs_predict_max_abs"] <= SERVE_PREDICT_TOL
+            and served["kernel_vs_plain_max_abs"] <= LOGITS_TOL):
+        raise Failed(f"pretrained: serve vs predict {served['serve_vs_predict_max_abs']}, "
+                     f"kernel vs plain {served['kernel_vs_plain_max_abs']}")
+    if served["graph_vs_eager_max_abs"] > served["eager_vs_eager_max_abs"]:
+        raise Failed(f"pretrained serve: graph replays differ from eager forwards by "
+                     f"{served['graph_vs_eager_max_abs']}")
+    torch.cuda.empty_cache()
+    print(f"pretrained: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"fit": full["counts"], "frozen_fit": frozen["counts"],
+            "predict": served["predict_launches"]}
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
@@ -3165,12 +3737,15 @@ def main() -> int:
     fit_launches = phase_fit(dev, graph_fit)
     task_launches = phase_tasks(dev)
     cv_launches = phase_cv(dev, graph_fit)
+    pretrained_launches = phase_pretrained(dev, card, graph_fit)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
         if n == 0:
             raise Failed(f"{name} was not launched on its path")
-    for task, counts in {**task_launches, "cv": cv_launches}.items():
+    pretrained_total = _add_counts(*pretrained_launches.values())
+    for task, counts in {**task_launches, "cv": cv_launches,
+                         "pretrained": pretrained_total}.items():
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
@@ -3178,7 +3753,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **summary[name],
          "task_launches": {task: counts[name] for task, counts in task_launches.items()},
-         "cv_launches": cv_launches[name]}
+         "cv_launches": cv_launches[name],
+         "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

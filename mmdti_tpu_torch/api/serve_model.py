@@ -20,13 +20,11 @@ import numpy as np
 import torch
 
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_output_dim
-from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
+from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_params_to_state_dict
 from mmdti_tpu_torch.models.mm_model import MMModel, build_model
 from mmdti_tpu_torch.train.checkpointing import load_checkpoint
 
 logger = logging.getLogger("mmdti_tpu_torch")
-
-_NOT_PORTED = ("unimol_dir", "chemberta_dir")
 
 
 @dataclass
@@ -42,17 +40,6 @@ class ResidentModel:
         return self.models[0]
 
 
-def chemberta_overrides(cfg: Mapping[str, Any]) -> dict:
-    """The ChemBERTa dims the checkpoint was trained with.  A config that
-    names pretrained weights (``unimol_dir``, ``chemberta_dir``) raises,
-    as train/nnmodel.py does: pretrained ingestion is not ported yet."""
-    for knob in _NOT_PORTED:
-        if cfg.get(knob):
-            raise NotImplementedError(f"{knob}={cfg[knob]!r} is not ported yet "
-                                      "(ROADMAP.md, M5: pretrained-checkpoint ingestion)")
-    return dict(cfg.get("chemberta_overrides") or {})
-
-
 def resident_model(
     cfg: Mapping[str, Any],
     state_dicts: Sequence[Mapping[str, torch.Tensor]],
@@ -64,7 +51,9 @@ def resident_model(
 ) -> ResidentModel:
     """One model per state dict, built on ``device`` as train/nnmodel.py
     builds it (``use_fds`` from the config, so an FDS-trained checkpoint
-    loads strictly; serving never smooths).  The pair dtype defaults to
+    loads strictly; serving never smooths; the ChemBERTa dims of a
+    ``chemberta_dir`` under the saved overrides; the weights are the state
+    dicts', never the pretrained files').  The pair dtype defaults to
     bf16 on CUDA and fp32 on the CPU; ``cfg["unimol_overrides"]
     ["pair_dtype"]`` overrides it."""
     device = torch.device(device)

@@ -13,12 +13,11 @@ from __future__ import annotations
 
 import concurrent.futures as _fut
 import logging
-import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from mmdti_tpu_torch.chem.dictionary import Dictionary
+from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.smiles import Molecule, SmilesError, parse_smiles
 
 logger = logging.getLogger("mmdti_tpu_torch")
@@ -265,10 +264,8 @@ class ConformerGen:
                 f"{self.coord_provider!r}"
             )
         dict_path = params.get("dict_path", None)
-        unimol_dir = params.get("unimol_dir", "") or ""
-        if dict_path is None and unimol_dir:
-            cand = os.path.join(os.path.dirname(unimol_dir), "mol.dict.txt")
-            dict_path = cand if os.path.exists(cand) else None
+        if dict_path is None:
+            dict_path = unimol_dict_path(params.get("unimol_dir"))
         self.dictionary = Dictionary.load(dict_path)
         self.dictionary.add_symbol("[MASK]", is_special=True)
         logger.info(

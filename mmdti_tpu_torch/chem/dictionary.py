@@ -16,6 +16,15 @@ from typing import List, Optional
 DEFAULT_DICT = os.path.join(os.path.dirname(__file__), "mol.dict.txt")
 
 
+def unimol_dict_path(unimol_dir: Optional[str]) -> Optional[str]:
+    """The ``mol.dict.txt`` beside a Uni-Mol checkpoint file, where there is
+    one: the atom dictionary the checkpoint was trained with."""
+    if not unimol_dir:
+        return None
+    cand = os.path.join(os.path.dirname(unimol_dir), "mol.dict.txt")
+    return cand if os.path.exists(cand) else None
+
+
 class Dictionary:
     def __init__(
         self,

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from mmdti_tpu_torch.chem.conformer import ConformerGen
-from mmdti_tpu_torch.chem.dictionary import Dictionary
+from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.data.reader import MolDataReader, read_csv
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.data.weights import compute_sample_weights
@@ -46,10 +46,8 @@ def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
     """Every knob that changes ConformerGen's output, with the dictionary
     (the JAX package's fingerprint for a molecule cache on the host)."""
     dict_path = params.get("dict_path", None)
-    unimol_dir = params.get("unimol_dir", "") or ""
-    if dict_path is None and unimol_dir:
-        cand = os.path.join(os.path.dirname(unimol_dir), "mol.dict.txt")
-        dict_path = cand if os.path.exists(cand) else None
+    if dict_path is None:
+        dict_path = unimol_dict_path(params.get("unimol_dir"))
     d = Dictionary.load(dict_path)
     d.add_symbol("[MASK]", is_special=True)
     return {

@@ -205,7 +205,7 @@ class _ScalerUnpickler(RestrictedUnpickler):
         raise NotImplementedError(
             f"{ARTIFACT_NAME} holds a {module}.{name}: the port reads scikit-learn's "
             "StandardScaler and RobustScaler; the other scaler modes are not ported yet "
-            "(ROADMAP.md §1 item 3)")
+            "(ROADMAP.md §1 item 2)")
 
 
 def save_scaler(columns: List[ColumnScaler], path: str, as_list: bool = False) -> None:

@@ -10,7 +10,10 @@ as the seeds finish; the mean is printed last.  Regression scores RMSE
 macro one-vs-rest AUC and multilabel classification the NaN-masked column
 mean of the AUCs.  ``--synthetic`` writes the same 400-molecule dataset as
 finetune.py's for each task (same rows and labels for the same seed).
-``--device`` is cuda unless the caller asks for cpu.
+``--device`` is cuda unless the caller asks for cpu.  ``--unimol-dir`` (a
+unicore ``.pt``, with the ``mol.dict.txt`` beside it) and
+``--chemberta-dir`` (an HF ChemBERTa dir) fine-tune every seed from
+pretrained weights.
 """
 
 from __future__ import annotations
@@ -127,7 +130,8 @@ def _score_task(task, truth, test_pred, idx):
 
 def run_seed(data_path, idx, workdir, *, task="regression", epochs=40, learning_rate=1e-4,
              batch_size=32, early_stopping=20, fds_num=30, target_col="measured",
-             smiles_col="smiles", arch=None, path_overrides=None, device="cuda") -> float:
+             smiles_col="smiles", chemberta_dir="", unimol_dir="", arch=None,
+             path_overrides=None, device="cuda") -> float:
     """One protocol seed: scaffold split -> MolTrain -> MolPredict -> the
     task's test metric.  FDS and sample weights are regression's only."""
     parts = random_scaffold_split(data_path, random_seed=idx, ratio_test=0.1, ration_valid=0.1)
@@ -149,7 +153,8 @@ def run_seed(data_path, idx, workdir, *, task="regression", epochs=40, learning_
         task=task, epochs=epochs, learning_rate=learning_rate, batch_size=batch_size,
         early_stopping=early_stopping, smiles_col=smiles_col, save_path=save_path,
         target_cols=target_cols, model_name="mm_model", using_infonce=True, using_ct=True,
-        raw_data=paths["train"], seed=42, device=device, **task_kwargs,
+        raw_data=paths["train"], seed=42, chemberta_dir=chemberta_dir, unimol_dir=unimol_dir,
+        device=device, **task_kwargs,
         **(path_overrides or {}), **(arch or {}),
     )
     clf.fit(paths["train"], paths["val"])
@@ -177,6 +182,8 @@ def main(argv=None):
     ap.add_argument("--learning-rate", type=float, default=1e-4)
     ap.add_argument("--early-stopping", type=int, default=20)
     ap.add_argument("--fds-num", type=int, default=30)
+    ap.add_argument("--chemberta-dir", default="")
+    ap.add_argument("--unimol-dir", default="")
     ap.add_argument("--out", default="result.csv")
     ap.add_argument("--workdir", default="./finetune_runs")
     ap.add_argument("--synthetic", action="store_true", help="generate a synthetic dataset")
@@ -215,8 +222,9 @@ def main(argv=None):
         score = run_seed(data_path, idx, args.workdir, task=args.task, epochs=args.epochs,
                          learning_rate=args.learning_rate, batch_size=args.batch_size,
                          early_stopping=args.early_stopping, fds_num=args.fds_num,
-                         target_col=args.target_col, smiles_col=args.smiles_col, arch=arch,
-                         path_overrides=path_overrides, device=args.device)
+                         target_col=args.target_col, smiles_col=args.smiles_col,
+                         chemberta_dir=args.chemberta_dir, unimol_dir=args.unimol_dir,
+                         arch=arch, path_overrides=path_overrides, device=args.device)
         scores.append(score)
         print(f"seed {idx}: test {metric_name.upper()} = {score:.4f}", flush=True)
         seeds_done = np.arange(args.seed_offset, args.seed_offset + len(scores))

@@ -93,11 +93,13 @@ class FitLoopMixin:
                     dump_dir: str, fold: int, target_scaler, collate_fn,
                     use_infonce: bool = False, use_ct: bool = False, use_weight: bool = False,
                     fds_state=None, fds_bucket=(0.0, 1.0), fds_kernel=None,
-                    fds_start_update: int = 0, stateful_loss=None):
+                    fds_start_update: int = 0, stateful_loss=None, frozen=frozenset()):
         """Train ``model`` (already on the trainer's device) and return the
         activated predictions of the best checkpoint on ``valid_dataset``.
         ``stateful_loss`` (GHMCState) replaces ``loss_fn`` in the train
-        steps, from a fresh state; validation keeps ``loss_fn``."""
+        steps, from a fresh state; validation keeps ``loss_fn``.
+        ``frozen`` names the parameters that must not move (their
+        ``requires_grad`` already off)."""
         train_loader = MolDataLoader(train_dataset, self.batch_size, collate_fn,
                                      shuffle=True, drop_last=True, seed=self.seed)
         steps_per_epoch = len(train_loader)
@@ -108,7 +110,7 @@ class FitLoopMixin:
         # comes every accumulate_steps mini-steps
         num_updates = max(1, steps_per_epoch * self.max_epochs // self.accumulate_steps)
         programs = self._train_programs(
-            model, stateful_loss or loss_fn, num_updates, fds_state, fds_bucket,
+            model, stateful_loss or loss_fn, num_updates, fds_state, fds_bucket, frozen,
             use_infonce=use_infonce, use_ct=use_ct, use_weight=use_weight)
         fds_state = programs.fds_state
         eval_step = build_eval_step(model, loss_fn, activation_fn, self.alpha)
@@ -284,14 +286,15 @@ class FitLoopMixin:
         return y_preds
 
     def _train_programs(self, model, loss_fn, num_updates: int, fds_state, fds_bucket,
-                        **loss_kw) -> TrainPrograms:
+                        frozen=frozenset(), **loss_kw) -> TrainPrograms:
         """The TrainPrograms of a fit: the last fit's, reset to a fresh
         start in place, when it would be built the same (cross-validation's
-        next fold: its CUDA graphs replay again), else a new one with its
-        optimizer over the model's parameters and a generator from the
-        seed."""
+        next fold: its CUDA graphs replay again; the frozen set is part of
+        what must match, since a graph records which gradients a step
+        takes), else a new one with its optimizer over the model's
+        parameters and a generator from the seed."""
         key = (id(model), id(loss_fn), num_updates, fds_state is None, tuple(fds_bucket),
-               tuple(sorted(loss_kw.items())))
+               frozenset(frozen), tuple(sorted(loss_kw.items())))
         if self._last_programs is not None and self._last_programs[0] == key:
             programs = self._last_programs[2]
             programs.optimizer.reset()
@@ -302,7 +305,7 @@ class FitLoopMixin:
             # the old programs and their graphs go before new buffers come
             self._last_programs = None
             optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate,
-                                  num_updates, self.warmup_ratio, self.max_norm,
+                                  num_updates, self.warmup_ratio, self.max_norm, frozen=frozen,
                                   mu_dtype=self.mu_dtype, accumulate_steps=self.accumulate_steps)
             generator = torch.Generator(device=self.device).manual_seed(self.seed)
             programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,

@@ -8,8 +8,20 @@ fold after another, every fold from the same initial weights, with
 out-of-fold predictions) and the best-checkpoint predict (``evaluate``,
 averaging fold checkpoints).  multilabel_classification with
 ``loss_key="ghm"`` trains with its EMA bin counts carried on the device
-(losses/zoo.py GHMCState).  Pretrained Uni-Mol/ChemBERTa ingestion and
-prefix freezing wait for a later slice (ROADMAP.md).
+(losses/zoo.py GHMCState).
+
+Pretrained weights: ``unimol_dir`` (a unicore ``.pt``; the atom dictionary
+is the ``mol.dict.txt`` beside it, plus [MASK]) and ``chemberta_dir`` (an
+HF ChemBERTa dir: its BPE tokenizer, its config.json dims under the
+user's ``chemberta_overrides``, its weights) are loaded over the random
+initial weights (models/convert.py::load_pretrained) before the optimizer
+takes the parameters into its flat buffer and before cross-validation
+snapshots the weights every fold starts from.  Freezing
+(``freeze_layers``, ``freeze_layers_reversed``, ``freeze_module``) selects
+parameters by the JAX package's name-prefix predicate on their flax paths
+(``frozen_parameter_names``); the frozen ones get ``requires_grad=False``,
+so autograd does none of their work, and the optimizer keeps them where
+they are.
 
 ``use_pallas`` keeps the JAX config key: 'auto' or True builds the kernel
 path (the Hopper kernels on a CUDA device, their plain versions on the
@@ -22,33 +34,64 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, FrozenSet, Optional
 
 import numpy as np
 import torch
 
-from mmdti_tpu_torch.chem.dictionary import Dictionary
+from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
 from mmdti_tpu_torch.data.batching import BatchCollator, MolDataset, dataset_pad_lengths
 from mmdti_tpu_torch.data.reader import read_csv
 from mmdti_tpu_torch.losses import zoo
 from mmdti_tpu_torch.losses.fds import fds_bucket_params, fds_kernel_window, init_fds_state
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_loss, resolve_output_dim
+from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_path, load_pretrained
 from mmdti_tpu_torch.models.mm_model import build_model
 from mmdti_tpu_torch.train.trainer import Trainer, load_weights
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
-_NOT_PORTED = ("unimol_dir", "chemberta_dir", "freeze_layers", "freeze_module")
+
+def _names(value):
+    """A comma string or a list of names -> the list (spaces dropped)."""
+    if isinstance(value, str):
+        return [p for p in value.replace(" ", "").split(",") if p]
+    if isinstance(value, (list, tuple)):
+        return list(value)
+    return []
+
+
+def frozen_parameter_names(model, freeze_layers=None, reversed_sel: bool = False,
+                           freeze_module=None) -> FrozenSet[str]:
+    """The names of ``model``'s parameters that stay frozen: the JAX
+    package's predicate (train/nnmodel.py::_build_frozen_mask) on each
+    parameter's flax path joined by dots (models/convert.py's bridge rule),
+    so a prefix reaching a leaf (``...fc1.kernel``, ``...ln.scale``)
+    selects the same tensors in both packages.  A path starting with one
+    of ``freeze_layers`` (a comma string or a list; a plain prefix match,
+    so ``encoder.layers_1`` also takes layers 10-19: end it with '.'),
+    the opposite with ``reversed_sel``, or whose first name is one of
+    ``freeze_module``."""
+    prefixes, modules = _names(freeze_layers), _names(freeze_module)
+    if not prefixes and not modules:
+        return frozenset()
+    frozen = set()
+    for name, p in model.named_parameters():
+        path = ".".join(flax_path(name, p.dim()))
+        hit = any(path.startswith(pref) for pref in prefixes)
+        if reversed_sel:
+            hit = not hit
+        if modules and path.split(".")[0] in modules:
+            hit = True
+        if hit:
+            frozen.add(name)
+    return frozenset(frozen)
 
 
 class NNModel:
     def __init__(self, data_train: Dict[str, Any], data_test: Dict[str, Any], trainer: Trainer,
                  **params):
-        for knob in _NOT_PORTED:
-            if params.get(knob):
-                raise NotImplementedError(f"{knob}={params[knob]!r} is not ported yet "
-                                          "(ROADMAP.md, M5)")
         if params.get("data_type", "molecule") != "molecule":
             raise NotImplementedError("data_type='mof' is not ported yet (ROADMAP.md, M9)")
         self.data_train = data_train
@@ -70,9 +113,11 @@ class NNModel:
         self.model_folds = int(params.get("model_folds", 1) or 1)
         self.cv: Dict[str, Any] = {}
 
-        self.dictionary = Dictionary.load(None)
+        # the atom dictionary beside a Uni-Mol checkpoint sets the shapes of
+        # embed_tokens and of gbf's edge tables
+        self.dictionary = Dictionary.load(unimol_dict_path(params.get("unimol_dir")))
         self.dictionary.add_symbol("[MASK]", is_special=True)
-        self.tokenizer = load_tokenizer(None)
+        self.tokenizer = load_tokenizer(params.get("chemberta_dir", "") or None)
         self.output_dim = resolve_output_dim(self.task, self.num_classes,
                                              data_train.get("multiclass_cnt"))
         self.loss_func = resolve_loss(self.task, self.loss_key)
@@ -112,16 +157,29 @@ class NNModel:
             compute_dtype=params.get("compute_dtype", "bfloat16"),
             use_kernels=use_kernels,
             unimol_overrides=unimol_overrides,
-            chemberta_overrides=dict(params.get("chemberta_overrides") or {}) or None,
+            chemberta_overrides=chemberta_overrides(params) or None,
             crossmodal_overrides=dict(params.get("crossmodal_overrides") or {}) or None,
             task=self.task,
             use_fds=self.use_fds,
             fds_num=self.fds_num,
         )
+        # predict restores a checkpoint over whatever is drawn here, and
+        # freezing is train-only
+        self.frozen: FrozenSet[str] = frozenset()
         if not params.get("evaluate_only"):
             self._init_params(params)
             n_params = sum(p.numel() for p in self.model.parameters())
             logger.info("Number of trainable parameters: %d", n_params)
+            self.frozen = frozen_parameter_names(
+                self.model, params.get("freeze_layers"),
+                bool(params.get("freeze_layers_reversed", False)), params.get("freeze_module"))
+            for name, p in self.model.named_parameters():
+                p.requires_grad_(name not in self.frozen)
+            if self.frozen:
+                n_frozen = sum(p.numel() for n, p in self.model.named_parameters()
+                               if n in self.frozen)
+                logger.info("Frozen: %d parameter tensors, %d parameters", len(self.frozen),
+                            n_frozen)
         self.model.to(self.device)
 
         self.fds_state = None
@@ -141,8 +199,16 @@ class NNModel:
             self.fds_kernel = fds_kernel_window(cfg.kernel, cfg.ks, cfg.sigma)
 
     def _init_params(self, params) -> None:
-        """Random initial weights, drawn as the flax initializers draw them,
-        from the trainer's seed."""
+        """The initial weights: random ones, then the pretrained checkpoints'
+        tensors over them."""
+        self._random_init()
+        self.model.load_state_dict(load_pretrained(
+            dict(self.model.state_dict()), unimol_dir=params.get("unimol_dir") or None,
+            chemberta_dir=params.get("chemberta_dir") or None))
+
+    def _random_init(self) -> None:
+        """Random weights, drawn as the flax initializers draw them, from
+        the trainer's seed."""
         self.model.reset_parameters_like_flax(torch.Generator().manual_seed(self.trainer.seed))
 
     def _fit_fold(self, fold: int, train_dataset, valid_dataset):
@@ -152,7 +218,7 @@ class NNModel:
             use_infonce=self.using_infonce, use_ct=self.using_ct, use_weight=self.use_weight,
             fds_state=self.fds_state, fds_bucket=self.fds_bucket, fds_kernel=self.fds_kernel,
             fds_start_update=self.model.fds_cfg.start_update if self.fds_state is not None else 0,
-            stateful_loss=self.stateful_loss,
+            stateful_loss=self.stateful_loss, frozen=self.frozen,
         )
 
     def run(self):

@@ -118,7 +118,7 @@ class FusedAdam:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
         self.max_norm = float(max_norm)
         self.eps, self.b1, self.b2 = eps, b1, b2
-        frozen = frozenset(frozen or ())
+        frozen = self.frozen = frozenset(frozen or ())
         unknown = frozen - set(self.params)
         if unknown:
             raise KeyError(f"frozen names that are not parameters: {sorted(unknown)}")

@@ -72,15 +72,17 @@ def build_train_loss(loss_fn: Callable, task: str, use_infonce: bool = True,
 def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, **loss_kw):
     """``train_step(feats, labels, weights, generator) -> metrics``: the
     loss of build_train_loss (``loss_kw`` are its options), its gradients
-    with respect to ``optimizer.params``, and one optimizer update; the
-    metrics add the gradients' global norm as "grad_norm".
+    with respect to those of ``optimizer.params`` that require grad (a
+    frozen parameter gets None, which the update counts as zero), and one
+    optimizer update; the metrics add the gradients' global norm as
+    "grad_norm".
 
     ``feats`` holds the model's five input tensors; ``generator`` (a
     torch.Generator on their device) draws every dropout mask of the step,
     and None runs the step without dropout; ``model_kw`` go to the model
     (the FDS state, net_target, epoch and buckets of the fit loop)."""
     train_loss = build_train_loss(loss_fn, task, **loss_kw)
-    names = list(optimizer.params)
+    names = [n for n, p in optimizer.params.items() if p.requires_grad]
     params = [optimizer.params[n] for n in names]
 
     def train_step(feats: Mapping[str, torch.Tensor], labels: torch.Tensor,
@@ -220,8 +222,9 @@ class TrainPrograms:
     package's loss state) writes its state in place each step; its
     ``graph_state`` is restored after a capture's warm-ups with the
     optimizer's.  ``state_dict`` names every tensor a step carries to the
-    next (the optimizer's buffers, the FDS state, the loss state) and the
-    generator's state; ``load_state`` copies such a state back in place.
+    next (the optimizer's buffers, the FDS state, the loss state), the
+    generator's state and the frozen parameters' names; ``load_state``
+    copies such a state back in place.
 
     On a CUDA device each K variant is one CUDA graph of K whole steps
     (forward, autograd.grad, clip + Adam + apply and the metrics), recorded
@@ -261,7 +264,8 @@ class TrainPrograms:
         """What a step carries to the next, by name (the live tensors) and
         the generator's state (a copy)."""
         state = {"optimizer": self.optimizer.named_state,
-                 "generator": self.generator.get_state()}
+                 "generator": self.generator.get_state(),
+                 "frozen": sorted(self.optimizer.frozen)}
         if self.fds_state is not None:
             state["fds"] = dict(self.fds_state)
         if hasattr(self.loss_fn, "state_dict"):
@@ -270,7 +274,15 @@ class TrainPrograms:
 
     @torch.no_grad()
     def load_state(self, state: Mapping[str, object]) -> None:
-        """Copy a ``state_dict`` (tensors on any device) back in place."""
+        """Copy a ``state_dict`` (tensors on any device) back in place.  A
+        state saved with another frozen set raises."""
+        saved = sorted(state.get("frozen", []))
+        if saved != sorted(self.optimizer.frozen):
+            raise ValueError(
+                f"the saved train state froze {len(saved)} parameter tensors and this fit "
+                f"freezes {len(self.optimizer.frozen)}, not the same ones "
+                f"({sorted(set(saved) ^ set(self.optimizer.frozen))[:5]} differ): resume with "
+                "the freeze_layers, freeze_layers_reversed and freeze_module of the saved run")
         self.optimizer.load_named_state(state["optimizer"])
         if ("fds" in state) != (self.fds_state is not None) or (
                 "loss" in state) != hasattr(self.loss_fn, "state_dict"):

@@ -41,7 +41,7 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # knob -> the value that means "off"; anything else is not ported
 _NOT_PORTED = {"checkpoint_backend": ("msgpack", "orbax checkpoints are TPU tooling the port "
                                       "leaves out (ROADMAP.md, leave-behind list)"),
-               "mesh_shape": (None, "meshes are not ported yet (ROADMAP.md §1 item 7, M8)")}
+               "mesh_shape": (None, "meshes are not ported yet (ROADMAP.md §1 item 6, M8)")}
 
 
 def load_weights(model, dump_dir: str, fold: int):

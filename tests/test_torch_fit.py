@@ -280,10 +280,12 @@ def _fit_kwargs(train_p, exp):
 
 
 @contextlib.contextmanager
-def jax_parity_patches():
+def jax_parity_patches(random_init_only=False):
     """The JAX package featurizes through the port's numpy path, InfoNCE's
     query dropout is 0 in both packages, and the port's NNModel starts from
-    the parameters the JAX NNModel drew last (its fit must run first)."""
+    the parameters the JAX NNModel drew last (its fit must run first).
+    With ``random_init_only`` only the random draw is shared: each package
+    then loads the pretrained checkpoints over it with its own ingestion."""
     mp = pytest.MonkeyPatch()
     # the port featurizes with its numpy refinement: route the JAX package's
     # built-in provider through the same path
@@ -293,15 +295,27 @@ def jax_parity_patches():
     mp.setattr(jax_mm, "InfoNCE", functools.partial(jax_mm.InfoNCE, embed_dropout=0.0))
     mp.setattr(port_mm, "InfoNCE", functools.partial(port_mm.InfoNCE, embed_dropout=0.0))
     captured = {}
-    real_init = jax_nnmodel.NNModel._init_params
+    if random_init_only:
+        real_load = jax_nnmodel.load_pretrained
 
-    def jax_init(self, params):
-        captured["params"] = real_init(self, params)
-        return captured["params"]
+        def jax_load(tree, **dirs):
+            # the random draw, copied before the ingestion writes into it
+            captured["params"] = flax_params_to_state_dict(tree)
+            return real_load(tree, **dirs)
 
-    mp.setattr(jax_nnmodel.NNModel, "_init_params", jax_init)
-    mp.setattr(port_nnmodel.NNModel, "_init_params", lambda self, params: (
-        self.model.load_state_dict(flax_params_to_state_dict(captured["params"]))))
+        mp.setattr(jax_nnmodel, "load_pretrained", jax_load)
+        mp.setattr(port_nnmodel.NNModel, "_random_init", lambda self: (
+            self.model.load_state_dict(captured["params"])))
+    else:
+        real_init = jax_nnmodel.NNModel._init_params
+
+        def jax_init(self, params):
+            captured["params"] = real_init(self, params)
+            return captured["params"]
+
+        mp.setattr(jax_nnmodel.NNModel, "_init_params", jax_init)
+        mp.setattr(port_nnmodel.NNModel, "_init_params", lambda self, params: (
+            self.model.load_state_dict(flax_params_to_state_dict(captured["params"]))))
     try:
         yield
     finally:
@@ -397,7 +411,8 @@ _BLOCKED_HEADER = textwrap.dedent("""
     import os, sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "mmdti_tpu", "pandas", "sklearn",
-               "joblib", "yaml", "msgpack", "transformers", "rdkit"}
+               "joblib", "yaml", "msgpack", "transformers", "tokenizers", "safetensors",
+               "regex", "rdkit"}
 
     class Block:
         def find_spec(self, name, path=None, target=None):

@@ -574,12 +574,13 @@ def test_layer_norm_takes_parameter_views_at_any_offset(cuda, dtype):
 GRAPH_V, GRAPH_PAD = 12, 1
 
 
-def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0):
+def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0, freeze=None):
     """A shallow bf16 model on the kernel path at the flagship widths the
     kernels take (E=512 and 64 Uni-Mol heads for the gbf kernels, so
     pair-bias D=8; masked D=64 and 32; every dropout of the flagship on),
     its optimizer and generator, the train programs and a resident dataset
-    of R rows made with numpy."""
+    of R rows made with numpy.  ``freeze`` (freeze_layers, freeze_module)
+    freezes as NNModel does."""
     from mmdti_tpu_torch.losses import zoo
     from mmdti_tpu_torch.losses.fds import init_fds_state
     from mmdti_tpu_torch.models.mm_model import build_model
@@ -616,7 +617,14 @@ def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0):
                                              attention_mask=mask).items()}
     res = Resident(feats, _t(rng.randn(R, 1).astype(np.float32), cuda),
                    _t(rng.uniform(0.5, 1.5, (R, 1)).astype(np.float32), cuda))
-    opt = FusedAdam(dict(model.named_parameters()), 1e-3, 20, warmup_ratio=0.1)
+    frozen = frozenset()
+    if freeze is not None:
+        from mmdti_tpu_torch.train.nnmodel import frozen_parameter_names
+
+        frozen = frozen_parameter_names(model, freeze[0], False, freeze[1])
+        for name, p in model.named_parameters():
+            p.requires_grad_(name not in frozen)
+    opt = FusedAdam(dict(model.named_parameters()), 1e-3, 20, warmup_ratio=0.1, frozen=frozen)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     fds_state = init_fds_state(model.fds_cfg, cuda) if fds else None
     progs = TrainPrograms(model, opt, zoo.mse_loss, "regression", gen, fds_state=fds_state,
@@ -810,6 +818,79 @@ def test_cv_fold_reset_replays_the_recorded_graph(cuda):
     for a, b in zip(_train_state(opt, progs), _train_state(opt2, progs2)):
         assert torch.equal(a, b)
     assert torch.equal(gen.get_state(), gen2.get_state())
+
+
+# ---- pretrained weights and freezing ----------------------------------------------
+
+GRAPH_FREEZE = ("embed_tokens.,gbf.,gbf_proj.,encoder.emb_layer_norm.,encoder.layers_0.", "bert")
+
+
+def test_bf16_safetensors_weights_land_on_the_card(cuda, tmp_path):
+    """A ChemBERTa dir written in bf16 safetensors, read and converted
+    (models/hf_weights.py, models/convert.py) into the shallow model, which
+    then moves to the card: every ChemBERTa parameter there equals the
+    file's bf16 tensor widened to fp32, bit for bit, and a forward on the
+    kernel path is finite."""
+    import chip_smoke
+    from mmdti_tpu_torch.models.convert import load_pretrained
+    from mmdti_tpu_torch.models.mm_model import build_model
+
+    written = chip_smoke.write_chemberta_dir(str(tmp_path), 0, layers=1, intermediate=512,
+                                             max_positions=40)
+    vocab = written["roberta.embeddings.word_embeddings.weight"].shape[0]
+    model = build_model(1, GRAPH_V, GRAPH_PAD, vocab, compute_dtype="bfloat16", use_kernels=True,
+                        unimol_overrides=dict(encoder_layers=2, ffn_embed_dim=512,
+                                              pair_dtype="bfloat16"),
+                        chemberta_overrides=dict(num_hidden_layers=1, intermediate_size=512,
+                                                 max_position_embeddings=40))
+    model.load_state_dict(load_pretrained(dict(model.state_dict()), chemberta_dir=str(tmp_path)))
+    model.to(cuda)
+    params = dict(model.named_parameters())
+    n = 0
+    for key, t in written.items():
+        name = chip_smoke.roberta_port_name(key)
+        if name is not None:
+            assert t.dtype == torch.bfloat16
+            assert torch.equal(params[name].cpu(), t.float()), name
+            n += 1
+    assert n == 21
+    _, _, _, _, res = _graph_setup(cuda)
+    feats, _, _ = res.take(torch.arange(8, device=cuda))
+    with torch.no_grad():
+        assert torch.isfinite(model(**feats, outputs="logits")["logits"]).all()
+
+
+@pytest.mark.parametrize("ln", ["0", "1"])
+def test_frozen_step_launches_only_the_trainable_backwards(cuda, monkeypatch, ln):
+    """The shallow model with its embedding, gbf, gbf_proj, embedding
+    LayerNorm, Uni-Mol layer 0 and ChemBERTa frozen: one eager step
+    launches every forward kernel (gbf 1, pair-bias 2, masked 3; 13
+    LayerNorms with the kernels on) but the backward of the trainable part
+    only (gbf 0, pair-bias 1, masked 2: the cross-modal pair; LayerNorm
+    13 - 6: the embedding's, layer 0's two and ChemBERTa's three take
+    none).  A K=2 graph of the frozen steps replays; the frozen parameters
+    stay bit-equal and the others move."""
+    import chip_smoke
+
+    monkeypatch.setenv("MMDTI_PALLAS_LN", ln)
+    model, opt, gen, progs, res = _graph_setup(cuda, freeze=GRAPH_FREEZE)
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    assert "encoder.layers_0.fc1.weight" in opt.frozen and "bert.layer_0.output.weight" in \
+        opt.frozen
+    chip_smoke._reset_counts()
+    progs.single(*res.take(torch.arange(8, device=cuda)))
+    torch.cuda.synchronize()
+    counts = chip_smoke._read_counts()
+    want = {"gbf_proj": 1, "gbf_proj_bwd": 0, "pair_bias_attention": 2,
+            "pair_bias_attention_bwd": 1, "masked_attention": 3, "masked_attention_bwd": 2,
+            "layer_norm": 13 if ln == "1" else 0, "layer_norm_bwd": 7 if ln == "1" else 0}
+    assert counts == want
+    progs.feed(res, torch.arange(16, device=cuda).view(2, 8))
+    progs.feed(res, torch.arange(16, 32, device=cuda).view(2, 8))
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1
+    for name, p in model.named_parameters():
+        assert torch.equal(p, start[name]) == (name in opt.frozen), name
 
 
 # ---- serving: one CUDA graph per shape bucket -------------------------------------

@@ -117,7 +117,8 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     import sys
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "mmdti_tpu", "pandas", "sklearn",
-               "joblib", "yaml", "msgpack", "transformers", "rdkit"}
+               "joblib", "yaml", "msgpack", "transformers", "tokenizers", "safetensors",
+               "regex", "rdkit"}
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -218,6 +219,41 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
                                                                   halves["val"])
     with open(os.path.join(resumed, "history_0.json")) as f:
         assert [r["epoch"] for r in json.load(f)] == [1, 2]
+
+    # pretrained fine-tuning: a unicore checkpoint (the dictionary beside
+    # it) and a ChemBERTa dir (bf16 safetensors, the BPE fixture), the
+    # encoder's lower layer and ChemBERTa frozen; predict and serve the dir
+    import shutil
+    import chip_smoke
+    from mmdti_tpu_torch.chem.tokenizer import RobertaBPETokenizer
+    from mmdti_tpu_torch.models.hf_weights import read_hf_state_dict, read_unicore_checkpoint
+    from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+    from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
+
+    os.makedirs(os.path.join(exp, "unimol"))
+    shutil.copy(os.path.join(chip_smoke.REPO, "mmdti_tpu_torch", "chem", "mol.dict.txt"),
+                os.path.join(exp, "unimol"))
+    unimol = os.path.join(exp, "unimol", "unimol.pt")
+    chip_smoke.write_unicore_checkpoint(unimol, 0, vocab=len(d), embed_dim=16, layers=1,
+                                        heads=2, ffn=32)
+    cb = os.path.join(exp, "chemberta")
+    chip_smoke.write_chemberta_dir(cb, 1, hidden=16, layers=1, heads=2, intermediate=32,
+                                   max_positions=130)
+    assert sorted(read_unicore_checkpoint(unimol)) == ["args", "extra_state", "model",
+                                                       "optimizer_history"]
+    pre = os.path.join(exp, "pretrained")
+    MolTrain(epochs=1, save_path=pre, unimol_dir=unimol, chemberta_dir=cb,
+             freeze_layers="embed_tokens.,gbf.", freeze_module="bert",
+             **fit).fit(halves["train"], halves["val"])
+    saved = flax_params_to_state_dict(load_checkpoint(pre, 0)["params"])
+    files = read_hf_state_dict(cb)
+    assert torch.equal(saved["bert.layer_0.output.weight"],
+                       files["roberta.encoder.layer.0.output.dense.weight"])
+    pred = MolPredict(load_model=pre, device="cpu").predict(halves["val"])
+    pre_server = MolServe(pre, device="cpu")
+    assert isinstance(pre_server.tokenizer, RobertaBPETokenizer)
+    served = pre_server.predict(list(read_csv(halves["val"])["smiles"]))["predict"]
+    np.testing.assert_allclose(np.asarray(served).reshape(pred.shape), pred, atol=1e-5)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("PORT_ONLY_OK")

@@ -50,8 +50,10 @@ def fit_kwargs(task, target_cols, metrics, exp, **extra):
                 mu_dtype="float32", use_pallas=False, **NO_DROPOUT, **extra)
 
 
-def both_fits(tmp, task, columns, metrics, **extra):
-    """Both packages' fit -> predict on the same data and initial weights.
+def both_fits(tmp, task, columns, metrics, random_init_only=False, **extra):
+    """Both packages' fit -> predict on the same data and initial weights
+    (with ``random_init_only``, the same random draw under each package's
+    own pretrained ingestion: test_torch_fit.py::jax_parity_patches).
     Returns {"jax"|"port": {exp, cv_pred, pred, hist, out, csv, config}}."""
     from mmdti_tpu import MolPredict as JaxPredict
     from mmdti_tpu import MolTrain as JaxTrain
@@ -61,7 +63,7 @@ def both_fits(tmp, task, columns, metrics, **extra):
     train_p, val_p = task_csvs(tmp, columns)
     target_cols = list(columns)
     out = {"val": val_p}
-    with jax_parity_patches():
+    with jax_parity_patches(random_init_only):
         for name, train_cls, pred_cls, dev in (("jax", JaxTrain, JaxPredict, {}),
                                                ("port", MolTrain, MolPredict,
                                                 {"device": "cpu"})):
