@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
 the train step, fit-and-predict through MolTrain/MolPredict, the
-classification tasks, cross-validation, resume and the fit profiler, and
-fine-tuning from pretrained checkpoints with layers frozen.
+classification tasks, cross-validation, resume and the fit profiler,
+fine-tuning from pretrained checkpoints with layers frozen, and the MOF
+model family on crystals of up to 512 atoms.  The pair distances and edge
+types are built on the card from coordinates (device_pair_feats 'auto')
+unless a check names the host's arrays.
 
     python3 chip_smoke.py
 
@@ -29,7 +32,10 @@ Phases, one result line each; any failure exits non-zero:
    and backward ([2048, 512] and [8960, 512], x and y in fp32 and bf16,
    eps 1e-5 and 1e-12; each backward one launch, repeated backwards
    bit-equal, also after a call at T=24; device and CUDA-event times beside
-   the earlier kernels' for bf16 x and y).  Each line has the max
+   the earlier kernels' for bf16 x and y); then at phase mof's shapes,
+   B=16 and N=528, bf16: pair-bias forward and backward (dropout 0.1, with
+   and without the logits cotangent), gbf forward and backward, and
+   LayerNorm at [8448, 512].  Each line has the max
    error beside its tolerance, the kernel's time, the plain version's, the
    PyTorch library call's where one computes the same function (SDPA for
    the masked forward), and the bound: the least time the card could take
@@ -50,7 +56,9 @@ Phases, one result line each; any failure exits non-zero:
    graph outputs against eager ones (bit-equal, or as close as two eager
    calls) and the kernel path against the plain path (2e-2); (b)
    serve_folds="all" (K=2) against the mean of the two single-fold
-   servers (2e-2), its p50 and device ms beside fold 0's; (c)
+   servers (2e-2), its p50 and device ms beside fold 0's; (b2) the
+   default server (device pair features) against one with
+   device_pair_feats="host" (2e-2), p50 alternated; (c)
    warmup_buckets of the default 7 x 3 x 3 grid: seconds, graphs, memory;
    then the largest buckets (B 32/64 x N 224/280 x L 384/512) into the
    same pool: memory again, and (a)'s requests against the eager server
@@ -81,7 +89,11 @@ Phases, one result line each; any failure exits non-zero:
    the LayerNorm kernels off (MMDTI_PALLAS_LN unset) and on (=1), alternated
    over 2 rounds of 10 steps each way: step p50, launches and device ms per
    step, the LayerNorm kernels' ms per step; on, exactly 49 forward and 49
-   backward LayerNorm launches a step;
+   backward LayerNorm launches a step; and, after (a), the loss of the
+   batch with device pair features against the host's arrays on the
+   plain fp32 path (1e-4); (g) the flagship with kernel='numerical'
+   (NumericalEmbed) at N=L=64: kernel vs plain path as (a), and one
+   step's launches (no gbf, pair-bias 15/15, masked 8/8);
 6. graphs: K=4 flagship train steps (bf16, B=32, N=L=64, dropout on)
    recorded into one CUDA graph (train/steps.py TrainPrograms.feed over a
    resident batch) and replayed: (a) against the same 4 steps run eagerly
@@ -97,7 +109,8 @@ Phases, one result line each; any failure exits non-zero:
    graph step at N=280; (d) MolTrain.fit with the defaults (the resident
    feed engaged, steps_per_call=4) on the set of phase 7, MMDTI_PALLAS_LN=1:
    epoch seconds and history, the launcher counts exactly one train graph's
-   and two sweep graphs' warm-up and capture; (e) MolPredict through the
+   and two sweep graphs' warm-up and capture, the resident bytes as the
+   fit held them (coordinates) and in host pair mode; (e) MolPredict through the
    resident sweep against the per-batch path (1e-6);
 7. fit, with MMDTI_PALLAS_LN=1 for this phase (restored after it, as in
    5 (f)): the 400-molecule
@@ -176,9 +189,21 @@ Phases, one result line each; any failure exits non-zero:
    chemberta_dir): serve against predict (2e-3), the kernel path against
    the plain path (2e-2), graph replays against eager forwards (as close
    as two eager calls);
-11. one JSON line with every kernel's summary (each task's, phase cv's and
-   phase pretrained's launches beside the main path's), then
-   {"ok": true, ...}.
+11. mof, with MMDTI_PALLAS_LN=1 (restored after): 96 synthetic crystals
+   of 150-700 atoms written as CIF files from seed 0 (the reader crops
+   past 512), gases of the reader's list, pressure and temperature;
+   MolTrain(data_type="mof").fit at the flagship width and depth (bf16,
+   B=16, 2 epochs, device pair features by 'auto') and MolPredict:
+   featurization seconds, the pad N (528), resident bytes in device and
+   host pair mode, the fit's and the predict's launches exactly one train
+   graph's and one sweep graph's (masked attention 0), peak memory, a
+   step's launches and device ms eager and replayed, K replayed steps
+   against K eager ones (bit for bit), kernel vs plain path on a
+   batch of 4 crystals (2e-2 loss, gradients 0.1 of max), and device
+   against host pair features on 2 crystals, plain fp32 path (1e-4);
+12. one JSON line with every kernel's summary (each task's, phase cv's,
+   phase pretrained's and phase mof's launches beside the main path's),
+   then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -226,6 +251,9 @@ LOGITS_TOL = 2e-2  # kernel vs plain path, flagship logits (bf16 compute)
 # backward; a wrong gradient differs by order 1
 TRAIN_GRAD_TOL = 1e-1
 TRAIN_LOSS_TOL = 2e-2
+# device against host pair features on the plain fp32 path: the distances
+# differ in their last bits (tests/test_pair_feats.py holds them to 1e-5)
+PAIR_MODE_TOL = 1e-4
 DROPOUT = 0.1
 TRAIN_STEPS = 30
 # H100 SXM datasheet peaks: HBM bytes/s; dense FLOP/s by
@@ -581,9 +609,11 @@ class _Recorder:
                 s["dtype_route"] = line["route"]
 
 
-def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
+def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280),
+                     precisions=("fp32", "bf16"), rates=(0.0, DROPOUT)):
     """Pair-bias attention forward and backward against their plain
-    versions, by default at the flagship's B=32, H=64, D=8, N=64 and 280.
+    versions, by default at the flagship's B=32, H=64, D=8, N=64 and 280,
+    in fp32 and bf16, dropout 0 and 0.1.
     bf16 runs the tensor-core route (its forward also returns the row
     stats, its backward is one launch from out and the stats); fp32 the row
     kernels.  Beside the bf16 route's device times: the row kernels at the
@@ -598,7 +628,7 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
 
-    precisions = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     for N in Ns:
         lens = _padded_lengths(gen, B, N)
         pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
@@ -606,7 +636,8 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
         bias = randn(B, H, N, N).masked_fill(pad[:, None, None, :], float("-inf"))
         g_logits = randn(B, H, N, N)
         kf = float(drop.keep_mask(int(seed), DROPOUT, B, H, N, N, device=dev).float().mean())
-        for prec, dt in precisions:
+        for prec in precisions:
+            dt = dtypes[prec]
             s, p = BYTES[prec], BYTES[prec]
             mma = prec == "bf16"
             args = [t.to(dt).contiguous() for t in (q, k, v, bias)]
@@ -614,7 +645,7 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
             fwd_bound = _bound(4 * B * N * H * D * s + 2 * B * H * N * N * p,
                                4 * B * H * N * N * D, prec)
             case = f"B={B} N={N} H={H} D={D}"
-            for rate in (0.0, DROPOUT):
+            for rate in rates:
                 sd = seed if rate else None
 
                 def fwd():
@@ -646,7 +677,7 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
                                      sdpa_device_ms=_device_ms(sdpa.fwd))
                     extra["sdpa_is"] = SDPA_PAIR_IS
                 record("pair_bias_attention", f"{case} dropout={rate}", prec, errs, ms, pms, None,
-                       fwd_bound, N == 64 and mma and rate > 0, extra)
+                       fwd_bound, N == 64 and B == 32 and mma and rate > 0, extra)
 
                 for gl in (g_logits.to(dt), None):
                     n_pair = 3 if gl is not None else 2
@@ -696,8 +727,8 @@ def _pair_bias_cases(dev, gen, seed, record, B=32, H=64, D=8, Ns=(64, 280)):
                                      sdpa_is=SDPA_PAIR_IS)
                     record("pair_bias_attention_bwd",
                            f"{case} dropout={rate} g_logits={gl is not None}", prec, errs, ms,
-                           pms, None, bwd_bound, N == 64 and mma and rate > 0 and gl is not None,
-                           extra)
+                           pms, None, bwd_bound,
+                           N == 64 and B == 32 and mma and rate > 0 and gl is not None, extra)
 
 
 class _GbfFma:
@@ -786,7 +817,7 @@ def _sm_clock_hz():
     return float(out.split()[0]) * 1e6
 
 
-def _gbf_cases(dev, gen, record, B=32, K=128):
+def _gbf_cases(dev, gen, record, B=32, K=128, cases=None):
     """The fused Gaussian + gbf_proj forward and backward against their plain
     versions at B=32, K=Kh=128, padded keys.  fp32 runs the FMA route; bf16
     the tensor-core route at N=64, 280 and 65 (no 16-byte alignment), both
@@ -807,9 +838,10 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
     from mmdti_tpu_torch.ops import hopper_gbf as hg
 
     sfu_per_s = 16 * torch.cuda.get_device_properties(dev).multi_processor_count * _sm_clock_hz()
-    cases = [(N, 64, "gelu_tanh", "fp32") for N in (64, 280)]
-    cases += [(N, 64, act, "bf16") for N in (64, 280, 65) for act in ("gelu_tanh", "gelu")]
-    cases += [(64, 96, "gelu_tanh", "bf16")]
+    if cases is None:   # (N, H, activation, precision)
+        cases = [(N, 64, "gelu_tanh", "fp32") for N in (64, 280)]
+        cases += [(N, 64, act, "bf16") for N in (64, 280, 65) for act in ("gelu_tanh", "gelu")]
+        cases += [(64, 96, "gelu_tanh", "bf16")]
     params = {}
     for N, H, act, prec in cases:
         dt = torch.float32 if prec == "fp32" else torch.bfloat16
@@ -829,7 +861,7 @@ def _gbf_cases(dev, gen, record, B=32, K=128):
         P = B * N * N
         route = hg.gbf_route(dt, K, K, H)
         timed = prec == "bf16" and act == "gelu_tanh" and N != 65 and H == 64
-        main = N == 64 and timed
+        main = N == 64 and B == 32 and timed
         case = f"B={B} N={N} K={K} H={H} {act} padded keys"
         sfu = P * (2 * K if act == "gelu_tanh" else K) / sfu_per_s * 1e3
 
@@ -1038,6 +1070,13 @@ def phase_kernels(dev):
                        lms, _bound(bwd_bytes, 10 * B * Hm * Nq * Nk * Dm, prec),
                        main_shape and mma and rate > 0, extra)
     _layer_norm_cases(dev, gen, record)
+    # phase mof's shapes: B=16 crystals at N=528 (512 atoms, BOS, EOS, padded
+    # to 16), bf16 as the fit runs them; LayerNorm over its 16 x 528 rows
+    _pair_bias_cases(dev, gen, seed, record, B=MOF_BATCH, Ns=(MOF_PAD,), precisions=("bf16",),
+                     rates=(DROPOUT,))
+    _gbf_cases(dev, gen, record, B=MOF_BATCH, cases=[(MOF_PAD, 64, "gelu_tanh", "bf16")])
+    _layer_norm_cases(dev, gen, record, Ts=(MOF_BATCH * MOF_PAD,),
+                      dts=(("bf16", torch.bfloat16),), epss=(1e-5,))
     print("kernels: " + json.dumps({"profiler_windows_rejected": len(REJECTED_WINDOWS),
                                      "rejected": REJECTED_WINDOWS}), flush=True)
     if record.failures:
@@ -1045,8 +1084,10 @@ def phase_kernels(dev):
     return record.summary
 
 
-def _layer_norm_cases(dev, gen, record):
-    """LayerNorm forward and backward against their plain versions; the
+def _layer_norm_cases(dev, gen, record, Ts=(2048, 8960), dts=None, epss=(1e-5, 1e-12)):
+    """LayerNorm forward and backward against their plain versions (by
+    default at T=2048 and 8960, x and y in fp32 and bf16, eps 1e-5 and
+    1e-12); the
     library yardstick is F.layer_norm in x's dtype (its variance is the
     two-pass one), forward alone and forward plus backward.  Every backward
     must be one launch, and repeat bit for bit, also after a call at
@@ -1057,9 +1098,9 @@ def _layer_norm_cases(dev, gen, record):
 
     from mmdti_tpu_torch.ops import hopper_ln as hl
 
-    dts = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+    dts = dts or (("fp32", torch.float32), ("bf16", torch.bfloat16))
     E = 512
-    for T in (2048, 8960):      # B=32 at N=64 and at the top atom bucket N=280
+    for T in Ts:      # B=32 at N=64 and at the top atom bucket N=280; B=16 at MOF's N=528
         x0 = torch.randn(T, E, generator=gen).to(dev)
         gy0 = torch.randn(T, E, generator=gen).to(dev)
         w = (torch.rand(E, generator=gen) + 0.5).to(dev)
@@ -1069,10 +1110,10 @@ def _layer_norm_cases(dev, gen, record):
             for yp, yd in dts:
                 gy = gy0.to(yd)
                 coarse = "bf16" if "bf16" in (xp, yp) else "fp32"
-                for eps in (1e-5, 1e-12):
+                for eps in epss:
                     case = f"T={T} E={E} x={xp} y={yp} eps={eps}"
                     main = T == 2048 and xp == yp == "bf16" and eps == 1e-5
-                    timed = xp == yp == "bf16" and eps == 1e-5
+                    timed = xp == yp == "bf16" and eps == 1e-5 and ("layer_norm", T) in LN_EARLIER
                     y = hl.layer_norm_cuda(x, w, b, eps, yd)
                     want = hl.layer_norm_plain(x, w, b, eps, yd)
                     torch.cuda.synchronize()
@@ -1492,6 +1533,23 @@ def phase_serve(dev, card):
         raise Failed(f"serve: one ensemble replay launched {ens_launch}")
     del ens, fold1
 
+    # (b2) the pair arrays built on the device (the default here) against
+    # the host's, both graph-replayed
+    host = MolServe(SERVE_DIR, device=dev, device_pair_feats="host")
+    mode_diff = {str(n): float(np.abs(graph.predict(smi)["predict"]
+                                      - host.predict(smi)["predict"]).max())
+                 for n, smi in requests.items()}
+    mode_p50, mode_rounds = _alternated_p50({"device": graph, "host": host}, requests)
+    print("serve: (b2) " + json.dumps({
+        "pair_modes": {"default": graph.pair_mode, "other": host.pair_mode},
+        "device_vs_host_max_abs": mode_diff, "tol": LOGITS_TOL, "p50_ms": mode_p50,
+        "p50_ms_by_round": mode_rounds, "card": card}), flush=True)
+    if graph.pair_mode != "device" or host.pair_mode != "host":
+        raise Failed(f"serve: pair modes {graph.pair_mode} (auto) and {host.pair_mode} (host)")
+    if max(mode_diff.values()) > LOGITS_TOL:
+        raise Failed(f"serve: device pair features answer apart from host ones: {mode_diff}")
+    del host
+
     # (c) warmup_buckets over the default grid on a fresh server, which (d)
     # then serves warm
     grid = MolServe(SERVE_DIR, device=dev)
@@ -1774,9 +1832,11 @@ def _flagship(use_kernels, output_dim=1):
                        unimol_overrides={"pair_dtype": "bfloat16"})
 
 
-def _train_batch(dev, atom_pad, smiles_pad, B=32):
+def _train_batch(dev, atom_pad, smiles_pad, B=32, pair_feats="device"):
     """B molecules of SMILES_20 featurized (host conformers) and collated to
-    N=atom_pad atoms and L=smiles_pad tokens, on the device."""
+    N=atom_pad atoms and L=smiles_pad tokens, on the device: coordinates
+    for the model to build the pair arrays from (``pair_feats`` "device",
+    the card's default) or the host's [B,N,N] arrays ("host")."""
     import numpy as np
     import torch
 
@@ -1790,10 +1850,9 @@ def _train_batch(dev, atom_pad, smiles_pad, B=32):
     for f, s in zip(feats, smiles):
         f["smile"] = s
     coll = BatchCollator(SmilesTokenizer(), pad_idx=conf.dictionary.pad(), pad_mode="fixed",
-                         atom_pad=atom_pad, smiles_pad=smiles_pad)
+                         atom_pad=atom_pad, smiles_pad=smiles_pad, pair_feats=pair_feats)
     batch, _ = coll([(f, np.zeros(1, np.float32)) for f in feats])
-    keys = ("src_tokens", "src_distance", "src_edge_type", "input_ids", "attention_mask")
-    return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(dev) for k in keys}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
 
 
 def _profile_steps(step, args, n=3):
@@ -1892,6 +1951,7 @@ def phase_train(dev):
     _compare_paths(model, plain, train_loss, feats, labels, weights, attn)
     _compare_paths(model, plain, train_loss, feats512, labels, weights, attn)
     del plain
+    _pair_modes_check(dev, model, train_loss, labels, weights)
 
     # (b) 30 steps, dropout on, one fixed batch; (c) their times and launches
     opt = FusedAdam(dict(model.named_parameters()), 1e-4, TRAIN_STEPS, warmup_ratio=0.1,
@@ -1980,7 +2040,86 @@ def phase_train(dev):
         raise Failed(f"train: L=512 step gave loss {loss512}")
     _check_mma_routes(routes512, attn, "train L=512")
     _ln_off_on(model, step, (feats, labels, weights, gen))
+    _numerical_check(dev, feats, labels, weights, n_masked)
     return launches
+
+
+def _pair_modes_check(dev, model, train_loss, labels, weights):
+    """Phase train: the loss of one batch (N=L=64, dropout off) with the
+    pair arrays built on the device from coordinates (the default on the
+    card) against the host's arrays, on the plain fp32 path (1e-4)."""
+    import torch
+
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.models.mm_model import build_model
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+    plain = build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                        compute_dtype="float32", use_kernels=False,
+                        unimol_overrides={"pair_dtype": "float32"})
+    plain.load_state_dict(model.state_dict())
+    plain.to(dev)
+    loss = {}
+    with torch.no_grad():
+        for mode in ("device", "host"):
+            feats = _train_batch(dev, 64, 64, labels.shape[0], pair_feats=mode)
+            loss[mode] = float(train_loss(plain, feats, labels, weights, None)[0])
+    diff = abs(loss["device"] - loss["host"])
+    print("train: " + json.dumps({"check": "device vs host pair features, plain fp32 path",
+                                  "loss": loss, "abs_diff": diff, "tol": PAIR_MODE_TOL}),
+          flush=True)
+    if not diff <= PAIR_MODE_TOL:
+        raise Failed(f"train: device pair features give loss {loss['device']}, host "
+                     f"{loss['host']}")
+
+
+def _numerical_check(dev, feats, labels, weights, n_masked):
+    """Phase train (g): the flagship width with the numerical pair kernel
+    (NumericalEmbed, an unfused gbf_proj, then the pair-bias kernels) at
+    N=L=64: one step's loss and gradients on the kernel path against the
+    plain path, and one train step's launches (no gbf kernel)."""
+    import torch
+
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.models.mm_model import build_model
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import build_train_loss, build_train_step
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+
+    def build(use_kernels):
+        return build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                           compute_dtype="bfloat16", use_kernels=use_kernels,
+                           unimol_overrides={"pair_dtype": "bfloat16", "kernel": "numerical"})
+
+    model = build(True).reset_parameters_like_flax(torch.Generator().manual_seed(5)).to(dev)
+    plain = build(False)
+    plain.load_state_dict(model.state_dict())
+    plain.to(dev)
+    per_step = {**_attention_launches(model.unimol_cfg.encoder_layers, n_masked),
+                "gbf_proj": 0, "gbf_proj_bwd": 0}
+    _compare_paths(model, plain, build_train_loss(zoo.mse_loss, "regression"), feats, labels,
+                   weights, per_step, what="numerical")
+    del plain
+    step = build_train_step(model, FusedAdam(dict(model.named_parameters()), 1e-4, 10),
+                            zoo.mse_loss, "regression")
+    _reset_counts()
+    loss = float(step(feats, labels, weights, torch.Generator(device=dev).manual_seed(3))["loss"])
+    counts = _read_counts()
+    _, ms, kernels = _replay_launches(
+        lambda: step(feats, labels, weights, torch.Generator(device=dev).manual_seed(3)))
+    print("numerical: " + json.dumps({
+        "kernel": "numerical", "B": feats["src_tokens"].shape[0],
+        "N": feats["src_tokens"].shape[1], "step_loss": loss, "launches": counts,
+        "launches_expected": per_step, "step_device_ms": ms, "step_device_kernels": kernels}),
+        flush=True)
+    if not loss == loss or any(counts[k] != n for k, n in per_step.items()):
+        raise Failed(f"numerical: step loss {loss}, launches {counts}, expected {per_step}")
 
 
 def _ln_off_on(model, step, args):
@@ -2082,7 +2221,7 @@ def _attention_launches(n_pair, n_masked, backward=True):
     return per
 
 
-def _compare_paths(model, plain, train_loss, feats, labels, weights, attn):
+def _compare_paths(model, plain, train_loss, feats, labels, weights, attn, what="train"):
     """One step's loss and gradients, dropout off, on the kernel path
     against the plain path; the kernel path's attention launches (attn:
     launcher -> count) must all take the tensor-core route."""
@@ -2108,8 +2247,9 @@ def _compare_paths(model, plain, train_loss, feats, labels, weights, attn):
         scale = max(float(g.float().abs().max()), floor)
         rel[name] = float((gk[name].float() - g.float()).abs().max()) / scale
     worst = max(rel, key=rel.get)
-    shape = {"N": feats["src_tokens"].shape[1], "L": feats["input_ids"].shape[1]}
-    print("train: " + json.dumps({
+    shape = {"B": feats["src_tokens"].shape[0], "N": feats["src_tokens"].shape[1],
+             "L": feats["input_ids"].shape[1] if "input_ids" in feats else 0}
+    print(f"{what}: " + json.dumps({
         "check": "kernel vs plain path, dropout off", **shape, "loss_kernel": lk,
         "loss_plain": lp, "loss_abs_diff": abs(lk - lp), "loss_tol": TRAIN_LOSS_TOL,
         "max_rel_grad_diff": rel[worst], "worst_param": worst,
@@ -2117,9 +2257,9 @@ def _compare_paths(model, plain, train_loss, feats, labels, weights, attn):
         "attention_routes": routes,
     }), flush=True)
     if not (abs(lk - lp) <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_TOL):
-        raise Failed(f"train {shape}: kernel path differs from plain path: loss {lk} vs {lp}, "
+        raise Failed(f"{what} {shape}: kernel path differs from plain path: loss {lk} vs {lp}, "
                      f"{worst} grad rel diff {rel[worst]}")
-    _check_mma_routes(routes, attn, f"train {shape} check")
+    _check_mma_routes(routes, attn, f"{what} {shape} check")
 
 
 def _graph_resident(dev, atom_pad, smiles_pad, B=32):
@@ -2378,8 +2518,10 @@ def phase_graphs(dev):
     want = {"layer_norm_bwd": (GRAPH_WARMUP + 1) * k_feed * LN_SITES,
             "gbf_proj_bwd": (GRAPH_WARMUP + 1) * k_feed,
             "gbf_proj": (GRAPH_WARMUP + 1) * (k_feed + 2)}
+    resident = _resident_bytes(fit["clf"])
     print("graphs: (d) " + json.dumps({
         "dispatch": "defaults: device_feed auto (engaged), steps_per_call 4",
+        "pair_feats": fit["clf"].model.collator.pair_feats, "resident_bytes": resident,
         "steps_per_epoch": steps, "steps_per_replay": k_feed, "epochs": len(history),
         "fit_wall_s": fit["fit_s"], "epoch_wall_s": [r["seconds"] for r in history],
         "epoch_val_s": [r["val_seconds"] for r in history], "history": history,
@@ -2466,6 +2608,30 @@ def _run_fit(paths, exp, **dispatch):
         history = json.load(f)
     return {"clf": clf, "fit_s": fit_s, "counts": _read_counts(), "routes": _read_routes(),
             "history": history}
+
+
+def _resident_bytes(clf):
+    """The bytes of a fit's resident train and validation arrays: as the
+    fit held them (device pair mode: coordinates) and with the same rows
+    collated in host pair mode (the [N,N] arrays), put on the card to be
+    counted and freed."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch.data.batching import BatchCollator, MolDataset
+
+    trainer, nn, c = clf.trainer, clf.model, clf.model.collator
+    host = BatchCollator(c.tokenizer, pad_idx=c.pad_idx, pad_mode=c.pad_mode,
+                         atom_pad=c.atom_pad, smiles_pad=c.smiles_pad, pair_feats="host")
+    out = {"fit": {slot: trainer._slots[slot].nbytes for slot in ("train", "val")}, "host": {}}
+    for slot, feats, target in (("train", nn.features_train, nn.data_train["target"]),
+                                ("val", nn.features_test, nn.data_test["target"])):
+        res, _ = trainer.dataset_to_device(MolDataset(feats, np.asarray(target)), host)
+        out["host"][slot] = res.nbytes
+        del res
+    torch.cuda.empty_cache()
+    out["host_over_fit"] = sum(out["host"].values()) / sum(out["fit"].values())
+    return out
 
 
 def _ln_sites(model):
@@ -3708,6 +3874,285 @@ def phase_pretrained(dev, card, graph_fit):
             "predict": served["predict_launches"]}
 
 
+# ---- phase mof ---------------------------------------------------------------------
+
+MOF_CRYSTALS, MOF_EPOCHS, MOF_BATCH = 96, 2, 16
+MOF_ATOMS = (150, 700)       # atoms a synthetic crystal holds: past 512 the reader crops
+MOF_MAX_ATOMS = 512          # MOFReader's default crop
+MOF_PAD = 528                # 512 + BOS + EOS, up to the fit's pad_multiple 16
+MOF_SPLIT = (64, 16, 16)     # train, val, test rows
+MOF_PLAIN_B = 4              # rows of the kernel-vs-plain step (the plain path's memory)
+MOF_MODE_B = 2               # rows of the device-vs-host check on the fp32 plain path
+MOF_SYMBOLS = ("Zn", "Cu", "O", "C", "H", "N")
+MOF_WORK = os.path.join(REPO, "build", "chip_smoke_mof")
+
+
+def write_mof_data(work, n=MOF_CRYSTALS, seed=0):
+    """n synthetic crystals of MOF_ATOMS atoms (fractional sites, cells of
+    20-30 Å), written as CIF files under ``work``, and train/val/test CSVs
+    of MOF_SPLIT rows with the CIF paths relative to the CSVs, a gas of the
+    reader's list, pressure (bar), temperature (K) and an uptake target
+    that the gas, the pressure and the crystal's size set, with noise.
+    The first crystal has MOF_ATOMS[1] atoms, so that the crop engages.
+    Returns ({split: csv path}, [atoms of each crystal])."""
+    import numpy as np
+
+    from mmdti_tpu_torch.chem.mof import GAS2ATTR, GAS_LIST
+    from mmdti_tpu_torch.data.reader import write_csv
+
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.RandomState(seed)
+    rows = {"cif": [], "gas": [], "pressure": [], "temperature": [], "uptake": []}
+    sizes = []
+    for i in range(n):
+        n_atoms = MOF_ATOMS[1] if i == 0 else int(rng.randint(MOF_ATOMS[0], MOF_ATOMS[1] + 1))
+        sizes.append(n_atoms)
+        a, b, c = 20.0 + rng.rand(3) * 10.0
+        symbols = rng.choice(MOF_SYMBOLS, n_atoms)
+        frac = rng.rand(n_atoms, 3)
+        lines = [f"data_mof_{i}", f"_cell_length_a {a:.4f}", f"_cell_length_b {b:.4f}",
+                 f"_cell_length_c {c:.4f}", "_cell_angle_alpha 90.0", "_cell_angle_beta 90.0",
+                 "_cell_angle_gamma 90.0", "loop_", "_atom_site_label",
+                 "_atom_site_type_symbol", "_atom_site_fract_x", "_atom_site_fract_y",
+                 "_atom_site_fract_z"]
+        lines += [f"{s}{j} {s} {x:.5f} {y:.5f} {z:.5f}"
+                  for j, (s, (x, y, z)) in enumerate(zip(symbols, frac))]
+        with open(os.path.join(work, f"mof_{i}.cif"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        gas = GAS_LIST[i % len(GAS_LIST)]
+        pressure, temperature = float(rng.rand() * 10), float(273 + rng.rand() * 100)
+        rows["cif"].append(f"mof_{i}.cif")
+        rows["gas"].append(gas)
+        rows["pressure"].append(pressure)
+        rows["temperature"].append(temperature)
+        rows["uptake"].append(float(2.0 + GAS2ATTR[gas][0] + 0.1 * pressure + n_atoms / 500
+                                    + 0.1 * rng.randn()))
+    paths, start = {}, 0
+    for name, count in zip(("train", "val", "test"), MOF_SPLIT):
+        paths[name] = os.path.join(work, f"{name}.csv")
+        write_csv({k: np.asarray(v[start:start + count], dtype=object if k in ("cif", "gas")
+                                 else np.float64) for k, v in rows.items()}, paths[name])
+        start += count
+    return paths, sizes
+
+
+def _mof_graph_vs_eager(progs, res, idx):
+    """K steps replayed from the fit's train graph against the same K steps
+    run eagerly from the same state (optimizer buffers with the weights,
+    metric sums, generator): bit for bit, as two eager runs are (the small
+    tables' one-hot embedding backward, models/layers.py Embed, keeps the
+    atom embedding's gradient in one order at 8,448 tokens).  Returns the
+    gaps."""
+    import torch
+
+    opt, gen = progs.optimizer, progs.generator
+
+    def state():
+        return [t.clone() for t in (*opt.graph_state, progs.metric_sums)], gen.get_state()
+
+    def restore(saved):
+        with torch.no_grad():
+            for t, v in zip((*opt.graph_state, progs.metric_sums), saved[0]):
+                t.copy_(v)
+        gen.set_state(saved[1])
+
+    def gap(a, b):
+        return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+    s0 = state()
+    m_e1 = torch.stack([progs.single(*res.take(idx[k])) for k in range(idx.shape[0])])
+    after_e1 = state()
+    restore(s0)
+    m_e2 = torch.stack([progs.single(*res.take(idx[k])) for k in range(idx.shape[0])])
+    after_e2 = state()
+    restore(s0)
+    m_g = progs.feed(res, idx)
+    after_g = state()
+    torch.cuda.synchronize()
+    out = {"eager_vs_eager_max_abs": gap([*after_e1[0], m_e1], [*after_e2[0], m_e2]),
+           "graph_vs_eager_max_abs": gap([*after_g[0], m_g], [*after_e1[0], m_e1]),
+           "bit_equal": all(torch.equal(x, y) for x, y in
+                            zip([*after_g[0], m_g], [*after_e1[0], m_e1])),
+           "generator_state_equal": bool(torch.equal(after_g[1], after_e1[1]))}
+    if not (out["generator_state_equal"] and out["bit_equal"]
+            and out["eager_vs_eager_max_abs"] == 0.0):
+        raise Failed(f"mof: replayed steps differ from eager ones: {out}")
+    return out
+
+
+def phase_mof(dev, card):
+    """MolTrain(data_type='mof') -> MolPredict at the flagship width and
+    depth on synthetic crystals of up to 700 atoms (cropped to 512, padded
+    to N=528), B=16, bf16, device pair features ('auto'), MMDTI_PALLAS_LN=1;
+    returns the fit's launch counts."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolTrain
+    from mmdti_tpu_torch.chem.mof import MOFReader
+    from mmdti_tpu_torch.data.reader import read_csv
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.models.mof import build_mof_model
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP, build_train_loss
+
+    t_phase = time.perf_counter()
+    paths, sizes = write_mof_data(MOF_WORK)
+    reader = MOFReader()
+    t0 = time.perf_counter()
+    n_tokens = []
+    for split in ("train", "val", "test"):
+        table = read_csv(paths[split])
+        for cif, gas in zip(table["cif"], table["gas"]):
+            n_tokens.append(len(reader.read_with_gas(os.path.join(MOF_WORK, cif),
+                                                     gas)["src_tokens"]))
+    featurize_s = time.perf_counter() - t0
+    exp = os.path.join(MOF_WORK, "exp")
+    with _ln_kernels_on():
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        clf = MolTrain(task="regression", data_type="mof", epochs=MOF_EPOCHS,
+                       batch_size=MOF_BATCH, learning_rate=1e-4, early_stopping=20,
+                       metrics="mse", target_cols=["uptake"], save_path=exp, seed=42,
+                       device="cuda")
+        clf.fit(paths["train"], paths["val"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak_fit = torch.cuda.max_memory_allocated(dev)
+        fit_counts, fit_routes = _read_counts(), _read_routes()
+        nn, trainer = clf.model, clf.trainer
+        model = nn.model
+        sites = _ln_sites(model)
+        per_fwd = {"gbf_proj": 1, "pair_bias_attention": model.unimol_cfg.encoder_layers,
+                   "masked_attention": 0, "layer_norm": sites}
+        per_step = {**per_fwd, **{k + "_bwd": n for k, n in per_fwd.items()}}
+        n_train = len(nn.features_train)
+        steps = n_train // MOF_BATCH
+        k_feed = _snap_to_divisor(GRAPH_K, steps)
+        # one train graph (warm-ups and capture of k_feed steps) and one
+        # validation sweep graph: nothing else launches
+        want_fit = {k: n * (GRAPH_WARMUP + 1) * (k_feed + (0 if k.endswith("_bwd") else 1))
+                    for k, n in per_step.items()}
+        with open(os.path.join(exp, "history_0.json")) as f:
+            history = json.load(f)
+        resident = _resident_bytes(clf)
+        info = {"crystals": MOF_CRYSTALS, "atoms": [min(sizes), max(sizes)],
+                "cropped_crystals": sum(n > MOF_MAX_ATOMS for n in sizes),
+                "featurization_s": featurize_s, "tokens_max": max(n_tokens),
+                "pad_N": nn.atom_pad, "pair_feats": nn.collator.pair_feats,
+                "layers": model.unimol_cfg.encoder_layers, "E": model.unimol_cfg.embed_dim,
+                "H": model.unimol_cfg.attention_heads, "K": model.unimol_cfg.gaussian_kernels,
+                "B": MOF_BATCH, "steps_per_epoch": steps, "steps_per_replay": k_feed,
+                "fit_wall_s": fit_s, "epoch_wall_s": [r["seconds"] for r in history],
+                "history": history, "peak_allocated_bytes_fit": peak_fit,
+                "resident_bytes": resident, "fit_launches": fit_counts,
+                "fit_launches_expected": want_fit, "card": card}
+        print("mof: fit " + json.dumps(info), flush=True)
+        if nn.atom_pad != MOF_PAD or nn.collator.pair_feats != "device":
+            raise Failed(f"mof: pad N {nn.atom_pad} (expected {MOF_PAD}), pair features "
+                         f"{nn.collator.pair_feats} (expected device)")
+        if fit_counts != want_fit:
+            raise Failed(f"mof: the fit launched {fit_counts}, expected {want_fit}")
+        _check_mma_routes(fit_routes, {k: want_fit[k] for k in fit_routes}, "mof fit")
+
+        # MolPredict on the test crystals: one sweep graph's forwards
+        _reset_counts()
+        pred = np.asarray(MolPredict(load_model=exp).predict(paths["test"]))
+        pred_counts = _read_counts()
+        want_pred = {k: 0 if k.endswith("_bwd") else n * (GRAPH_WARMUP + 1)
+                     for k, n in per_step.items()}
+        if pred.shape != (MOF_SPLIT[2], 1) or not np.isfinite(pred).all():
+            raise Failed(f"mof: MolPredict gave {pred!r}")
+        if pred_counts != want_pred:
+            raise Failed(f"mof: MolPredict launched {pred_counts}, expected {want_pred}")
+
+        # a step eager and replayed: launches, device ms; replay against eager
+        progs = trainer._last_programs[2]
+        res = trainer._slots["train"]
+        rng = np.random.RandomState(1)
+        idx = torch.from_numpy(np.stack([rng.permutation(n_train)[:MOF_BATCH]
+                                         for _ in range(k_feed)])).to(dev)
+        eager_launch, eager_ms, eager_kernels = _replay_launches(
+            lambda: progs.single(*res.take(idx[0])))
+        replay_launch, replay_ms, replay_kernels = _replay_launches(
+            lambda: progs.feed(res, idx))
+        marked = {k: per_step[k] for k in KERNEL_MARKERS}
+        replay_check = _mof_graph_vs_eager(progs, res, idx)
+        step_info = {"eager_step_launches": eager_launch,
+                     "replay_launches_per_step": {k: n / k_feed for k, n in
+                                                  replay_launch.items()},
+                     "launches_per_step_reckoned": marked, "eager_step_device_ms": eager_ms,
+                     "replay_device_ms_per_step": replay_ms / k_feed,
+                     "eager_step_device_kernels": eager_kernels,
+                     "replay_device_kernels_per_step": replay_kernels / k_feed,
+                     "replay_vs_eager": replay_check, "card": card}
+        print("mof: steps " + json.dumps(step_info), flush=True)
+        if eager_launch != marked or replay_launch != {k: n * k_feed for k, n in
+                                                       marked.items()}:
+            raise Failed(f"mof: a step launched {eager_launch} eagerly and {replay_launch} in "
+                         f"a {k_feed}-step replay; reckoned {marked} a step")
+
+        # one batch kept for the path checks, in both pair modes
+        rows = [(nn.features_train[i], np.asarray(nn.data_train["target"][i]))
+                for i in range(MOF_PLAIN_B)]
+        batch_dev, y = nn.collator(rows)
+        nn.collator.pair_feats = "host"
+        batch_host, _ = nn.collator(rows[:MOF_MODE_B])
+        nn.collator.pair_feats = "device"
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        cfg = dict(output_dim=1, atom_vocab_size=len(nn.dictionary),
+                   atom_pad_idx=nn.dictionary.pad(), task="regression")
+    del clf, nn, trainer, model, progs, res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # kernel path against plain path, one MOF batch of MOF_PLAIN_B rows, bf16
+    def build(compute_dtype, use_kernels, pair_dtype):
+        m = build_mof_model(**cfg, compute_dtype=compute_dtype, use_kernels=use_kernels,
+                            unimol_overrides={"pair_dtype": pair_dtype})
+        m.load_state_dict(state)
+        return m.to(dev)
+
+    def on_card(batch):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()
+                if k != "weights"}
+
+    feats = on_card(batch_dev)
+    labels = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+    weights = torch.ones(MOF_PLAIN_B, 1, device=dev)
+    kernel_model = build("bfloat16", True, "bfloat16")
+    plain = build("bfloat16", False, "bfloat16")
+    torch.cuda.reset_peak_memory_stats(dev)
+    _compare_paths(kernel_model, plain, build_train_loss(zoo.mse_loss, "regression"), feats,
+                   labels, weights, {k: n for k, n in per_step.items()
+                                     if not k.startswith("layer_norm")}, what="mof")
+    peak_compare = torch.cuda.max_memory_allocated(dev)
+    del kernel_model, plain
+    torch.cuda.empty_cache()
+
+    # device against host pair features, plain fp32 path, MOF_MODE_B rows
+    fp32 = build("float32", False, "float32")
+    with torch.no_grad():
+        sub = {k: v[:MOF_MODE_B] for k, v in feats.items()}
+        got = fp32(**sub, outputs="logits")["logits"]
+        want = fp32(**on_card(batch_host), outputs="logits")["logits"]
+    mode_diff = float((got - want).abs().max())
+    del fp32
+    torch.cuda.empty_cache()
+    print("mof: " + json.dumps({
+        "check": "device vs host pair features, plain fp32 path", "B": MOF_MODE_B,
+        "N": int(feats["src_tokens"].shape[1]), "logits_max_abs_diff": mode_diff,
+        "tol": PAIR_MODE_TOL, "peak_allocated_bytes_kernel_vs_plain": peak_compare,
+        "predict_rows": int(pred.shape[0]), "phase_s": time.perf_counter() - t_phase,
+        "card": card}), flush=True)
+    if not mode_diff <= PAIR_MODE_TOL:
+        raise Failed(f"mof: device pair features differ from host ones by {mode_diff}")
+    return fit_counts
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
@@ -3738,6 +4183,7 @@ def main() -> int:
     task_launches = phase_tasks(dev)
     cv_launches = phase_cv(dev, graph_fit)
     pretrained_launches = phase_pretrained(dev, card, graph_fit)
+    mof_launches = phase_mof(dev, card)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
@@ -3749,12 +4195,17 @@ def main() -> int:
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
+    # a MOF model has no SMILES stream: masked attention launches nowhere on it
+    for name, n in mof_launches.items():
+        if (n != 0) if name.startswith("masked") else (n == 0):
+            raise Failed(f"{name} launched {n} times on the mof path")
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **summary[name],
          "task_launches": {task: counts[name] for task, counts in task_launches.items()},
          "cv_launches": cv_launches[name],
-         "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()}}
+         "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()},
+         "mof_launches": mof_launches[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

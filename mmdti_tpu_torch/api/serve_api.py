@@ -7,7 +7,10 @@ mmdti_tpu/api/serve_api.py on one device).
   served fold (api/serve_model.py).
 - Raw SMILES are featurized on the host (ConformerGen + tokenizer, with a
   per-SMILES LRU cache) and padded onto static (batch, atom, SMILES) shape
-  buckets.
+  buckets.  In device pair mode (``device_pair_feats`` 'auto' on the card)
+  a request ships [B,N,3] coordinates and the forward builds the [B,N,N]
+  distances and edge types from them (ops/pair_feats.py); in host mode
+  the host builds and ships those arrays.
 - On the card each bucket's forward is recorded once as a CUDA graph
   (train/steps.py ``capture_graph``) with static input buffers, at the
   bucket's first request or in ``warmup_buckets``, and replayed for every
@@ -20,9 +23,8 @@ mmdti_tpu/api/serve_api.py on one device).
 - ``make_server`` / ``serve`` put the stdlib HTTP front (api/serve_http.py)
   and the dynamic batcher (api/serve_batcher.py) in front of it.
 
-Serving over a device mesh (``mesh_shape``) and pair features built on the
-device (``device_pair_feats`` resolving to "device") are not ported and
-raise.
+Serving over a device mesh (``mesh_shape``) is not ported and raises.
+MolServe serves molecules, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -51,13 +53,14 @@ from mmdti_tpu_torch.data.batching import BatchCollator
 from mmdti_tpu_torch.data.hub import _coord_provider
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
+from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
 from mmdti_tpu_torch.train.steps import _Graph, capture_graph
 from mmdti_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
 _FEATURE_KEYS = (
-    "src_tokens", "src_distance", "src_edge_type", "input_ids", "attention_mask",
+    "src_tokens", "src_distance", "src_edge_type", "src_coord", "input_ids", "attention_mask",
 )
 
 DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
@@ -72,33 +75,6 @@ def _feat_nbytes(feat: Dict[str, Any]) -> int:
         elif isinstance(v, str):
             total += len(v)
     return total
-
-
-def resolve_pair_feats_mode(value) -> str:
-    """The JAX package's device_pair_feats spellings -> "host".  'auto'
-    resolves to "host" off a TPU there, and always here; a spelling of
-    "device" (the [B,N,N] pair arrays built on the device from coordinates)
-    raises: ops/pair_feats.py is not ported."""
-    if value == "auto" or value is None:
-        return "host"
-    if isinstance(value, str):
-        v = value.strip().lower()
-        if v in ("host", "false", "off", "0", "no"):
-            return "host"
-        if v not in ("device", "true", "on", "1", "yes"):
-            raise ValueError(
-                f"device_pair_feats={value!r} not understood: expected 'auto', "
-                "'device'/True, or 'host'/False"
-            )
-    elif not isinstance(value, (bool, int)):
-        raise ValueError(f"device_pair_feats={value!r} not understood")
-    elif not value:
-        return "host"
-    raise NotImplementedError(
-        f"device_pair_feats={value!r}: pair features built on the device "
-        "(pair_feats_from_coords) are not ported yet (ROADMAP.md, M1: the rest of "
-        "the Uni-Mol stream)"
-    )
 
 
 def _tree(fn: Callable, out):
@@ -121,8 +97,10 @@ class MolServe:
     num_workers:     host featurization threads (0 = inline).
     feature_cache:   LRU entry bound for per-SMILES featurization (0 = off).
     feature_cache_bytes: host-RAM bound on the same cache.
-    device_pair_feats: 'auto' | 'host' | False: the dense pair arrays are
-                     built on the host.  'device' / True raise (not ported).
+    device_pair_feats: 'auto' (device on the card, host on the CPU) |
+                     'device'/True: requests ship [B,N,3] coordinates and
+                     the forward builds the pair arrays | 'host'/False: the
+                     host builds and ships the dense [B,N,N] arrays.
     serve_folds:     1 (default): fold 0.  K or 'all': the first K (or all)
                      fold checkpoints of a CV experiment as an ensemble;
                      the forward is the mean of their activated outputs,
@@ -151,7 +129,6 @@ class MolServe:
                 f"mesh_shape={tuple(mesh_shape)!r}: serving over a device mesh is not "
                 "ported yet (ROADMAP.md, M8: data parallel)"
             )
-        resolve_pair_feats_mode(device_pair_feats)
         if not load_model or not os.path.isdir(load_model):
             raise ValueError(f"load_model must be an experiment dir, got {load_model!r}")
         self.load_model = load_model
@@ -169,7 +146,7 @@ class MolServe:
             cfg, lambda dev, d, tok: load_resident_model(
                 load_model, cfg, task, d, tok, dev, use_kernels, serve_folds),
             device, batch_buckets, num_workers, feature_cache, feature_cache_bytes,
-            scaler, threshold,
+            scaler, threshold, device_pair_feats,
         )
 
     @classmethod
@@ -185,6 +162,7 @@ class MolServe:
         feature_cache_bytes: int = 256 << 20,
         scaler=None,
         threshold: Union[float, np.ndarray] = 0.5,
+        device_pair_feats: Union[str, bool] = "auto",
     ) -> "MolServe":
         """A server over weights held in memory: ``config`` as config.yaml
         holds it (``task``, ``target_cols``, ``compute_dtype``, the
@@ -199,13 +177,14 @@ class MolServe:
             cfg, lambda dev, d, tok: resident_model(cfg, [state_dict], task, d, tok, dev,
                                                     use_kernels),
             device, batch_buckets, num_workers, feature_cache, feature_cache_bytes,
-            scaler, threshold,
+            scaler, threshold, device_pair_feats,
         )
         return self
 
     def _setup(self, cfg, load, device, batch_buckets, num_workers, feature_cache,
-               feature_cache_bytes, scaler, threshold):
+               feature_cache_bytes, scaler, threshold, device_pair_feats):
         self.device = resolve_device(device)
+        self.pair_mode = resolve_pair_feats_mode(device_pair_feats, self.device)
         self.config = cfg
         self.task = cfg.get("task", "regression")
         self.target_cols = str(cfg.get("target_cols", "target")).split(",")
@@ -215,11 +194,13 @@ class MolServe:
 
         self.tokenizer = load_tokenizer(cfg.get("chemberta_dir", "") or None)
         self.conformer = ConformerGen(**{**cfg, "num_workers": num_workers,
-                                         "coord_provider": _coord_provider(cfg)})
+                                         "coord_provider": _coord_provider(cfg),
+                                         "pair_feats": self.pair_mode == "host"})
         # ConformerGen resolves the atom dictionary as NNModel does
         self.dictionary = self.conformer.dictionary
         self.collator = BatchCollator(
             self.tokenizer, pad_idx=self.dictionary.pad(), pad_mode="bucket",
+            pair_feats=self.pair_mode,
         )
         self.scaler = scaler
         self.threshold = threshold
@@ -248,9 +229,9 @@ class MolServe:
         self.cache_hits = 0
         self._latencies: "deque[float]" = deque(maxlen=1024)
         self._lat_lock = threading.Lock()
-        logger.info("MolServe ready: task=%s output_dim=%d folds=%d device=%s graphs=%s",
-                    self.task, self.output_dim, self.serve_folds, self.device,
-                    self.use_graphs)
+        logger.info("MolServe ready: task=%s output_dim=%d folds=%d device=%s graphs=%s "
+                    "pair features=%s", self.task, self.output_dim, self.serve_folds,
+                    self.device, self.use_graphs, self.pair_mode)
 
     # ------------------------------------------------------------------
     def _featurize(self, smiles: List[str]) -> List[Dict[str, Any]]:
@@ -299,7 +280,7 @@ class MolServe:
         padded = feats_chunk + [feats_chunk[-1]] * (bucket - n)
         zero = np.zeros(max(1, self.output_dim), dtype=np.float32)
         batch, _ = self.collator([(f, zero) for f in padded])
-        return {k: np.ascontiguousarray(batch[k]) for k in _FEATURE_KEYS}, n
+        return {k: np.ascontiguousarray(batch[k]) for k in _FEATURE_KEYS if k in batch}, n
 
     def _place_feats(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
@@ -441,11 +422,15 @@ class MolServe:
                     tok[:, 0] = self.dictionary.bos()  # >=1 valid atom: no 0-div pooling
                     arrays = {
                         "src_tokens": tok,
-                        "src_distance": np.zeros((bucket, na, na), np.float32),
-                        "src_edge_type": np.full((bucket, na, na), pad, np.int32),
                         "input_ids": np.ones((bucket, ns), np.int32),
                         "attention_mask": np.ones((bucket, ns), np.int32),
                     }
+                    # the inputs a request of this pair mode ships
+                    if self.pair_mode == "device":
+                        arrays["src_coord"] = np.zeros((bucket, na, 3), np.float32)
+                    else:
+                        arrays["src_distance"] = np.zeros((bucket, na, na), np.float32)
+                        arrays["src_edge_type"] = np.full((bucket, na, na), pad, np.int32)
                     with self._lock:
                         out = self._launch("forward", arrays)
                     self._pull_batched([(out, bucket)])

@@ -207,13 +207,17 @@ def coords2unimol(
     remove_hs: bool = False,
     crop_rng: Optional[np.random.RandomState] = None,
     crop_seed: Optional[int] = None,
+    pair_feats: bool = True,
     **_,
 ) -> Dict[str, np.ndarray]:
     """Tokens / centered coords / distance matrix / edge types
     (reference numerics: data/conformer.py:182-219).
 
     ``crop_seed`` defers RandomState construction to the (rare) crop branch —
-    same draws as passing ``crop_rng=np.random.RandomState(crop_seed)``."""
+    same draws as passing ``crop_rng=np.random.RandomState(crop_seed)``.
+    ``pair_feats=False`` leaves out the [N,N] distance and edge arrays: the
+    model rebuilds them on the device from the tokens and coordinates
+    (ops/pair_feats.py)."""
     atoms, coordinates = inner_coords(atoms, coordinates, remove_hs=remove_hs)
     atoms = np.array(atoms)
     coordinates = np.array(coordinates, dtype=np.float32)
@@ -232,6 +236,11 @@ def coords2unimol(
         [np.zeros((1, 3), dtype=np.float32), src_coord, np.zeros((1, 3), dtype=np.float32)],
         axis=0,
     )
+    if not pair_feats:
+        return {
+            "src_tokens": src_tokens.astype(np.int64),
+            "src_coord": src_coord.astype(np.float32),
+        }
     diff = src_coord[:, None, :] - src_coord[None, :, :]
     src_distance = np.sqrt((diff * diff).sum(-1))
     vocab = len(dictionary)
@@ -257,6 +266,8 @@ class ConformerGen:
         self.max_atoms = params.get("max_atoms", 256)
         self.remove_hs = params.get("remove_hs", False)
         self.num_workers = params.get("num_workers", 0) or 0
+        # False: no host distance and edge arrays (built on the device)
+        self.pair_feats = bool(params.get("pair_feats", True))
         self.coord_provider = params.get("coord_provider", "host")
         if self.coord_provider != "host":
             raise ValueError(
@@ -279,12 +290,13 @@ class ConformerGen:
         )
         return coords2unimol(
             atoms, coordinates, self.dictionary, self.max_atoms, remove_hs=self.remove_hs,
-            crop_seed=self.seed,
+            crop_seed=self.seed, pair_feats=self.pair_feats,
         )
 
     def transform_raw(self, atoms_list, coordinates_list):
         return [
-            coords2unimol(a, c, self.dictionary, self.max_atoms, remove_hs=self.remove_hs)
+            coords2unimol(a, c, self.dictionary, self.max_atoms, remove_hs=self.remove_hs,
+                          pair_feats=self.pair_feats)
             for a, c in zip(atoms_list, coordinates_list)
         ]
 

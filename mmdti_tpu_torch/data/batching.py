@@ -5,11 +5,14 @@ same numpy shuffle, so both packages see the same batches for one seed; its
 ``epoch_index_matrix`` gives an epoch as row indices for the device-resident
 feed, ``advance_epochs`` skips the epochs a resumed fit already ran),
 ``CachedLoader``, ``collate_dataset``, ``dataset_pad_lengths`` and
-``BatchCollator`` with host pair features only:
-pad src_tokens with the dictionary pad index, src_distance with 0.0,
-src_edge_type with the pad index, tokenize the SMILES strings into
-input_ids/attention_mask, and return (features, labels).  'bucket' mode pads
-to the same small set of static lengths as the JAX package
+``BatchCollator``: pad src_tokens with the dictionary pad index,
+src_distance with 0.0, src_edge_type with the pad index (``pair_feats=
+"host"``) or src_coord with 0.0 in their place (``"device"``: the model
+rebuilds the [B,N,N] arrays from the [B,N,3] coordinates,
+ops/pair_feats.py), stack the MOF inputs (gas_id, gas_attr, pressure,
+temperature) where the samples carry them, tokenize the SMILES strings
+into input_ids/attention_mask, and return (features, labels).  'bucket'
+mode pads to the same small set of static lengths as the JAX package
 (utils/padding.py), so both packages see identical arrays.
 """
 
@@ -25,6 +28,7 @@ from mmdti_tpu_torch.utils.padding import (
     bucket_length,
     pad_1d_tokens,
     pad_2d,
+    pad_coords,
 )
 
 
@@ -55,6 +59,7 @@ class BatchCollator:
         smiles_pad: Optional[int] = None,
         atom_buckets: Sequence[int] = DEFAULT_ATOM_BUCKETS,
         smiles_buckets: Sequence[int] = DEFAULT_SMILES_BUCKETS,
+        pair_feats: str = "host",
     ):
         if pad_mode not in ("dataset", "fixed", "bucket", "ragged"):
             raise ValueError(
@@ -62,9 +67,16 @@ class BatchCollator:
                 "wide static shape), 'fixed' (config-wide static shape), "
                 "'bucket', or 'ragged' (per-batch, CPU/debug)"
             )
+        if pair_feats not in ("host", "device"):
+            raise ValueError(
+                f"unknown pair_feats {pair_feats!r}: 'host' ships the padded "
+                "[B,N,N] distance/edge arrays; 'device' ships [B,N,3] coords "
+                "and the model rebuilds them (ops/pair_feats.py)"
+            )
         self.tokenizer = tokenizer
         self.pad_idx = pad_idx
         self.pad_mode = pad_mode
+        self.pair_feats = pair_feats
         self.atom_pad = atom_pad
         self.smiles_pad = smiles_pad
         self.atom_buckets = tuple(atom_buckets)
@@ -91,18 +103,30 @@ class BatchCollator:
                 self.pad_idx, pad_to_length=pad_n,
             ),
         }
-        batch["src_distance"] = pad_2d(
-            [np.asarray(f["src_distance"], dtype=np.float32) for f in feats],
-            0.0, pad_to_length=pad_n,
-        )
-        batch["src_edge_type"] = pad_2d(
-            [np.asarray(f["src_edge_type"], dtype=np.int32) for f in feats],
-            self.pad_idx, pad_to_length=pad_n,
-        )
+        if self.pair_feats == "device":
+            batch["src_coord"] = pad_coords(
+                [np.asarray(f["src_coord"], dtype=np.float32) for f in feats],
+                0.0, pad_to_length=pad_n,
+            )
+        else:
+            batch["src_distance"] = pad_2d(
+                [np.asarray(f["src_distance"], dtype=np.float32) for f in feats],
+                0.0, pad_to_length=pad_n,
+            )
+            batch["src_edge_type"] = pad_2d(
+                [np.asarray(f["src_edge_type"], dtype=np.int32) for f in feats],
+                self.pad_idx, pad_to_length=pad_n,
+            )
         if "weights" in feats[0]:
             batch["weights"] = np.stack(
                 [np.asarray(f["weights"], dtype=np.float32).reshape(-1) for f in feats]
             )
+        # the MOF inputs (models/mof.py MOFModel)
+        if "gas_id" in feats[0]:
+            batch["gas_id"] = np.asarray([f["gas_id"] for f in feats], dtype=np.int32)
+        for key in ("gas_attr", "temperature", "pressure"):
+            if key in feats[0]:
+                batch[key] = np.asarray([f[key] for f in feats], dtype=np.float32)
 
         if "smile" in feats[0]:
             smiles = [f["smile"] for f in feats]

@@ -1,5 +1,4 @@
-"""DataHub: host-side data preparation (port of mmdti_tpu/data/hub.py
-without the MOF branch).
+"""DataHub: host-side data preparation (port of mmdti_tpu/data/hub.py).
 
 Reads a CSV path, a dict of columns, a table or a SMILES list; shapes the
 targets by task (regression: scaled float32; classification and
@@ -9,7 +8,8 @@ target scaler on the ``raw_data`` CSV's targets when one is given (else on
 this split's), applies it; computes ConR sample weights; featurizes the
 molecules with the host conformer provider (chem/conformer.py), cached in a
 pickle keyed by the featurizer fingerprint; and attaches each sample's
-SMILES and weight to its feature dict.
+SMILES and weight to its feature dict.  With ``data_type='mof'`` each row
+names a CIF crystal and a gas instead (``_featurize_mof``).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import numpy as np
 
 from mmdti_tpu_torch.chem.conformer import ConformerGen
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
+from mmdti_tpu_torch.chem.mof import MOFReader
 from mmdti_tpu_torch.data.reader import MolDataReader, read_csv
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.data.weights import compute_sample_weights
@@ -50,7 +51,11 @@ def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
         dict_path = unimol_dict_path(params.get("unimol_dir"))
     d = Dictionary.load(dict_path)
     d.add_symbol("[MASK]", is_special=True)
+    # MOF features rev 2: the crop past max_atoms is seeded by the crystal's
+    # content (molecule caches carry no such key)
+    extra = {"mof_rev": 2} if params.get("data_type", "molecule") == "mof" else {}
     return {
+        **extra,
         "featurizer_rev": 2,
         "seed": params.get("seed", 42),
         "max_atoms": params.get("max_atoms", 256),
@@ -67,8 +72,6 @@ def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
 class DataHub:
     def __init__(self, data=None, is_train: bool = True, save_path: Optional[str] = None,
                  **params):
-        if params.get("data_type", "molecule") != "molecule":
-            raise NotImplementedError("data_type='mof' is not ported yet (ROADMAP.md, M9)")
         self.data: Dict[str, Any] = {}
         self.is_train = is_train
         self.save_path = save_path
@@ -97,7 +100,47 @@ class DataHub:
                              for c in self.data["target_cols"]], axis=1)
         return fallback
 
+    def _featurize_mof(self, params: Dict[str, Any], source):
+        """MOF rows -> coords2unimol_mof features with gas_id, gas_attr,
+        pressure and temperature (chem/mof.py).  Each row has a CIF path
+        (column ``cif_col``, default 'cif'; a relative path that does not
+        exist as it stands resolves against the directory of the CSV
+        ``source``), a gas of chem.mof.GAS_LIST (``gas_col``, default
+        'gas'), and optional 'pressure' and 'temperature' columns (1.0 and
+        298.0 where a column is absent).  The atom dictionary is
+        ``dict_path``, else the mol.dict.txt beside ``unimol_dir``."""
+        table = self.data["raw_data"]
+        cif_col = params.get("cif_col", "cif")
+        gas_col = params.get("gas_col", "gas")
+        for col in (cif_col, gas_col):
+            if col not in table:
+                raise ValueError(
+                    f"data_type='mof' requires a {col!r} column; got {list(table)}")
+        dict_path = params.get("dict_path", None)
+        if dict_path is None:
+            dict_path = unimol_dict_path(params.get("unimol_dir"))
+        reader = MOFReader(dict_path=dict_path, max_atoms=int(params.get("max_atoms", 512)),
+                           seed=int(params.get("seed", 42)))
+        base = ""
+        if source and os.path.exists(source):
+            base = os.path.dirname(os.path.abspath(source))
+        features = []
+        for i in range(len(table[cif_col])):
+            cif = str(table[cif_col][i])
+            if base and not os.path.isabs(cif) and not os.path.exists(cif):
+                cif = os.path.join(base, cif)
+            feat = reader.read_with_gas(cif, str(table[gas_col][i]))
+            feat["pressure"] = float(table["pressure"][i]) if "pressure" in table else 1.0
+            feat["temperature"] = (float(table["temperature"][i]) if "temperature" in table
+                                   else 298.0)
+            features.append(feat)
+        logger.info("Featurized %d MOF samples from CIF files.", len(features))
+        return features
+
     def _init_data(self, data, **params) -> None:
+        # a CSV path: relative CIF paths of a MOF dataset resolve against it
+        source = data if isinstance(data, str) else (
+            self.raw_data if isinstance(self.raw_data, str) else None)
         self.data = MolDataReader().read_data(data, self.is_train, **params)
         task = self.task
         num_classes = self.data.get("num_classes")
@@ -157,11 +200,14 @@ class DataHub:
                 logger.warning("Conformer cache %s was built with other featurizer "
                                "params; regenerating.", cache_dir)
         if features is None:
-            gen = ConformerGen(**{**params, "coord_provider": fingerprint["coord_provider"]})
-            if "atoms" in self.data and "coordinates" in self.data:
-                features = gen.transform_raw(self.data["atoms"], self.data["coordinates"])
+            if params.get("data_type", "molecule") == "mof":
+                features = self._featurize_mof(params, source)
             else:
-                features = gen.transform(self.data["smiles"])
+                gen = ConformerGen(**{**params, "coord_provider": fingerprint["coord_provider"]})
+                if "atoms" in self.data and "coordinates" in self.data:
+                    features = gen.transform_raw(self.data["atoms"], self.data["coordinates"])
+                else:
+                    features = gen.transform(self.data["smiles"])
             if cache_dir is not None:
                 os.makedirs(os.path.dirname(os.path.abspath(cache_dir)), exist_ok=True)
                 with open(cache_dir, "wb") as f:

@@ -44,7 +44,8 @@ logger = logging.getLogger("mmdti_tpu_torch")
 
 # flax nn.Embed scopes: their "weight" is an embedding table, not a kernel
 EMBEDDING_SCOPES = frozenset(
-    {"embed_tokens", "word_embeddings", "position_embeddings", "token_type_embeddings"}
+    {"embed_tokens", "word_embeddings", "position_embeddings", "token_type_embeddings",
+     "gas_embed", "pressure_embed", "temperature_embed"}
 )
 
 

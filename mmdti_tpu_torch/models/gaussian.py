@@ -1,7 +1,9 @@
 """Gaussian distance-kernel pair features (port of mmdti_tpu/models/gaussian.py).
 
 Per-edge-type affine transform of the pairwise distance, expanded through K
-Gaussian kernels (pdf with the reference's pi=3.14159 constant), in fp32.
+Gaussian kernels (pdf with the reference's pi=3.14159 constant), in fp32;
+or, with the encoder's ``kernel='numerical'``, NumericalEmbed's gated
+edge-type embedding plus a projection of the raw distance.
 """
 
 from __future__ import annotations
@@ -9,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmdti_tpu_torch.models.layers import Dense
+from mmdti_tpu_torch.models.layers import Dense, FusedLN, NonLinearHead
 from mmdti_tpu_torch.ops.hopper_gbf import gaussian_pdf, gbf_pair_bias_fused
 
 
@@ -89,3 +91,42 @@ class FusedGbfProj(nn.Module):
             activation=self.activation_fn, pair_dtype=self.pair_dtype,
             compute_dtype=self.compute_dtype,
         )
+
+
+class NumericalEmbed(nn.Module):
+    """The numerical pair-feature kernel (JAX models/gaussian.py
+    NumericalEmbed; reference NumericalEmbed): a sigmoid-gated embedding of
+    the edge type, ``w_edge[e] * sigmoid(mul[e] * d + bias[e])``, plus an
+    MLP (1 -> 2K -> K, fp32) and LayerNorm (eps 1e-5, torch's default) of
+    the raw distance d.  The table entries are gathered by ``edge_type``,
+    as the JAX layer gathers them.  Selected by
+    UniMolEncoderConfig.kernel == 'numerical'."""
+
+    def __init__(self, kernels: int = 128, edge_types: int = 1024,
+                 activation_fn: str = "gelu"):
+        super().__init__()
+        self.kernels = kernels
+        self.edge_types = edge_types
+        self.mul = nn.Parameter(torch.ones(edge_types, 1))
+        self.bias = nn.Parameter(torch.zeros(edge_types, 1))
+        self.w_edge = nn.Parameter(torch.empty(edge_types, kernels))
+        self.proj = NonLinearHead(1, kernels, activation_fn, hidden=2 * kernels)
+        self.ln = FusedLN(kernels, epsilon=1e-5)
+        self.reset_parameters_like_flax(None)
+
+    @torch.no_grad()
+    def reset_parameters_like_flax(self, generator) -> None:
+        """mul 1, bias 0, and w_edge normal with torch's kaiming fan-in (K,
+        the table's second dimension), as the flax initializer draws it
+        (variance_scaling(2, "fan_out", "normal") on [edge_types, K])."""
+        self.mul.fill_(1.0)
+        self.bias.zero_()
+        self.w_edge.normal_(0.0, (2.0 / self.kernels) ** 0.5, generator=generator)
+
+    def forward(self, dist: torch.Tensor, edge_type: torch.Tensor) -> torch.Tensor:
+        """dist [B,N,N], edge_type [B,N,N] int -> [B,N,N,K] fp32."""
+        idx = edge_type.long()
+        m, b, w = self.mul[idx], self.bias[idx], self.w_edge[idx]     # [B,N,N,1|K]
+        x = dist.float()[..., None]
+        edge_emb = w * torch.sigmoid(m * x + b)
+        return self.ln(self.proj(x)) + edge_emb

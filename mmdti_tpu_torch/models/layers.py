@@ -70,15 +70,49 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+# tables up to this many rows take the one-hot backward below; past it the
+# [tokens, rows] one-hot would outgrow the gradient it replaces
+ONE_HOT_BACKWARD_ROWS = 1024
+
+
+class _OneHotBackwardEmbedding(torch.autograd.Function):
+    """A table lookup whose weight gradient is one GEMM, one-hot(ids)^T @
+    grad, instead of PyTorch's scatter of the rows: on the card that
+    scatter sums a row's contributions in an order that varies from call
+    to call once a batch has more than 3,072 indices (MOF's 16 x 528
+    atoms), so eager steps, and a CUDA graph against them, would not
+    repeat bit for bit.  The forward is the plain gather."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[1]:
+            return None, None
+        (ids,) = ctx.saved_tensors
+        one_hot = F.one_hot(ids.reshape(-1), ctx.rows).to(grad.dtype)        # [T, V]
+        return None, one_hot.t() @ grad.reshape(-1, grad.shape[-1])
+
+
 class Embed(nn.Embedding):
-    """nn.Embedding whose lookup is returned in ``dtype`` (flax nn.Embed)."""
+    """nn.Embedding whose lookup is returned in ``dtype`` (flax nn.Embed).
+    A table of at most ONE_HOT_BACKWARD_ROWS rows takes its gradient by a
+    one-hot GEMM, which repeats bit for bit (_OneHotBackwardEmbedding)."""
 
     def __init__(self, num_embeddings: int, features: int, dtype=torch.float32):
         super().__init__(num_embeddings, features)
         self.compute_dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return super().forward(ids.long()).to(self.compute_dtype)
+        if self.num_embeddings <= ONE_HOT_BACKWARD_ROWS:
+            out = _OneHotBackwardEmbedding.apply(ids.long(), self.weight)
+        else:
+            out = super().forward(ids.long())
+        return out.to(self.compute_dtype)
 
 
 class FusedLN(nn.Module):

@@ -34,7 +34,7 @@ from mmdti_tpu_torch.losses.fds import fds_smooth
 from mmdti_tpu_torch.losses.infonce import InfoNCE
 from mmdti_tpu_torch.models.chemberta import ChemBerta
 from mmdti_tpu_torch.models.crossmodal import CrossAttentionModel
-from mmdti_tpu_torch.models.gaussian import FusedGbfProj, GaussianLayer
+from mmdti_tpu_torch.models.gaussian import FusedGbfProj, GaussianLayer, NumericalEmbed
 from mmdti_tpu_torch.models.layers import (
     ClassificationHead,
     Embed,
@@ -43,27 +43,71 @@ from mmdti_tpu_torch.models.layers import (
 )
 from mmdti_tpu_torch.models.unimol import UniMolEncoder, torch_dtype
 from mmdti_tpu_torch.ops.attention import merge_padding_into_bias
+from mmdti_tpu_torch.ops.pair_feats import mof_pair_feats_from_coords, pair_feats_from_coords
 
 
-def unimol_3d_stream(mdl: "MMModel", src_tokens, src_distance, src_edge_type,
+def build_3d_stream(mdl: nn.Module, ucfg: UniMolEncoderConfig, atom_vocab_size: int,
+                    dtype, use_kernels: bool) -> None:
+    """Attach the 3D stream's submodules to ``mdl`` under their flax names
+    (embed_tokens / gbf / gbf_proj / encoder), as MMModel and MOFModel
+    share them.  The Gaussian kernel on the kernel path takes the fused
+    Gaussian + gbf_proj kernels; the numerical kernel and the plain path a
+    gbf_proj NonLinearHead (the JAX package's unfused route)."""
+    edge_types = atom_vocab_size * atom_vocab_size
+    mdl.embed_tokens = Embed(atom_vocab_size, ucfg.embed_dim, dtype)
+    if ucfg.kernel == "gaussian":
+        mdl.gbf = GaussianLayer(ucfg.gaussian_kernels, edge_types)
+    elif ucfg.kernel == "numerical":
+        mdl.gbf = NumericalEmbed(ucfg.gaussian_kernels, edge_types, ucfg.activation_fn)
+    else:
+        raise ValueError(
+            f"unimol kernel {ucfg.kernel!r}: expected 'gaussian' or 'numerical'")
+    if use_kernels and ucfg.kernel == "gaussian":
+        mdl.gbf_proj = FusedGbfProj(
+            ucfg.attention_heads, ucfg.gaussian_kernels, ucfg.activation_fn,
+            dtype=dtype, pair_dtype=torch_dtype(ucfg.pair_dtype),
+        )
+    else:
+        mdl.gbf_proj = NonLinearHead(
+            ucfg.gaussian_kernels, ucfg.attention_heads, ucfg.activation_fn, dtype=dtype
+        )
+    mdl.encoder = UniMolEncoder(ucfg, dtype, use_kernels)
+
+
+def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
+                     src_coord=None, pair_mode: str = "molecule",
                      pair_outputs: bool = True, generator=None):
-    """Token embedding, Gaussian pair bias and the Uni-Mol encoder; returns
+    """Token embedding, the pair bias and the Uni-Mol encoder; returns
     (encoder outputs, padding_mask, atom_mask).  ``mdl`` holds the
-    submodules under their flax names (embed_tokens / gbf / gbf_proj /
-    encoder); ``pair_outputs`` and ``generator`` are passed on to the
-    encoder."""
+    submodules of build_3d_stream and atom_vocab_size, atom_pad_idx,
+    compute_dtype, use_kernels and unimol_cfg.  Without the host pair
+    arrays the distances and edge types are rebuilt from ``src_coord``
+    (ops/pair_feats.py; ``pair_mode`` "mof" zeroes the BOS and EOS
+    distances, as the MOF featurizer does).  ``pair_outputs`` and
+    ``generator`` are passed on to the encoder."""
+    if src_distance is None or src_edge_type is None:
+        if src_coord is None:
+            raise ValueError(
+                "model needs either (src_distance, src_edge_type) or src_coord to "
+                "derive them from")
+        feats_fn = mof_pair_feats_from_coords if pair_mode == "mof" else pair_feats_from_coords
+        src_distance, src_edge_type = feats_fn(src_tokens, src_coord, mdl.atom_vocab_size,
+                                               mdl.atom_pad_idx)
     padding_mask = src_tokens == mdl.atom_pad_idx
     atom_mask = (~padding_mask).long()
     x = mdl.embed_tokens(src_tokens)
     pair_dtype = torch_dtype(mdl.unimol_cfg.pair_dtype)
-    if mdl.use_kernels:
+    if isinstance(mdl.gbf_proj, FusedGbfProj):
         # fused Gaussian + gbf_proj: emits the [B,H,N,N] bias with the
         # padding merged in, in the pair dtype
         u = mdl.gbf(src_distance, src_edge_type, tokens=src_tokens, return_affine=True)
         bias = mdl.gbf_proj(u, mdl.gbf.means, mdl.gbf.stds, padding_mask)
     else:
-        feat = mdl.gbf(src_distance, src_edge_type, tokens=src_tokens)     # [B,N,N,K]
-        bias = mdl.gbf_proj(feat.to(mdl.compute_dtype))                    # [B,N,N,H]
+        if isinstance(mdl.gbf, NumericalEmbed):
+            feat = mdl.gbf(src_distance, src_edge_type)                     # [B,N,N,K]
+        else:
+            feat = mdl.gbf(src_distance, src_edge_type, tokens=src_tokens)  # [B,N,N,K]
+        bias = mdl.gbf_proj(feat.to(mdl.compute_dtype))                     # [B,N,N,H]
         bias = merge_padding_into_bias(
             bias.permute(0, 3, 1, 2).float(), padding_mask, pair_dtype=pair_dtype
         )
@@ -87,12 +131,9 @@ class MMModel(nn.Module):
         use_fds: bool = False,
     ):
         super().__init__()
-        if unimol_cfg.kernel != "gaussian":
-            raise ValueError(
-                f"unimol kernel {unimol_cfg.kernel!r} is not ported; only 'gaussian'"
-            )
         ucfg = unimol_cfg
         self.unimol_cfg = ucfg
+        self.atom_vocab_size = atom_vocab_size
         self.atom_pad_idx = atom_pad_idx
         self.output_dim = output_dim
         self.fds_cfg = fds_cfg or FDSConfig(feature_dim=ucfg.embed_dim)
@@ -100,18 +141,7 @@ class MMModel(nn.Module):
         self.use_fds = use_fds
         self.compute_dtype = dtype
         self.use_kernels = use_kernels
-        self.embed_tokens = Embed(atom_vocab_size, ucfg.embed_dim, dtype)
-        self.gbf = GaussianLayer(ucfg.gaussian_kernels, atom_vocab_size * atom_vocab_size)
-        if use_kernels:
-            self.gbf_proj = FusedGbfProj(
-                ucfg.attention_heads, ucfg.gaussian_kernels, ucfg.activation_fn,
-                dtype=dtype, pair_dtype=torch_dtype(ucfg.pair_dtype),
-            )
-        else:
-            self.gbf_proj = NonLinearHead(
-                ucfg.gaussian_kernels, ucfg.attention_heads, ucfg.activation_fn, dtype=dtype
-            )
-        self.encoder = UniMolEncoder(ucfg, dtype, use_kernels)
+        build_3d_stream(self, ucfg, atom_vocab_size, dtype, use_kernels)
         self.bert = ChemBerta(chemberta_cfg, dtype, use_kernels)
         self.infonce = InfoNCE(ucfg.embed_dim, dtype=dtype)
         self.cross_modal_module = CrossAttentionModel(cross_cfg, dtype, use_kernels)
@@ -127,11 +157,11 @@ class MMModel(nn.Module):
 
     def forward(
         self,
-        src_tokens: torch.Tensor,       # [B,N] int atom tokens
-        src_distance: torch.Tensor,     # [B,N,N] fp32
-        src_edge_type: torch.Tensor,    # [B,N,N] int
-        input_ids: torch.Tensor,        # [B,L] int SMILES tokens
-        attention_mask: torch.Tensor,   # [B,L] {0,1}
+        src_tokens: torch.Tensor,                       # [B,N] int atom tokens
+        src_distance: Optional[torch.Tensor] = None,    # [B,N,N] fp32
+        src_edge_type: Optional[torch.Tensor] = None,   # [B,N,N] int
+        input_ids: torch.Tensor = None,                 # [B,L] int SMILES tokens
+        attention_mask: torch.Tensor = None,            # [B,L] {0,1}
         outputs: str = "all",
         deterministic: bool = True,
         generator: Optional[torch.Generator] = None,
@@ -139,6 +169,7 @@ class MMModel(nn.Module):
         net_target: Optional[torch.Tensor] = None,
         epoch=0.0,
         fds_bucket: Tuple[float, float] = (0.0, 1.0),
+        src_coord: Optional[torch.Tensor] = None,       # [B,N,3] fp32 (device pair mode)
     ) -> Dict[str, Any]:
         """The JAX model's output dict, or the part of it a caller reads:
 
@@ -168,7 +199,7 @@ class MMModel(nn.Module):
         elif generator is None:
             raise ValueError("deterministic=False needs a generator for the dropout masks")
         enc, padding_mask, atom_mask = unimol_3d_stream(
-            self, src_tokens, src_distance, src_edge_type,
+            self, src_tokens, src_distance, src_edge_type, src_coord,
             pair_outputs=outputs == "all", generator=generator,
         )
         encoder_rep = enc["rep"]                                  # [B,N,E]

@@ -56,14 +56,20 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def keep_mask(seed: int, rate: float, B: int, H: int, Nq: int, Nk: int,
+def keep_mask(seed, rate: float, B: int, H: int, Nq: int, Nk: int,
               heads: Optional[slice] = None, device=None) -> torch.Tensor:
     """bool [B, h, Nq, Nk]: True where a probability is kept, for the heads
     ``heads`` (default all) of a call with H heads.  Equal, entry by entry,
-    to the mask the CUDA kernels draw for the same seed.  The int64 work
-    runs a few heads at a time, so its temporaries stay a few times the size
-    of one head's [B, Nq, Nk] slice."""
-    hs = list(range(H)[heads] if heads is not None else range(H))
+    to the mask the CUDA kernels draw for the same seed: an int, or a
+    one-element integer tensor, which is read on its device (no copy to the
+    host, so a CUDA graph can record the call).  The int64 work runs a few
+    heads at a time, so its temporaries stay a few times the size of one
+    head's [B, Nq, Nk] slice."""
+    if isinstance(seed, torch.Tensor):
+        seed32 = seed.to(device=device, dtype=torch.int64).reshape(()) & _M32
+    else:
+        seed32 = int(seed) & _M32
+    hs = range(H)[heads] if heads is not None else range(H)
     cut = threshold(rate)
     ij = torch.arange(Nq * Nk, dtype=torch.int64, device=device).reshape(Nq, Nk)
     fij = fmix32((ij + _IJ_SALT) & _M32)                              # [Nq, Nk]
@@ -71,7 +77,8 @@ def keep_mask(seed: int, rate: float, B: int, H: int, Nq: int, Nk: int,
     out = torch.empty((B, len(hs), Nq, Nk), dtype=torch.bool, device=device)
     step = max(1, (1 << 22) // max(1, B * Nq * Nk))
     for c0 in range(0, len(hs), step):
-        h = torch.tensor(hs[c0:c0 + step], dtype=torch.int64, device=device)[None, :]
-        key = fmix32((int(seed) & _M32) ^ fmix32((b * H + h + _BH_SALT) & _M32))
+        sub = hs[c0:c0 + step]
+        h = torch.arange(sub.start, sub.stop, sub.step, dtype=torch.int64, device=device)[None, :]
+        key = fmix32(seed32 ^ fmix32((b * H + h + _BH_SALT) & _M32))
         out[:, c0:c0 + step] = fmix32(key[:, :, None, None] ^ fij[None, None]) >= cut
     return out

@@ -87,7 +87,7 @@ def keep_mask_for(seed, dropout_rate: float, B: int, H: int, Nq: int, Nk: int, d
     without dropout."""
     if dropout_rate <= 0.0:
         return None
-    return drop.keep_mask(int(seed), dropout_rate, B, H, Nq, Nk, device=device)
+    return drop.keep_mask(seed, dropout_rate, B, H, Nq, Nk, device=device)
 
 
 def _attention_bwd_core(qh, kh, vh, logits, g_h, g_logits, keep, dropout_rate, scale):

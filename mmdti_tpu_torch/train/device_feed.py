@@ -23,7 +23,14 @@ from mmdti_tpu_torch.train.steps import EvalSweep, Resident
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
-FEATURE_KEYS = ("src_tokens", "src_distance", "src_edge_type", "input_ids", "attention_mask")
+# the model inputs a batch may carry: the host pair arrays or the
+# coordinates they are built from on the device (data/batching.py
+# pair_feats), the SMILES stream, and the MOF inputs
+FEATURE_KEYS = (
+    "src_tokens", "src_distance", "src_edge_type", "src_coord",
+    "input_ids", "attention_mask",
+    "gas_id", "gas_attr", "pressure", "temperature",
+)
 
 
 def normalize_device_feed(value):

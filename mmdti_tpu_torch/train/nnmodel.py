@@ -27,6 +27,13 @@ they are.
 path (the Hopper kernels on a CUDA device, their plain versions on the
 CPU), False the plain oracle path.  The threaded pair logits are bf16 on a
 CUDA device and fp32 on the CPU unless ``unimol_overrides`` names a dtype.
+``device_pair_feats`` ('auto', True/'device', False/'host';
+ops/pair_feats.py resolve_pair_feats_mode) puts the pair distances and
+edge types on the host collator or in the model: 'auto' builds them on the
+device on a CUDA device and on the host on the CPU, and features made
+without host pair arrays (``pair_feats=False``) take the device mode.
+``data_type='mof'`` builds models/mof.py's MOFModel (``mof_overrides``);
+it takes no InfoNCE and no ChemBERTa checkpoint.
 """
 
 from __future__ import annotations
@@ -48,6 +55,8 @@ from mmdti_tpu_torch.losses.fds import fds_bucket_params, fds_kernel_window, ini
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_loss, resolve_output_dim
 from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_path, load_pretrained
 from mmdti_tpu_torch.models.mm_model import build_model
+from mmdti_tpu_torch.models.mof import build_mof_model
+from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
 from mmdti_tpu_torch.train.trainer import Trainer, load_weights
 
 logger = logging.getLogger("mmdti_tpu_torch")
@@ -92,8 +101,11 @@ def frozen_parameter_names(model, freeze_layers=None, reversed_sel: bool = False
 class NNModel:
     def __init__(self, data_train: Dict[str, Any], data_test: Dict[str, Any], trainer: Trainer,
                  **params):
-        if params.get("data_type", "molecule") != "molecule":
-            raise NotImplementedError("data_type='mof' is not ported yet (ROADMAP.md, M9)")
+        self.data_type = params.get("data_type", "molecule")
+        if self.data_type == "mof" and params.get("using_infonce", False):
+            raise ValueError(
+                "using_infonce=True is not applicable to data_type='mof': MOF samples have "
+                "no SMILES stream to align (MOFModel, models/mof.py)")
         self.data_train = data_train
         self.data_test = data_test
         self.trainer = trainer
@@ -140,29 +152,43 @@ class NNModel:
             self.atom_pad, self.smiles_pad = dataset_pad_lengths(
                 self.features_train, self.tokenizer, pad_multiple,
                 extra_datasets=[self.features_test])
+        self.pair_feats = resolve_pair_feats_mode(params.get("device_pair_feats", "auto"),
+                                                  self.device)
+        probe = (self.features_train or self.features_test or [None])[0]
+        if self.pair_feats == "host" and isinstance(probe, dict) and "src_distance" not in probe:
+            logger.info("features were built without host pair arrays (pair_feats=False); "
+                        "switching the collator to device-side pair featurization")
+            self.pair_feats = "device"
         self.collator = BatchCollator(self.tokenizer, pad_idx=self.dictionary.pad(),
                                       pad_mode=pad_mode, atom_pad=self.atom_pad,
-                                      smiles_pad=self.smiles_pad)
+                                      smiles_pad=self.smiles_pad, pair_feats=self.pair_feats)
 
         use_kernels = params.get("use_pallas", "auto")
         use_kernels = True if use_kernels == "auto" else bool(use_kernels)
         unimol_overrides = dict(params.get("unimol_overrides") or {})
         unimol_overrides.setdefault(
             "pair_dtype", "bfloat16" if self.device.type == "cuda" else "float32")
-        self.model = build_model(
+        common = dict(
             output_dim=self.output_dim,
             atom_vocab_size=len(self.dictionary),
             atom_pad_idx=self.dictionary.pad(),
-            smiles_vocab_size=getattr(self.tokenizer, "vocab_size", 600),
             compute_dtype=params.get("compute_dtype", "bfloat16"),
             use_kernels=use_kernels,
             unimol_overrides=unimol_overrides,
-            chemberta_overrides=chemberta_overrides(params) or None,
-            crossmodal_overrides=dict(params.get("crossmodal_overrides") or {}) or None,
             task=self.task,
             use_fds=self.use_fds,
             fds_num=self.fds_num,
         )
+        if self.data_type == "mof":
+            self.model = build_mof_model(
+                **common, mof_overrides=dict(params.get("mof_overrides") or {}) or None)
+        else:
+            self.model = build_model(
+                **common,
+                smiles_vocab_size=getattr(self.tokenizer, "vocab_size", 600),
+                chemberta_overrides=chemberta_overrides(params) or None,
+                crossmodal_overrides=dict(params.get("crossmodal_overrides") or {}) or None,
+            )
         # predict restores a checkpoint over whatever is drawn here, and
         # freezing is train-only
         self.frozen: FrozenSet[str] = frozenset()
@@ -204,7 +230,9 @@ class NNModel:
         self._random_init()
         self.model.load_state_dict(load_pretrained(
             dict(self.model.state_dict()), unimol_dir=params.get("unimol_dir") or None,
-            chemberta_dir=params.get("chemberta_dir") or None))
+            # MOFModel has no ChemBERTa stream to take those weights
+            chemberta_dir=(params.get("chemberta_dir") or None)
+            if self.data_type != "mof" else None))
 
     def _random_init(self) -> None:
         """Random weights, drawn as the flax initializers draw them, from

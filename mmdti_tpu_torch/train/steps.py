@@ -77,10 +77,11 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
     optimizer update; the metrics add the gradients' global norm as
     "grad_norm".
 
-    ``feats`` holds the model's five input tensors; ``generator`` (a
-    torch.Generator on their device) draws every dropout mask of the step,
-    and None runs the step without dropout; ``model_kw`` go to the model
-    (the FDS state, net_target, epoch and buckets of the fit loop)."""
+    ``feats`` holds the model's input tensors (train/device_feed.py
+    FEATURE_KEYS); ``generator`` (a torch.Generator on their device) draws
+    every dropout mask of the step, and None runs the step without
+    dropout; ``model_kw`` go to the model (the FDS state, net_target, epoch
+    and buckets of the fit loop)."""
     train_loss = build_train_loss(loss_fn, task, **loss_kw)
     names = [n for n, p in optimizer.params.items() if p.requires_grad]
     params = [optimizer.params[n] for n in names]
@@ -144,6 +145,13 @@ class Resident:
     feats: Dict[str, torch.Tensor]
     labels: torch.Tensor
     weights: Optional[torch.Tensor]
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes the resident arrays hold on the device."""
+        tensors = [*self.feats.values(), self.labels,
+                   *(() if self.weights is None else (self.weights,))]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def take(self, idx: torch.Tensor):
         """(feats, labels, weights) of the rows ``idx`` (int64 [B] on the

@@ -114,7 +114,7 @@ class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
     # ---- host -> device ------------------------------------------------
     def _split_batch(self, batch):
         feats = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-                 for k in FEATURE_KEYS}
+                 for k in FEATURE_KEYS if k in batch}
         weights = batch.get("weights")
         if weights is not None:
             weights = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(self.device)

@@ -48,6 +48,14 @@ def pad_coords(values: List[np.ndarray], pad_idx=0.0, pad_to_length=None, pad_to
     return res
 
 
+def pad_coords(values: List[np.ndarray], pad_idx=0.0, pad_to_length=None, pad_to_multiple=1):
+    size = _target_size([v.shape[0] for v in values], pad_to_length, pad_to_multiple)
+    res = np.full((len(values), size, 3), pad_idx, dtype=np.float32)
+    for i, v in enumerate(values):
+        res[i, : v.shape[0], :] = v
+    return res
+
+
 def bucket_length(n: int, buckets: Sequence[int]) -> int:
     """Smallest bucket >= n (last bucket if none fits)."""
     for b in buckets:

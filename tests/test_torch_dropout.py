@@ -46,6 +46,16 @@ def test_keep_mask_depends_only_on_coordinates():
     assert not torch.equal(drop.keep_mask(seed + 1, rate, B, H, Nq, Nk), whole)
 
 
+@pytest.mark.parametrize("seed", [-123456789, 0, 2 ** 31 - 1, -2 ** 31])
+def test_keep_mask_takes_the_seed_tensor(seed):
+    """A one-element int32 seed tensor, as draw_seed makes it, gives the
+    mask of the same seed as an int: the plain path reads it where it lies
+    (a CUDA graph records no copy to the host)."""
+    want = drop.keep_mask(seed, 0.2, 2, 3, 5, 7)
+    got = drop.keep_mask(torch.tensor([seed], dtype=torch.int32), 0.2, 2, 3, 5, 7)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("rate", [0.1, 0.3])
 def test_keep_rate_within_four_sigma(rate):
     mask = drop.keep_mask(2024, rate, 4, 4, 256, 256)

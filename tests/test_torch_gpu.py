@@ -574,8 +574,9 @@ def test_layer_norm_takes_parameter_views_at_any_offset(cuda, dtype):
 GRAPH_V, GRAPH_PAD = 12, 1
 
 
-def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0, freeze=None):
-    """A shallow bf16 model on the kernel path at the flagship widths the
+def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0, freeze=None, use_kernels=True):
+    """A shallow bf16 model on the kernel path (or, with ``use_kernels``
+    False, the plain path) at the flagship widths the
     kernels take (E=512 and 64 Uni-Mol heads for the gbf kernels, so
     pair-bias D=8; masked D=64 and 32; every dropout of the flagship on),
     its optimizer and generator, the train programs and a resident dataset
@@ -587,7 +588,8 @@ def _graph_setup(cuda, fds=False, R=40, N=24, L=20, seed=0, freeze=None):
     from mmdti_tpu_torch.train.optim import FusedAdam
     from mmdti_tpu_torch.train.steps import Resident, TrainPrograms
 
-    model = build_model(1, GRAPH_V, GRAPH_PAD, 40, compute_dtype="bfloat16", use_kernels=True,
+    model = build_model(1, GRAPH_V, GRAPH_PAD, 40, compute_dtype="bfloat16",
+                        use_kernels=use_kernels,
                         unimol_overrides=dict(encoder_layers=2, ffn_embed_dim=512,
                                               pair_dtype="bfloat16"),
                         chemberta_overrides=dict(num_hidden_layers=1, intermediate_size=512,
@@ -682,6 +684,24 @@ def test_graph_steps_equal_eager_steps(cuda, monkeypatch, ln, variant):
     assert torch.equal(gen_graph, gen.get_state())
     assert opt.state.count == 2 * K
     assert not torch.equal(after_graph[0], saved[0])   # the parameters moved
+
+
+def test_plain_path_graph_steps_equal_eager_steps(cuda):
+    """The plain path records its attention dropout too (the keep mask
+    reads the seed on the card): K=3 replayed steps equal 3 eager ones."""
+    model, opt, gen, progs, res = _graph_setup(cuda, use_kernels=False)
+    idx = torch.arange(24, device=cuda).view(3, 8)
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    m_graph = progs.feed(res, idx)
+    torch.cuda.synchronize()
+    after_graph, gen_graph = _train_state(opt, progs), gen.get_state()
+    _restore(opt, progs, gen, saved, gen0)
+    m_eager = _eager_feed(progs, res, idx)
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1 and torch.equal(m_graph, m_eager)
+    for a, b in zip(after_graph, _train_state(opt, progs)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_graph, gen.get_state())
 
 
 def test_graph_replay_reads_the_fds_state_copied_in(cuda):
@@ -1032,3 +1052,20 @@ def test_serve_capture_and_pull_wait_for_each_other(cuda):
                                             (["C" * 30] * 2, ["C" * 30] * 3))
     assert seen["rows_right"] and seen["pull_took_gate_after_capture"]
     assert seen["capture_took_gate_after_pull"]
+
+
+def test_embed_backward_repeats_bit_equal_past_3072_indices(cuda):
+    """MOF's 16 x 528 atom tokens: the table's gradient (a one-hot GEMM)
+    is the same bit for bit on every call, and equals PyTorch's scatter
+    within fp32 rounding."""
+    from mmdti_tpu_torch.models.layers import Embed
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    emb = Embed(31, 512).to(cuda)
+    ids = torch.randint(0, 31, (16, 528), device=cuda, generator=gen)
+    g = torch.randn(16, 528, 512, device=cuda, generator=gen)
+    grads = [torch.autograd.grad((emb(ids) * g).sum(), emb.weight)[0] for _ in range(3)]
+    assert all(torch.equal(grads[0], x) for x in grads[1:])
+    want = torch.autograd.grad((torch.nn.functional.embedding(ids, emb.weight) * g).sum(),
+                               emb.weight)[0]
+    torch.testing.assert_close(grads[0], want, atol=1e-3, rtol=1e-5)

@@ -168,3 +168,28 @@ def test_bridge_round_trip_is_exact(flax_setup):
     # every port parameter is named by the rule (strict load, no leftovers)
     model = _build(jax_side=False)
     assert set(model.state_dict()) == set(sd)
+
+
+@pytest.mark.parametrize("rows", [31, 2000], ids=["one_hot_backward", "scatter_backward"])
+def test_embed_lookup_and_gradient_equal_nn_embedding(rows):
+    """Embed's lookup is nn.Embedding's bit for bit, and its gradient too
+    on either backward (a small table sums by a one-hot GEMM, whose order
+    repeats on the card); a frozen table takes no gradient."""
+    from mmdti_tpu_torch.models.layers import ONE_HOT_BACKWARD_ROWS, Embed
+
+    assert (rows <= ONE_HOT_BACKWARD_ROWS) == (rows == 31)
+    gen = torch.Generator().manual_seed(0)
+    ours, ref = Embed(rows, 8), torch.nn.Embedding(rows, 8)
+    with torch.no_grad():
+        ours.weight.normal_(generator=gen)
+        ref.weight.copy_(ours.weight)
+    ids = torch.randint(0, rows, (6, 40), generator=gen)
+    ids[0, :5] = 3                                   # repeated rows sum
+    g = torch.randn(6, 40, 8, generator=gen)
+    out = ours(ids)
+    assert torch.equal(out, ref(ids))
+    (out * g).sum().backward()
+    (ref(ids) * g).sum().backward()
+    torch.testing.assert_close(ours.weight.grad, ref.weight.grad, atol=1e-6, rtol=0)
+    ours.weight.requires_grad_(False)
+    assert not ours(ids).requires_grad

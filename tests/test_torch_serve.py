@@ -118,7 +118,7 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
 
     BLOCKED = {"jax", "jaxlib", "flax", "optax", "mmdti_tpu", "pandas", "sklearn",
                "joblib", "yaml", "msgpack", "transformers", "tokenizers", "safetensors",
-               "regex", "rdkit"}
+               "regex", "rdkit", "pymatgen"}
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -151,6 +151,30 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     server = MolServe.from_state_dict(cfg, model.state_dict(), device="cpu")
     out = server.predict(["CCO", "c1ccccc1"])
     assert out["predict"].shape == (2, 1) and np.isfinite(out["predict"]).all()
+    device_mode = MolServe.from_state_dict(cfg, model.state_dict(), device="cpu",
+                                           device_pair_feats="device")
+    np.testing.assert_allclose(device_mode.predict(["CCO", "c1ccccc1"])["predict"],
+                               out["predict"], atol=1e-5)
+
+    # the MOF path: pair features from coordinates, the MOF reader, a MOF model
+    from mmdti_tpu_torch.chem.mof import GAS2ATTR, MOFReader, coords2unimol_mof
+    from mmdti_tpu_torch.models.mof import build_mof_model
+    from mmdti_tpu_torch.ops.pair_feats import mof_pair_feats_from_coords
+
+    reader = MOFReader()
+    feat = coords2unimol_mof(["Zn", "O", "C"], np.eye(3, dtype=np.float32), reader.dictionary)
+    mof = build_mof_model(1, len(reader.dictionary), reader.dictionary.pad(), "regression",
+                          unimol_overrides=cfg["unimol_overrides"])
+    mof.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(feat["src_tokens"])[None]
+    coord = torch.from_numpy(feat["src_coord"])[None]
+    dist, _ = mof_pair_feats_from_coords(tok, coord, len(reader.dictionary),
+                                         reader.dictionary.pad())
+    np.testing.assert_allclose(dist[0].numpy(), feat["src_distance"], atol=1e-5)
+    mof_out = mof(tok, src_coord=coord, gas_id=torch.tensor([2]),
+                  gas_attr=torch.tensor([GAS2ATTR["CO2"]]), pressure=torch.tensor([0.5]),
+                  temperature=torch.tensor([0.3]))
+    assert mof_out["logits"].shape == (1, 1) and torch.isfinite(mof_out["logits"]).all()
 
     # an experiment dir written with the port's writers, served from disk,
     # and one round trip through the HTTP front

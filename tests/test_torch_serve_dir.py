@@ -7,8 +7,10 @@ on the CPU, against the JAX MolServe on the same dirs:
   ensemble also equals the port's MolPredict on the same dir;
 * a classification dir: threshold.dat, probabilities and labels;
 * a JAX-written (joblib) StandardScaler, read without joblib;
-* what is refused, with a pointer to ROADMAP.md: a device mesh, pair
-  features built on the device, a scaler mode the port lacks;
+* pair features built on the device (``device_pair_feats`` "device" or
+  True) answering as the host-mode server does (1e-5);
+* what is refused, with a pointer to ROADMAP.md: a device mesh, a scaler
+  mode the port lacks;
   serve_folds outside 1..model_folds raises with JAX's message.
 
 Both packages featurize through the port's numpy refinement; torch runs
@@ -173,11 +175,23 @@ def test_classification_threshold_and_proba(clf_exp):
     np.testing.assert_array_equal(got["predict"], want["predict"])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1)), dict(device_pair_feats="device"),
-                                dict(device_pair_feats=True)])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1))])
 def test_refusals_point_to_the_roadmap(cv_exp, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MolServe(cv_exp[0], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("value", ["device", True])
+def test_device_pair_feats_serves_as_host(servers, cv_exp, value):
+    """Requests ship coordinates and the forward builds the pair arrays;
+    the answers are the host-mode server's within 1e-5."""
+    srv = MolServe(cv_exp[0], device="cpu", device_pair_feats=value)
+    assert srv.pair_mode == "device" and servers[1].pair_mode == "host"
+    arrays, _ = srv._collate(srv._featurize(SMILES_20[:3]))
+    assert "src_coord" in arrays and "src_distance" not in arrays
+    got, want = srv.predict(SMILES_20), servers[1].predict(SMILES_20)
+    np.testing.assert_allclose(got["predict"], want["predict"], atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
 
 
 @pytest.mark.parametrize("folds", [0, 3])
