@@ -2,8 +2,9 @@
 """Smoke run of mmdti_tpu_torch on one CUDA card (H100): the serving slice,
 the train step, fit-and-predict through MolTrain/MolPredict, the
 classification tasks, cross-validation, resume and the fit profiler,
-fine-tuning from pretrained checkpoints with layers frozen, and the MOF
-model family on crystals of up to 512 atoms.  The pair distances and edge
+fine-tuning from pretrained checkpoints with layers frozen, the MOF
+model family on crystals of up to 512 atoms, and conformer generation on
+the card beside the native host chemistry.  The pair distances and edge
 types are built on the card from coordinates (device_pair_feats 'auto')
 unless a check names the host's arrays.
 
@@ -12,7 +13,8 @@ unless a check names the host's arrays.
 Phases, one result line each; any failure exits non-zero:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the Hopper kernels from mmdti_tpu_torch/csrc with nvcc;
+2. build the Hopper kernels from mmdti_tpu_torch/csrc with nvcc, and the
+   host chemistry library (csrc/mmchem.cpp) with g++ beside them;
 3. each kernel against its plain PyTorch version on the card, fp32 (TF32
    off) and bf16, at the flagship shapes, with padded keys: the attention
    forwards without and with dropout (0.1, same seed; the keep fraction is
@@ -201,9 +203,33 @@ Phases, one result line each; any failure exits non-zero:
    against K eager ones (bit for bit), kernel vs plain path on a
    batch of 4 crystals (2e-2 loss, gradients 0.1 of max), and device
    against host pair features on 2 crystals, plain fp32 path (1e-4);
-12. one JSON line with every kernel's summary (each task's, phase cv's,
-   phase pretrained's and phase mof's launches beside the main path's),
-   then {"ok": true, ...}.
+12. conformers: 256 drug-sized molecules built from seed 0 (48-200 atoms
+   with hydrogens, 64 in each atom bucket 64, 128, 192, 256): (a) the
+   native library's build seconds, its refinement against numpy _refine
+   (1e-4) and its ms a molecule by bucket; (b) all 256 through the device
+   provider (device_refine_min_atoms=0; cold, with the graphs' recording,
+   and warm) and the host one: seconds and molecules/s each way, distances
+   within 0.15 A of the host's float64 refinement and energies at most
+   1.10 x its, repeat calls bit-equal, a molecule alone against its group
+   of 64 (1e-5), graph replay against eager (as close as two eager runs),
+   one group's kernels and device ms eager and replayed (profiler); (c)
+   the cost a molecule by bucket, host native against the device, a lone
+   molecule and groups of 64; (d) 2,000 more molecules (seed 2)
+   featurized by the device provider: seconds, the graphs recorded (every
+   group at most 64 molecules), peak device memory and the graphs' pool;
+   MolTrain.fit with coord_provider 'auto'
+   (the card: device) on 200 of the 256, synthetic targets, flagship, 2
+   epochs, MMDTI_PALLAS_LN=1: featurization seconds against the host
+   provider, pad N, the launch counts (every backward exactly one train
+   graph's), and the same fit with device_feed=False (the host branch
+   through the prefetched feed): its epoch seconds; (e) cold MolServe
+   requests of 8 unseen molecules, feature cache off, the device provider
+   against the host one alternated over 5 rounds: p50 each, answers within
+   2e-2, and a cold featurization beside a 1 s sleep kernel on the default
+   stream (the forward in flight) that returns before the sleep ends;
+13. one JSON line with every kernel's summary (each task's, phase cv's,
+   phase pretrained's, phase mof's and phase conformers' launches beside
+   the main path's), then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.
@@ -561,18 +587,31 @@ def phase_card():
     return out
 
 
+def _timed(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
 def phase_build():
+    """nvcc builds the CUDA libraries, g++ the host chemistry library
+    (csrc/mmchem.cpp), all at once; returns {"native_s", "native_path"}."""
+    import concurrent.futures
+
     from mmdti_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    paths = _build.build_all()
-    secs = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(_timed, _build.build_host_library, "mmchem")
+        paths, secs = _timed(_build.build_all)
+        native_path, native_s = native.result()
     print(f"build: {len(paths)} libraries in {secs:.1f} s ({_build.BUILD_DIR})", flush=True)
     for name in paths:
         with open(os.path.join(_build.BUILD_DIR, f"{name}.log")) as f:
             regs = [ln.strip() for ln in f if "registers" in ln]
         print(f"build: {name}: {len(regs)} kernel variants, e.g. {regs[:1]}", flush=True)
-    return secs
+    print(f"build: {os.path.basename(native_path)} (g++ {' '.join(_build.HOST_CXX_FLAGS)}) "
+          f"in {native_s:.2f} s, beside the nvcc builds", flush=True)
+    return {"native_s": native_s, "native_path": native_path}
 
 
 def _padded_lengths(gen, B, N):
@@ -1343,7 +1382,8 @@ def _capture_beside_pulls(srv, warm, cold):
     import torch
 
     want = srv.predict(warm)["predict"]
-    gate = srv._pull_gate = _GateLog(srv._pull_gate)
+    # the conformer refinement's graphs record under the same gate
+    gate = srv._pull_gate = srv.conformer.capture_gate = _GateLog(srv._pull_gate)
     me = threading.get_ident()
 
     def wait_locked():
@@ -1380,7 +1420,7 @@ def _capture_beside_pulls(srv, warm, cold):
         pull_released = gate.first(p.ident, "released", start2)
         cap_acquired = gate.first(me, "acquired", asked2)
     finally:
-        srv._pull_gate = gate.lock
+        srv._pull_gate = srv.conformer.capture_gate = gate.lock
     seen = {
         "pull_asked_during_capture": asked < cap_released,
         "pull_took_gate_after_capture": pull_acquired >= cap_released,
@@ -4153,6 +4193,398 @@ def phase_mof(dev, card):
     return fit_counts
 
 
+# ---- phase conformers ---------------------------------------------------------
+
+CONF_UNITS = ("c1ccc(cc1)", "c1ccc(nc1)", "C1CCN(CC1)", "C1CCC(CC1)", "C(=O)N", "CC", "OCC",
+              "C(C)(C)", "S(=O)(=O)", "N(C)", "C(F)(F)", "C(O)", "c1ccc(s1)", "C(=O)O")
+CONF_STARTS = ("C", "F", "Cl", "CO", "N", "FC(F)(F)", "N#C", "O")
+CONF_ENDS = ("C", "F", "Cl", "OC", "N", "C(F)(F)F", "C#N", "O")
+# atoms with hydrogens of each atom bucket's molecules: buckets 64, 128, 192, 256
+CONF_RANGES = ((48, 64), (65, 128), (129, 192), (193, 200))
+CONF_PER_BUCKET = 64         # 256 molecules; a group of 64 a bucket
+CONF_FIT_PER_BUCKET = 50     # (d): the first 50 of each bucket, 200 molecules
+CONF_FIT = (128, 72)         # (d): train and validation rows of the fit
+CONF_FIT_EPOCHS = 2
+CONF_SERVE_ROUNDS = 5        # (e): cold requests each way, alternated
+CONF_DIST_TOL = 0.15         # device against host float64 distances (tests/test_device_refine.py)
+CONF_ENERGY_RATIO = 1.10     # device energy at most this times the host's (same test)
+CONF_BATCH_TOL = 1e-5        # a molecule alone against co-batched (BATCH_COMPOSITION_ATOL)
+CONF_NATIVE_TOL = 1e-4       # native refinement against numpy _refine (tests/test_chem.py)
+CONF_SERVE_TOL = 2e-2        # device- against host-provider answers (bf16 flagship)
+CONF_MANY_PER_BUCKET = 500   # (d): 2,000 molecules featurized for the device memory they hold
+CONF_BUSY_S = 1.0            # (e): seconds of a sleep kernel on the default stream
+CONF_WORK = os.path.join(REPO, "build", "chip_smoke_conformers")
+
+
+def drug_smiles(per_bucket=None, seed=0):
+    """Drug-sized SMILES from a seed: a start, ring and chain units drawn by
+    numpy.random.default_rng(seed) until the molecule reaches an atom count
+    drawn in its bucket's range (CONF_RANGES), an end; per_bucket
+    (CONF_PER_BUCKET) molecules in each range, in bucket order.  Each unit's atoms (hydrogens with it)
+    add up, since a unit bonds to its neighbours in place of two
+    hydrogens; the native parse confirms every count."""
+    import numpy as np
+
+    from mmdti_tpu_torch.chem import native
+
+    def atoms(smi):
+        return len(native.parse_graph(smi)[0])
+
+    per_bucket = CONF_PER_BUCKET if per_bucket is None else per_bucket
+    rng = np.random.default_rng(seed)
+    unit_atoms = [atoms("C" + u + "C") - atoms("CC") for u in CONF_UNITS]
+    out = []
+    for lo, hi in CONF_RANGES:
+        got = 0
+        while got < per_bucket:
+            target = int(rng.integers(lo, hi + 1))
+            start = CONF_STARTS[rng.integers(len(CONF_STARTS))]
+            end = CONF_ENDS[rng.integers(len(CONF_ENDS))]
+            smi, n = start, atoms(start + end)
+            while n < target:
+                k = int(rng.integers(len(CONF_UNITS)))
+                smi, n = smi + CONF_UNITS[k], n + unit_atoms[k]
+            smi += end
+            if lo <= n <= hi:
+                if atoms(smi) != n:
+                    raise Failed(f"conformers: {smi} has {atoms(smi)} atoms, counted {n}")
+                out.append(smi)
+                got += 1
+    return out
+
+
+def _conf_group(smis, dev):
+    """One bucket's molecules as the device refinement's input tensors on
+    dev (DeviceConformerBatcher's padding) and their _prepare tuples."""
+    import torch
+
+    from mmdti_tpu_torch.chem import device_conformer as dc
+
+    items = [(i, dc._prepare(s, 42)) for i, s in enumerate(smis)]
+    bucket = dc._atom_bucket(max(len(it[0]) for _, it in items))
+    arrays = dc.DeviceConformerBatcher(device=dev).group_arrays(bucket, items)
+    return [torch.from_numpy(a).to(dev) for a in arrays], items
+
+
+def _conf_energy(coords, item):
+    """The refinement's energy (ops/device_refine.py refine_energy) of one
+    molecule's [n, 3] coordinates under its own terms, on the host."""
+    import torch
+
+    from mmdti_tpu_torch.ops.device_refine import refine_energy
+
+    n = len(item[0])
+    return float(refine_energy(torch.from_numpy(coords[None]), torch.ones(1, n),
+                               *[torch.from_numpy(a[None]) for a in item[2:]])[0])
+
+
+def _pool_bytes(dev, pool):
+    """Bytes of device memory the caching allocator holds in one graph
+    memory pool (segments of the allocator's snapshot with its id); None
+    where no segment carries the id."""
+    import torch
+
+    sizes = [seg["total_size"] for seg in torch.cuda.memory._snapshot()["segments"]
+             if seg.get("device", dev.index) == dev.index
+             and tuple(seg["segment_pool_id"]) == tuple(pool)]
+    return sum(sizes) if sizes else None
+
+
+def _median_s(fn, n):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase_conformers(dev, card, build):
+    """Conformer generation on the card and native host chemistry, on 256
+    drug-sized molecules (48-200 atoms with hydrogens, 64 in each of the
+    atom buckets 64, 128, 192, 256; drug_smiles, seed 0): (a) the native
+    library's build and its refinement against numpy; (b) the device
+    provider against the host one; (c) the cost a molecule by bucket,
+    alone and in groups of 64; (d) MolTrain.fit with coord_provider 'auto'
+    on 200 of them; (e) cold MolServe requests.  Returns the launch counts
+    of (d) and (e)."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolServe, MolTrain
+    from mmdti_tpu_torch.chem import device_conformer as dc
+    from mmdti_tpu_torch.chem.conformer import (
+        ConformerGen,
+        _build_terms,
+        _initial_coords,
+        _refine,
+        builtin_smi2coords,
+    )
+    from mmdti_tpu_torch.chem.smiles import parse_smiles
+    from mmdti_tpu_torch.configs.config import load_yaml, save_yaml
+    from mmdti_tpu_torch.data.reader import write_csv
+    from mmdti_tpu_torch.ops import device_refine as dr
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CONF_WORK, ignore_errors=True)
+    os.makedirs(CONF_WORK)
+    smis = drug_smiles()
+    prepared = [dc._prepare(s, 42) for s in smis]
+    n_atoms = [len(item[0]) for item in prepared]
+    buckets = [dc._atom_bucket(n) for n in n_atoms]
+
+    # (a) the native library: its build, and its refinement against numpy
+    native_errs, native_ms = [], []
+    for b in (0, 1, 2):
+        smi = smis[b * CONF_PER_BUCKET]
+        mol = parse_smiles(smi).add_hydrogens()
+        coords0 = _initial_coords(mol.num_atoms(), 42)
+        want = _refine(coords0.copy(), _build_terms(mol))
+        got = builtin_smi2coords(smi, seed=42)[1]
+        native_errs.append(float(np.abs(got - want).max()))
+    for b in range(4):
+        group = smis[b * CONF_PER_BUCKET:(b + 1) * CONF_PER_BUCKET][:8]
+        native_ms.append(_median_s(lambda: [builtin_smi2coords(s) for s in group], 3)
+                         / len(group) * 1e3)
+    print("conformers: (a) " + json.dumps({
+        "molecules": len(smis), "atoms": [min(n_atoms), max(n_atoms)],
+        "per_bucket": {str(b): buckets.count(b) for b in sorted(set(buckets))},
+        "native_build_s": build["native_s"], "native_library": build["native_path"],
+        "native_vs_numpy_max_abs_err": native_errs, "tol": CONF_NATIVE_TOL,
+        "host_native_ms_per_molecule_by_bucket": dict(zip(("64", "128", "192", "256"),
+                                                          native_ms)),
+        "card": card}), flush=True)
+    if not max(native_errs) <= CONF_NATIVE_TOL:
+        raise Failed(f"conformers: native refinement differs from numpy by {native_errs}")
+
+    # (b) device provider against host provider, all 256
+    torch.cuda.synchronize()
+    graphs_before = len(dr.GRAPHS)
+    device_cold, device_cold_s = _timed(
+        lambda: dc.device_smi2coords_batch(smis, min_atoms=0, device=dev))
+    device_warm, device_warm_s = _timed(
+        lambda: dc.device_smi2coords_batch(smis, min_atoms=0, device=dev))
+    host, host_s = _timed(lambda: [builtin_smi2coords(s, seed=42) for s in smis])
+    repeat_equal = all(np.array_equal(a[1], b[1]) for a, b in zip(device_cold, device_warm))
+    dist_err, ratios = 0.0, []
+    for smi, item, (atoms_d, cd), (atoms_h, ch) in zip(smis, prepared, device_warm, host):
+        if atoms_d != atoms_h:
+            raise Failed(f"conformers: device and host atoms differ for {smi}")
+        dd = np.sqrt(((cd[:, None] - cd[None]) ** 2).sum(-1))
+        dh = np.sqrt(((ch[:, None] - ch[None]) ** 2).sum(-1))
+        dist_err = max(dist_err, float(np.abs(dd - dh).max()))
+        ratios.append((_conf_energy(cd, item), _conf_energy(ch, item)))
+    worst_ratio = max(e_d / e_h for e_d, e_h in ratios)
+    energy_ok = all(e_d <= e_h * CONF_ENERGY_RATIO + 1e-3 for e_d, e_h in ratios)
+    # one molecule alone against its group of 64
+    lone_i = CONF_PER_BUCKET   # the first molecule of bucket 128
+    alone = dc.device_smi2coords_batch([smis[lone_i]], min_atoms=0, device=dev)[0][1]
+    alone_err = float(np.abs(alone - device_warm[lone_i][1]).max())
+    # one group (bucket 128, 64 molecules): graph replay against eager
+    inputs, _ = _conf_group(smis[CONF_PER_BUCKET:2 * CONF_PER_BUCKET], dev)
+    eager = [dr.refine_conformers(*inputs, use_graph=False) for _ in range(2)]
+    replay = [dr.refine_conformers(*inputs) for _ in range(2)]
+    eager_gap = float((eager[0] - eager[1]).abs().max())
+    graph_err = float((replay[0] - eager[0]).abs().max())
+    ev_eager = _kernel_events(lambda: dr.refine_conformers(*inputs, use_graph=False), 1)
+    ev_graph = _kernel_events(lambda: dr.refine_conformers(*inputs), 1)
+    group_eager_s = _median_s(lambda: (dr.refine_conformers(*inputs, use_graph=False),
+                                       torch.cuda.synchronize()), 3)
+    group_graph_s = _median_s(lambda: (dr.refine_conformers(*inputs),
+                                       torch.cuda.synchronize()), 5)
+    info = {
+        "device_cold_s": device_cold_s, "device_warm_s": device_warm_s, "host_s": host_s,
+        "device_mols_per_s": len(smis) / device_warm_s, "host_mols_per_s": len(smis) / host_s,
+        "graphs_recorded": len(dr.GRAPHS) - graphs_before,
+        "distance_max_abs_err": dist_err, "distance_tol": CONF_DIST_TOL,
+        "energy_ratio_max": worst_ratio, "energy_ratio_limit": CONF_ENERGY_RATIO,
+        "repeat_calls_bit_equal": repeat_equal,
+        "alone_vs_cobatched_max_abs_err": alone_err, "alone_tol": CONF_BATCH_TOL,
+        "graph_vs_eager_max_abs_err": graph_err, "eager_vs_eager_max_abs_err": eager_gap,
+        "replays_bit_equal": bool(torch.equal(replay[0], replay[1])),
+        "group": {"M": int(inputs[0].shape[0]), "Np": int(inputs[0].shape[1]),
+                  "iters": 300,
+                  "eager_kernels": sum(c for c, _ in ev_eager.values()),
+                  "eager_device_ms": sum(us for _, us in ev_eager.values()) / 1e3,
+                  "replay_kernels": sum(c for c, _ in ev_graph.values()),
+                  "replay_device_ms": sum(us for _, us in ev_graph.values()) / 1e3,
+                  "host_launches_eager": sum(c for c, _ in ev_eager.values()),
+                  "host_launches_replay": 1,
+                  "eager_wall_ms": group_eager_s * 1e3, "replay_wall_ms": group_graph_s * 1e3},
+        "card": card}
+    print("conformers: (b) " + json.dumps(info), flush=True)
+    if not (repeat_equal and info["replays_bit_equal"]):
+        raise Failed("conformers: repeated device refinements differ")
+    if not dist_err <= CONF_DIST_TOL or not energy_ok:
+        raise Failed(f"conformers: device vs host distances {dist_err}, energy ratio "
+                     f"{worst_ratio}")
+    if not alone_err <= CONF_BATCH_TOL:
+        raise Failed(f"conformers: a molecule alone differs from co-batched by {alone_err}")
+    if not graph_err <= eager_gap:
+        raise Failed(f"conformers: graph replay differs from eager by {graph_err} (two eager "
+                     f"runs: {eager_gap})")
+
+    # (c) the cost a molecule by atom bucket: host native against device,
+    # a lone molecule and groups of 64 (the device's graphs recorded above)
+    by_bucket = {}
+    for b, bucket in enumerate((64, 128, 192, 256)):
+        group = smis[b * CONF_PER_BUCKET:(b + 1) * CONF_PER_BUCKET]
+        dc.device_smi2coords_batch(group[:1], min_atoms=0, device=dev)   # record M=8
+        lone = _median_s(lambda: dc.device_smi2coords_batch(group[:1], min_atoms=0,
+                                                             device=dev), 5)
+        grouped = _median_s(lambda: dc.device_smi2coords_batch(group, min_atoms=0,
+                                                                device=dev), 3)
+        host_one = native_ms[b] / 1e3
+        by_bucket[str(bucket)] = {"host_native_ms": host_one * 1e3,
+                                  "device_lone_ms": lone * 1e3,
+                                  "device_group64_ms_per_molecule": grouped / len(group) * 1e3,
+                                  "device_group64_wall_ms": grouped * 1e3}
+    print("conformers: (c) " + json.dumps({"ms_per_molecule": by_bucket, "card": card}),
+          flush=True)
+
+    # (d) the device memory a fit's featurization holds: 2,000 molecules in
+    # groups of at most GROUP_MAX, the shapes (b) recorded; the [N, N] pair
+    # arrays left out (the card's device pair mode builds them)
+    many = drug_smiles(per_bucket=CONF_MANY_PER_BUCKET, seed=2)
+    torch.cuda.synchronize()
+    graphs_before = len(dr.GRAPHS)
+    allocated_before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    many_feats, many_s = _timed(
+        lambda: ConformerGen(device=dev, pair_feats=False).transform(many))
+    torch.cuda.synchronize()
+    largest_m = max(key[1] for key in dr.GRAPHS)
+    memory = {"molecules": len(many), "featurize_s": many_s,
+              "molecules_per_s": len(many) / many_s,
+              "graphs_recorded": len(dr.GRAPHS) - graphs_before, "graphs": len(dr.GRAPHS),
+              "largest_group": largest_m,
+              "peak_allocated_above_start_bytes":
+                  torch.cuda.max_memory_allocated(dev) - allocated_before,
+              "graph_pool_bytes": _pool_bytes(dev, dr._POOLS[dev]),
+              "reserved_bytes": torch.cuda.memory_reserved(dev), "card": card}
+    print("conformers: (d) memory " + json.dumps(memory), flush=True)
+    if largest_m > dc.GROUP_MAX or len(many_feats) != len(many):
+        raise Failed(f"conformers: a group of {largest_m} molecules recorded, "
+                     f"{len(many_feats)} of {len(many)} featurized")
+    del many_feats
+
+    # (d) MolTrain.fit, coord_provider 'auto' (the card: device), 200 molecules
+    fit_smis = [smis[b * CONF_PER_BUCKET + i] for i in range(CONF_FIT_PER_BUCKET)
+                for b in range(4)]
+    rng = np.random.default_rng(0)
+    y = np.array([len(s) / 50.0 for s in fit_smis]) + rng.normal(0, 0.1, len(fit_smis))
+    paths = {}
+    for name, rows in (("train", slice(0, CONF_FIT[0])), ("val", slice(CONF_FIT[0], None))):
+        paths[name] = os.path.join(CONF_WORK, f"{name}.csv")
+        write_csv({"smiles": fit_smis[rows], "y": y[rows]}, paths[name])
+    feat_dev_s = _timed(lambda: ConformerGen(device=dev).transform(fit_smis))[1]
+    feat_host_s = _timed(lambda: ConformerGen(coord_provider="host").transform(fit_smis))[1]
+    exp = os.path.join(CONF_WORK, "exp")
+    fit_kw = dict(task="regression", epochs=CONF_FIT_EPOCHS, learning_rate=1e-4, batch_size=32,
+                  early_stopping=20, metrics="mse", smiles_col="smiles", target_cols=["y"],
+                  seed=42, device="cuda")
+    with _ln_kernels_on():
+        _reset_counts()
+        clf, fit_s = _timed(lambda: MolTrain(save_path=exp, **fit_kw).fit(paths["train"],
+                                                                          paths["val"]))
+        torch.cuda.synchronize()
+        fit_counts = _read_counts()
+        nn = clf.model
+        model = nn.model
+        sites = _ln_sites(model)
+        per_fwd = {"gbf_proj": 1, "pair_bias_attention": model.unimol_cfg.encoder_layers,
+                   "masked_attention": model.bert.cfg.num_hidden_layers
+                   + 2 * model.cross_modal_module.cfg.num_layers, "layer_norm": sites}
+        steps = len(nn.features_train) // 32
+        k_feed = _snap_to_divisor(GRAPH_K, steps)
+        # the train graph's warm-ups and capture take every backward launch
+        want_bwd = {k + "_bwd": n * (GRAPH_WARMUP + 1) * k_feed for k, n in per_fwd.items()}
+        with open(os.path.join(exp, "history_0.json")) as f:
+            history = json.load(f)
+        host_exp = os.path.join(CONF_WORK, "exp_host_branch")
+        host_fit, host_fit_s = _timed(lambda: MolTrain(
+            save_path=host_exp, device_feed=False, **fit_kw).fit(paths["train"], paths["val"]))
+        with open(os.path.join(host_exp, "history_0.json")) as f:
+            host_history = json.load(f)
+    info = {"molecules": len(fit_smis), "split": list(CONF_FIT),
+            "featurize_device_provider_s": feat_dev_s, "featurize_host_provider_s": feat_host_s,
+            "resolved_provider": ConformerGen(device=dev).resolved_provider(),
+            "pad_N": nn.atom_pad, "steps_per_epoch": steps, "steps_per_replay": k_feed,
+            "fit_wall_s": fit_s, "epoch_wall_s": [r["seconds"] for r in history],
+            "fit_launches": fit_counts, "backward_launches_expected": want_bwd,
+            "host_branch_fit_wall_s": host_fit_s,
+            "host_branch_epoch_wall_s": [r["seconds"] for r in host_history],
+            "host_branch_val_mse": [r["val_mse"] for r in host_history],
+            "val_mse": [r["val_mse"] for r in history], "card": card}
+    print("conformers: (d) " + json.dumps(info), flush=True)
+    if info["resolved_provider"] != "device" or nn.atom_pad < 128:
+        raise Failed(f"conformers: provider {info['resolved_provider']}, pad N {nn.atom_pad}")
+    if any(fit_counts[k] != n for k, n in want_bwd.items()) or not all(fit_counts.values()):
+        raise Failed(f"conformers: the fit launched {fit_counts}, backwards expected "
+                     f"{want_bwd}")
+    if not all(np.isfinite(r["val_mse"]) for r in history + host_history):
+        raise Failed("conformers: a fit's validation loss is not finite")
+
+    # (e) cold MolServe requests: 8 unseen molecules, feature cache off,
+    # device provider against host provider (a copy of the dir whose
+    # config names coord_provider 'host'), alternated
+    host_dir = os.path.join(CONF_WORK, "exp_host_provider")
+    shutil.copytree(exp, host_dir)
+    cfg = load_yaml(os.path.join(host_dir, "config.yaml"))
+    cfg["coord_provider"] = "host"
+    save_yaml(cfg, os.path.join(host_dir, "config.yaml"))
+    unseen = drug_smiles(per_bucket=2, seed=1)
+    if set(unseen) & set(smis):
+        raise Failed("conformers: a cold request's molecule is in the fit's set")
+    with _ln_kernels_on():
+        servers = {"device": MolServe(exp, feature_cache=0),
+                   "host": MolServe(host_dir, feature_cache=0)}
+        answers = {k: srv.predict(unseen)["predict"] for k, srv in servers.items()}   # record
+        times = {k: [] for k in servers}
+        for _ in range(CONF_SERVE_ROUNDS):
+            for k, srv in servers.items():
+                t0 = time.perf_counter()
+                srv.predict(unseen)
+                times[k].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    launches = _read_counts()
+    # a cold featurization while the default stream is busy (as it is with
+    # the forward of the request before): the refinement's copies, replays
+    # and pull run on its own stream and do not wait for the sleep
+    conformer = servers["device"].conformer
+    want = conformer.transform(unseen)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(CONF_BUSY_S * _sm_clock_hz()))
+    beside_busy, beside_busy_s = _timed(lambda: conformer.transform(unseen))
+    busy_after = not torch.cuda.current_stream(dev).query()
+    torch.cuda.synchronize()
+    beside_equal = all(np.array_equal(a["src_coord"], b["src_coord"])
+                       for a, b in zip(beside_busy, want))
+    serve_diff = float(np.abs(answers["device"] - answers["host"]).max())
+    print("conformers: (e) " + json.dumps({
+        "molecules": len(unseen), "providers": {k: s.conformer.resolved_provider()
+                                                for k, s in servers.items()},
+        "p50_ms": {k: statistics.median(v) * 1e3 for k, v in times.items()},
+        "answers_max_abs_diff": serve_diff, "tol": CONF_SERVE_TOL,
+        "featurize_beside_busy_stream_ms": beside_busy_s * 1e3,
+        "busy_stream_sleep_s": CONF_BUSY_S, "default_stream_busy_after": busy_after,
+        "beside_busy_bit_equal": beside_equal,
+        "phase_launches": launches, "phase_s": time.perf_counter() - t_phase,
+        "card": card}), flush=True)
+    if not (busy_after and beside_equal):
+        raise Failed(f"conformers: a featurization beside a busy default stream waited for "
+                     f"it ({beside_busy_s} s) or differs (bit-equal: {beside_equal})")
+    if [s.conformer.resolved_provider() for s in servers.values()] != ["device", "host"]:
+        raise Failed("conformers: the servers did not take the device and host providers")
+    if not serve_diff <= CONF_SERVE_TOL:
+        raise Failed(f"conformers: device- and host-provider answers differ by {serve_diff}")
+    del servers, clf, host_fit
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
@@ -4174,7 +4606,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     card = phase_card()
-    phase_build()
+    build = phase_build()
     summary = phase_kernels(dev)
     phase_serve(dev, card)
     train_launches = phase_train(dev)
@@ -4184,14 +4616,15 @@ def main() -> int:
     cv_launches = phase_cv(dev, graph_fit)
     pretrained_launches = phase_pretrained(dev, card, graph_fit)
     mof_launches = phase_mof(dev, card)
+    conformer_launches = phase_conformers(dev, card, build)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
         if n == 0:
             raise Failed(f"{name} was not launched on its path")
     pretrained_total = _add_counts(*pretrained_launches.values())
-    for task, counts in {**task_launches, "cv": cv_launches,
-                         "pretrained": pretrained_total}.items():
+    for task, counts in {**task_launches, "cv": cv_launches, "pretrained": pretrained_total,
+                         "conformers": conformer_launches}.items():
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
@@ -4205,7 +4638,8 @@ def main() -> int:
          "task_launches": {task: counts[name] for task, counts in task_launches.items()},
          "cv_launches": cv_launches[name],
          "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()},
-         "mof_launches": mof_launches[name]}
+         "mof_launches": mof_launches[name],
+         "conformers_launches": conformer_launches[name]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

@@ -63,7 +63,7 @@ class MolPredict:
         if metrics and metrics != "none":
             self.config.metrics = metrics
         self.datahub = DataHub(data=data, is_train=False, save_path=self.load_model,
-                               **self.config)
+                               device=self.device, **self.config)
         self.trainer = Trainer(save_path=self.load_model, device=self.device, **self.config)
         cfg = dict(self.config)
         cfg["evaluate_only"] = True

@@ -5,12 +5,21 @@ mmdti_tpu/api/serve_api.py on one device).
   ``model_{fold}.ckpt``, target_scaler.ss, threshold.dat) loads once; the
   weights stay resident on the device between requests, one model per
   served fold (api/serve_model.py).
-- Raw SMILES are featurized on the host (ConformerGen + tokenizer, with a
-  per-SMILES LRU cache) and padded onto static (batch, atom, SMILES) shape
-  buckets.  In device pair mode (``device_pair_feats`` 'auto' on the card)
-  a request ships [B,N,3] coordinates and the forward builds the [B,N,N]
-  distances and edge types from them (ops/pair_feats.py); in host mode
-  the host builds and ships those arrays.
+- Raw SMILES are featurized (ConformerGen + tokenizer, with a per-SMILES
+  LRU cache) and padded onto static (batch, atom, SMILES) shape buckets.
+  ``coord_provider`` 'auto' refines a cold request's conformers on the
+  card (chem/device_conformer.py; molecules under
+  ``device_refine_min_atoms`` atoms on the host), under the lock, on the
+  refinement stream (ops/device_refine.py ``refine_stream``), so it does
+  not wait for the forward of the request before; a refinement graph
+  records holding the pull gate, as the forward's do.  With 'auto' a
+  cold request of a few large molecules is slower than on the host (a
+  lone group replays about 9,900 small kernels); ``coord_provider: host``
+  in the config trades the training-time provider for that latency.
+  In device pair mode (``device_pair_feats`` 'auto' on the card) a request
+  ships [B,N,3] coordinates and the forward builds the [B,N,N] distances
+  and edge types from them (ops/pair_feats.py); in host mode the host
+  builds and ships those arrays.
 - On the card each bucket's forward is recorded once as a CUDA graph
   (train/steps.py ``capture_graph``) with static input buffers, at the
   bucket's first request or in ``warmup_buckets``, and replayed for every
@@ -50,7 +59,6 @@ from mmdti_tpu_torch.chem.conformer import ConformerGen
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
 from mmdti_tpu_torch.configs.config import load_yaml
 from mmdti_tpu_torch.data.batching import BatchCollator
-from mmdti_tpu_torch.data.hub import _coord_provider
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
@@ -192,10 +200,16 @@ class MolServe:
         if not self.batch_buckets:
             raise ValueError("batch_buckets must be non-empty")
 
+        # _lock serializes the host stage and every launch (eager, capture,
+        # replay); _pull_gate keeps device -> host pulls, which run outside
+        # _lock, from overlapping a capture (_record, and the conformer
+        # refinement's graphs)
+        self._lock = threading.Lock()
+        self._pull_gate = threading.Lock()
         self.tokenizer = load_tokenizer(cfg.get("chemberta_dir", "") or None)
-        self.conformer = ConformerGen(**{**cfg, "num_workers": num_workers,
-                                         "coord_provider": _coord_provider(cfg),
-                                         "pair_feats": self.pair_mode == "host"})
+        self.conformer = ConformerGen(**{
+            **cfg, "num_workers": num_workers, "device": self.device,
+            "capture_gate": self._pull_gate, "pair_feats": self.pair_mode == "host"})
         # ConformerGen resolves the atom dictionary as NNModel does
         self.dictionary = self.conformer.dictionary
         self.collator = BatchCollator(
@@ -217,11 +231,6 @@ class MolServe:
         # outputs are held (self.graphs) and cloned before _lock is released
         self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
         self._shapes_seen: set = set()
-        # _lock serializes the host stage and every launch (eager, capture,
-        # replay); _pull_gate keeps device -> host pulls, which run outside
-        # _lock, from overlapping a capture (_record)
-        self._lock = threading.Lock()
-        self._pull_gate = threading.Lock()
         self._feat_cache: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
         self._feat_cache_size = int(feature_cache)
         self._feat_cache_byte_cap = int(feature_cache_bytes)

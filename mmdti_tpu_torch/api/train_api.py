@@ -157,9 +157,9 @@ class MolTrain:
                     "train/val run")
             return self._fit_cv(data_train, kfold)
         self.datahub = DataHub(data=data_train, is_train=True, save_path=self.save_path,
-                               **self.config)
+                               device=self.device, **self.config)
         self.datahub_1 = DataHub(data=data_val, is_train=False, save_path=self.save_path,
-                                 **self.config)
+                                 device=self.device, **self.config)
         self.data_train = self.datahub.data
         self.data_test = self.datahub_1.data
         self.update_and_save_config(n_folds=1)
@@ -172,7 +172,7 @@ class MolTrain:
         """Cross-validation: featurize and scale once, build one model whose
         initial weights every fold starts from, and fit the folds in turn."""
         self.datahub = DataHub(data=data_train, is_train=True, save_path=self.save_path,
-                               **self.config)
+                               device=self.device, **self.config)
         self.data_train = self.datahub.data
         self.data_test = self.data_train      # the pad lengths' source; folds slice it
         self.update_and_save_config(n_folds=kfold)

@@ -1,12 +1,21 @@
-"""Host-side conformer generation and Uni-Mol-style featurization.
+"""Conformer generation and Uni-Mol-style featurization.
 
-Port of mmdti_tpu.chem.conformer, host provider only: the built-in
-deterministic force-field refinement (bond springs, 1-3 angle distances,
-nonbonded repulsion) over the parsed molecular graph in numpy, then
-``coords2unimol`` (BOS/EOS-wrapped atom tokens, mean-centered coordinates,
-full pairwise distance matrix, edge types ``tok_i * V + tok_j``,
-max_atoms=256 random crop).  No RDKit, no native C++ library and no device
-refinement: the numbers equal the JAX package's numpy path.
+Port of mmdti_tpu.chem.conformer without RDKit.  Two coordinate providers
+run the built-in deterministic force field (bond springs, 1-3 angle
+distances, nonbonded repulsion) over the parsed molecular graph:
+
+* 'host': the JAX package's ladder, molecule by molecule: the native C++
+  library (chem/native.py, built from the port's own csrc/mmchem.cpp)
+  embeds and refines, its pair-list entry refines where the embed entry
+  declines, and the numpy ``_refine`` runs only where both decline;
+* 'device': chem/device_conformer.py refines whole groups of molecules on
+  the device (ops/device_refine.py); molecules under
+  ``device_refine_min_atoms`` atoms take the host ladder.
+
+``resolve_coord_provider`` turns 'auto' into one of them from the device.
+Then ``coords2unimol`` (BOS/EOS-wrapped atom tokens, mean-centered
+coordinates, the native pairwise distance matrix, edge types
+``tok_i * V + tok_j``, max_atoms=256 random crop).
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mmdti_tpu_torch.chem import native
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.smiles import Molecule, SmilesError, parse_smiles
 
@@ -159,23 +169,33 @@ def _strip_hs(atoms: Sequence[str], coords: np.ndarray):
     return [atoms[i] for i in idx], coords[idx]
 
 
+def _initial_coords(n: int, seed: int) -> np.ndarray:
+    """The seeded random start of a molecule's refinement (both providers)."""
+    rng = np.random.RandomState(seed if seed >= 0 else None)
+    scale = max(1.5, 0.8 * n ** (1.0 / 3.0) * 2.0)
+    return rng.randn(n, 3).astype(np.float32) * scale
+
+
 def builtin_smi2coords(
     smi: str, seed: int = 42, remove_hs: bool = False
 ) -> Tuple[List[str], np.ndarray]:
-    """Built-in provider: parse -> add explicit H -> embed -> refine."""
+    """Built-in provider: parse -> add explicit H -> embed -> refine, in
+    C++ (the graph -> terms -> refine entry, else the refine entry over
+    Python-built terms), in numpy only where the library declines both."""
     mol = parse_smiles(smi).add_hydrogens()
-    n = mol.num_atoms()
     atoms = [a.symbol for a in mol.atoms]
-    rng = np.random.RandomState(seed if seed >= 0 else None)
-    scale = max(1.5, 0.8 * n ** (1.0 / 3.0) * 2.0)
-    coords = rng.randn(n, 3).astype(np.float32) * scale
-    coords = _refine(coords, _build_terms(mol))
+    coords = _initial_coords(mol.num_atoms(), seed)
+    refined = native.embed_coords(mol, coords)
+    if refined is None:
+        refined = native.refine_coords(mol, coords)
+    coords = refined if refined is not None else _refine(coords, _build_terms(mol))
     if remove_hs:
         return _strip_hs(atoms, coords)
     return atoms, coords
 
 
 def smi2coords(smi: str, seed: int = 42, remove_hs: bool = False):
+    native.available()   # a library that does not build raises, not zeros
     try:
         return builtin_smi2coords(smi, seed=seed, remove_hs=remove_hs)
     except SmilesError:
@@ -241,8 +261,7 @@ def coords2unimol(
             "src_tokens": src_tokens.astype(np.int64),
             "src_coord": src_coord.astype(np.float32),
         }
-    diff = src_coord[:, None, :] - src_coord[None, :, :]
-    src_distance = np.sqrt((diff * diff).sum(-1))
+    src_distance = native.distance_matrix(src_coord)
     vocab = len(dictionary)
     src_edge_type = src_tokens.reshape(-1, 1) * vocab + src_tokens.reshape(1, -1)
     return {
@@ -253,12 +272,40 @@ def coords2unimol(
     }
 
 
+def resolve_coord_provider(provider: str = "auto", device=None) -> str:
+    """Where the force-field refinement runs: 'host' or 'device'.
+
+    The JAX package's rule (mmdti_tpu/chem/conformer.py
+    resolve_coord_provider) with its accelerator test replaced by the
+    port's device: 'auto' is 'device' when ``device`` (None: CUDA where it
+    is available) is a CUDA device and 'host' on the CPU; the port has no
+    RDKit provider.  ConformerGen and the conformer-cache fingerprint
+    (data/hub.py) share it, so a cache built by one provider never serves
+    the other."""
+    if provider in ("host", "device"):
+        return provider
+    if provider not in ("auto", None):
+        raise ValueError(f"coord_provider must be auto|host|device, got {provider!r}")
+    import torch
+
+    if device is None:
+        on_card = torch.cuda.is_available()
+    else:
+        on_card = torch.device(device).type == "cuda"
+    return "device" if on_card else "host"
+
+
 class ConformerGen:
-    """SMILES list -> list of featurized molecule dicts (host provider).
+    """SMILES list -> list of featurized molecule dicts.
 
     ``transform(smiles_list)`` and ``transform_raw(atoms_list, coords_list)``
-    as in mmdti_tpu.chem.conformer.ConformerGen; ``coord_provider`` accepts
-    only 'host'.  Parallelism uses a thread pool sized by ``num_workers``.
+    as in mmdti_tpu.chem.conformer.ConformerGen.  ``coord_provider``
+    'auto' | 'host' | 'device' (resolve_coord_provider, with ``device``:
+    the device the refinement runs on, None for CUDA where it is
+    available); ``device_refine_min_atoms`` (48): the device provider
+    refines smaller molecules on the host.  ``capture_gate``: a lock the
+    device refinement holds while it records a CUDA graph (MolServe's pull
+    gate).  The host provider's thread pool is sized by ``num_workers``.
     """
 
     def __init__(self, **params):
@@ -268,23 +315,36 @@ class ConformerGen:
         self.num_workers = params.get("num_workers", 0) or 0
         # False: no host distance and edge arrays (built on the device)
         self.pair_feats = bool(params.get("pair_feats", True))
-        self.coord_provider = params.get("coord_provider", "host")
-        if self.coord_provider != "host":
+        self.coord_provider = params.get("coord_provider", "auto") or "auto"
+        if self.coord_provider not in ("auto", "host", "device"):
             raise ValueError(
-                f"coord_provider must be 'host' in mmdti_tpu_torch, got "
-                f"{self.coord_provider!r}"
+                f"coord_provider must be auto|host|device, got {self.coord_provider!r}"
             )
+        self.device = params.get("device", None)
+        self.device_refine_min_atoms = int(params.get("device_refine_min_atoms", 48))
+        self.capture_gate = params.get("capture_gate", None)
+        self._resolved_provider: Optional[str] = None
         dict_path = params.get("dict_path", None)
         if dict_path is None:
             dict_path = unimol_dict_path(params.get("unimol_dir"))
         self.dictionary = Dictionary.load(dict_path)
         self.dictionary.add_symbol("[MASK]", is_special=True)
         logger.info(
-            "ConformerGen initialized: seed=%s max_atoms=%s remove_hs=%s",
-            self.seed, self.max_atoms, self.remove_hs,
+            "ConformerGen initialized: seed=%s max_atoms=%s remove_hs=%s coord_provider=%s",
+            self.seed, self.max_atoms, self.remove_hs, self.coord_provider,
         )
 
+    def resolved_provider(self) -> str:
+        """coord_provider with 'auto' resolved (once, at first use)."""
+        if self._resolved_provider is None:
+            self._resolved_provider = resolve_coord_provider(self.coord_provider, self.device)
+        return self._resolved_provider
+
     def single_process(self, smiles: str) -> Dict[str, np.ndarray]:
+        if self.resolved_provider() == "device":
+            # through the batch path, so that a molecule's coordinates are
+            # the same whether it comes alone or in a list
+            return self._transform_device([smiles])[0]
         atoms, coordinates = smi2coords(
             smiles, seed=self.seed, remove_hs=self.remove_hs
         )
@@ -292,6 +352,23 @@ class ConformerGen:
             atoms, coordinates, self.dictionary, self.max_atoms, remove_hs=self.remove_hs,
             crop_seed=self.seed, pair_feats=self.pair_feats,
         )
+
+    def _transform_device(self, smiles_list: Sequence[str]):
+        from mmdti_tpu_torch.chem.device_conformer import device_smi2coords_batch
+
+        pairs = device_smi2coords_batch(
+            smiles_list, seed=self.seed, remove_hs=self.remove_hs,
+            min_atoms=self.device_refine_min_atoms, device=self.device,
+            capture_gate=self.capture_gate,
+        )
+        return [
+            coords2unimol(
+                atoms, coords, self.dictionary, self.max_atoms,
+                remove_hs=self.remove_hs, crop_seed=self.seed,
+                pair_feats=self.pair_feats,
+            )
+            for atoms, coords in pairs
+        ]
 
     def transform_raw(self, atoms_list, coordinates_list):
         return [
@@ -302,6 +379,8 @@ class ConformerGen:
 
     def transform(self, smiles_list: Sequence[str]):
         logger.info("Start generating conformers for %d molecules...", len(smiles_list))
+        if self.resolved_provider() == "device":
+            return self._log_failures(self._transform_device(smiles_list))
         if self.num_workers and self.num_workers > 1:
             with _fut.ThreadPoolExecutor(max_workers=self.num_workers) as pool:
                 inputs = list(pool.map(self.single_process, smiles_list))

@@ -6,8 +6,9 @@ multiclass: int32 [n, 1], with the config's multiclass_cnt at predict
 time; multilabel classification: float32 that keeps NaN); fits the
 target scaler on the ``raw_data`` CSV's targets when one is given (else on
 this split's), applies it; computes ConR sample weights; featurizes the
-molecules with the host conformer provider (chem/conformer.py), cached in a
-pickle keyed by the featurizer fingerprint; and attaches each sample's
+molecules with the resolved conformer provider (chem/conformer.py: 'auto'
+is 'device' when ``device``, the entry point's, is a CUDA device), cached
+in a pickle keyed by the featurizer fingerprint; and attaches each sample's
 SMILES and weight to its feature dict.  With ``data_type='mof'`` each row
 names a CIF crystal and a gas instead (``_featurize_mof``).
 """
@@ -22,7 +23,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from mmdti_tpu_torch.chem.conformer import ConformerGen
+from mmdti_tpu_torch.chem.conformer import ConformerGen, resolve_coord_provider
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.mof import MOFReader
 from mmdti_tpu_torch.data.reader import MolDataReader, read_csv
@@ -32,20 +33,11 @@ from mmdti_tpu_torch.data.weights import compute_sample_weights
 logger = logging.getLogger("mmdti_tpu_torch")
 
 
-def _coord_provider(params: Dict[str, Any]) -> str:
-    """The port featurizes on the host only; 'auto' resolves to it."""
-    provider = params.get("coord_provider", "auto") or "auto"
-    if provider not in ("auto", "host"):
-        raise NotImplementedError(
-            f"coord_provider={provider!r}: the device conformer provider is not ported "
-            "yet (ROADMAP.md, M10)"
-        )
-    return "host"
-
-
 def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Every knob that changes ConformerGen's output, with the dictionary
-    (the JAX package's fingerprint for a molecule cache on the host)."""
+    """Every knob that changes ConformerGen's output, with the dictionary:
+    the JAX package's fingerprint for the same parameters.  The provider
+    is the resolved one (``device`` decides 'auto'), and the device
+    provider's size threshold counts only where that provider runs."""
     dict_path = params.get("dict_path", None)
     if dict_path is None:
         dict_path = unimol_dict_path(params.get("unimol_dir"))
@@ -54,6 +46,10 @@ def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
     # MOF features rev 2: the crop past max_atoms is seeded by the crystal's
     # content (molecule caches carry no such key)
     extra = {"mof_rev": 2} if params.get("data_type", "molecule") == "mof" else {}
+    provider = resolve_coord_provider(params.get("coord_provider", "auto"),
+                                      params.get("device"))
+    if provider == "device":
+        extra["device_refine_min_atoms"] = int(params.get("device_refine_min_atoms", 48))
     return {
         **extra,
         "featurizer_rev": 2,
@@ -64,7 +60,7 @@ def _featurizer_fingerprint(params: Dict[str, Any]) -> Dict[str, Any]:
         "mode": params.get("mode", "fast"),
         "remove_hs": bool(params.get("remove_hs", False)),
         "pair_feats": bool(params.get("pair_feats", True)),
-        "coord_provider": _coord_provider(params),
+        "coord_provider": provider,
         "dict": hashlib.md5("\n".join(d.symbols).encode()).hexdigest(),
     }
 

@@ -6,12 +6,18 @@ the sources and flags, so an edited kernel rebuilds), with a plain C
 interface that ctypes loads: pointers and the stream pass as ``c_void_p``,
 ints as ``c_int``, and every entry point returns the ``cudaError_t`` of its
 launch.  A failed build raises with nvcc's output; nothing falls back.
+
+The host chemistry library (``csrc/mmchem.cpp``, chem/native.py) takes the
+host-compiler route, ``build_host_library``: g++ (``$CXX``) with the flags of
+the JAX package's csrc/Makefile, into ``build/kernels/lib<name>-<digest>.so``
+under a file lock, so that concurrent test processes build it once.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as _fut
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -147,6 +153,61 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _LIBS[name] = lib
     return _LIBS[name]
+
+
+# the JAX package's csrc/Makefile flags; no -march: a library built with
+# -march=native on one host can SIGILL on another
+HOST_CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+
+
+def host_compiler() -> str:
+    """The C++ compiler: ``$CXX`` as make reads it, else g++."""
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(f"C++ compiler {cxx!r} not found: the host chemistry library "
+                           "needs one")
+    return found
+
+
+def host_library_path(name: str) -> str:
+    """Where ``csrc/<name>.cpp`` builds to: a digest of the compiler, the
+    flags and the source names it."""
+    digest = hashlib.sha256(" ".join((host_compiler(), *HOST_CXX_FLAGS)).encode())
+    with open(os.path.join(CSRC, f"{name}.cpp"), "rb") as f:
+        digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_host_library(name: str) -> str:
+    """Compile ``csrc/<name>.cpp`` with the host compiler unless its
+    library is built already; returns the .so path.  A file lock keeps
+    concurrent processes to one build, and the finished library is renamed
+    into place, so no process loads a half-written file.  A failed build
+    raises with the compiler's output."""
+    out = host_library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, f"lib{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(out):
+                return out
+            tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+            cmd = [host_compiler(), *HOST_CXX_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cpp")]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{cmd[0]} failed to build {name}.cpp (exit {proc.returncode}):\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, out)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out
 
 
 def build_all() -> Dict[str, str]:

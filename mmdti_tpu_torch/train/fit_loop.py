@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from mmdti_tpu_torch.data.batching import CachedLoader, MolDataLoader
+from mmdti_tpu_torch.data.pipeline import StreamPut, prefetch_to_device
 from mmdti_tpu_torch.losses.fds import fds_epoch_update
 from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
 from mmdti_tpu_torch.train.checkpointing import (
@@ -321,17 +322,25 @@ class FitLoopMixin:
         """One epoch of host-collated batches: K shape-equal batches stacked
         per dispatch, the rest one step at a time (a batch whose shapes
         differ from the pending ones flushes them as single steps, as under
-        pad_mode='bucket'); ``dispatch(call, *args)`` runs each.  Returns
-        the number of steps."""
+        pad_mode='bucket'); ``dispatch(call, *args)`` runs each.  The
+        batches come through data/pipeline.py's prefetch_to_device:
+        collated in a background thread, put to the device two ahead (on
+        the card from pinned memory on a side stream).  Returns the number
+        of steps."""
         count, pending, pend_sig = 0, [], None
+        put = StreamPut(self.device)
+
+        def stage(batch_labels):
+            feats, weights = self._feature_arrays(batch_labels[0])
+            return put((feats, self._label_array(batch_labels[1]), weights))
 
         def run_pending():
             for feats, labels, weights in pending:
                 dispatch(programs.single, feats, labels, weights)
 
-        for batch, labels in loader:
-            feats, weights = self._split_batch(batch)
-            item = (feats, self._labels(labels), weights)
+        for staged in prefetch_to_device(loader, stage):
+            item = staged.take()
+            feats, _, weights = item
             count += 1
             if K <= 1:
                 dispatch(programs.single, *item)

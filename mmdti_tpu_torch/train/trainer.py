@@ -112,17 +112,28 @@ class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
         self.programs_built = 0
 
     # ---- host -> device ------------------------------------------------
-    def _split_batch(self, batch):
-        feats = {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-                 for k in FEATURE_KEYS if k in batch}
+    def _feature_arrays(self, batch):
+        """A collated batch's model inputs and sample weights (or None) as
+        the contiguous arrays the device receives."""
+        feats = {k: np.ascontiguousarray(batch[k]) for k in FEATURE_KEYS if k in batch}
         weights = batch.get("weights")
         if weights is not None:
-            weights = torch.from_numpy(np.ascontiguousarray(weights, np.float32)).to(self.device)
+            weights = np.ascontiguousarray(weights, np.float32)
+        return feats, weights
+
+    def _label_array(self, labels: np.ndarray) -> np.ndarray:
+        dt = np.int64 if target_is_integer(self.task) else np.float32
+        return np.ascontiguousarray(labels, dt)
+
+    def _split_batch(self, batch):
+        feats, weights = self._feature_arrays(batch)
+        feats = {k: torch.from_numpy(v).to(self.device) for k, v in feats.items()}
+        if weights is not None:
+            weights = torch.from_numpy(weights).to(self.device)
         return feats, weights
 
     def _labels(self, labels: np.ndarray) -> torch.Tensor:
-        dt = np.int64 if target_is_integer(self.task) else np.float32
-        return torch.from_numpy(np.ascontiguousarray(labels, dt)).to(self.device)
+        return torch.from_numpy(self._label_array(labels)).to(self.device)
 
     def _pad_to_batch(self, batch, labels):
         """Pad a last partial batch up to batch_size by repeating its last

@@ -36,7 +36,6 @@ import pytest
 import torch
 import yaml
 
-import mmdti_tpu.chem.native as jax_native
 import mmdti_tpu.models.mm_model as jax_mm
 import mmdti_tpu.train.nnmodel as jax_nnmodel
 import mmdti_tpu_torch.models.mm_model as port_mm
@@ -281,16 +280,13 @@ def _fit_kwargs(train_p, exp):
 
 @contextlib.contextmanager
 def jax_parity_patches(random_init_only=False):
-    """The JAX package featurizes through the port's numpy path, InfoNCE's
-    query dropout is 0 in both packages, and the port's NNModel starts from
-    the parameters the JAX NNModel drew last (its fit must run first).
+    """InfoNCE's query dropout is 0 in both packages, and the port's NNModel
+    starts from the parameters the JAX NNModel drew last (its fit must run
+    first).  Both packages featurize at their defaults (the native C++
+    refinement and distances, each package's own build of one source).
     With ``random_init_only`` only the random draw is shared: each package
     then loads the pretrained checkpoints over it with its own ingestion."""
     mp = pytest.MonkeyPatch()
-    # the port featurizes with its numpy refinement: route the JAX package's
-    # built-in provider through the same path
-    for fn in ("embed_coords", "refine_coords", "distance_matrix"):
-        mp.setattr(jax_native, fn, lambda *a, **k: None)
     # InfoNCE's query dropout (0.1) has no config knob: 0 in both packages
     mp.setattr(jax_mm, "InfoNCE", functools.partial(jax_mm.InfoNCE, embed_dropout=0.0))
     mp.setattr(port_mm, "InfoNCE", functools.partial(port_mm.InfoNCE, embed_dropout=0.0))

@@ -1069,3 +1069,79 @@ def test_embed_backward_repeats_bit_equal_past_3072_indices(cuda):
     want = torch.autograd.grad((torch.nn.functional.embedding(ids, emb.weight) * g).sum(),
                                emb.weight)[0]
     torch.testing.assert_close(grads[0], want, atol=1e-3, rtol=1e-5)
+
+
+def _refine_group(smis, dev):
+    from mmdti_tpu_torch.chem import device_conformer as dc
+
+    items = [(i, dc._prepare(s, 42)) for i, s in enumerate(smis)]
+    bucket = dc._atom_bucket(max(len(it[0]) for _, it in items))
+    arrays = dc.DeviceConformerBatcher(device=dev).group_arrays(bucket, items)
+    return [torch.from_numpy(a).to(dev) for a in arrays], items
+
+
+def test_device_refine_graph_equals_eager_and_repeats(cuda):
+    """The recorded 300-iteration refinement against eager refinement on the
+    card: replays bit-equal to each other and to an eager run (or as close
+    as two eager runs), whatever the TF32 setting, a molecule alone against
+    co-batched within 1e-5, and the group against the CPU within 1e-3."""
+    from mmdti_tpu_torch.ops import device_refine as dr
+
+    smis = ["C" * 40, "CC(C)Cc1ccc(cc1)C(C)C(=O)O" * 3, "c1ccccc1" * 6 + "CCN"]
+    inputs, items = _refine_group(smis, cuda)
+    eager = [dr.refine_conformers(*inputs, use_graph=False) for _ in range(2)]
+    graph = [dr.refine_conformers(*inputs) for _ in range(2)]
+    assert torch.equal(graph[0], graph[1])
+    gap = (eager[0] - eager[1]).abs().max().item()
+    assert (graph[0] - eager[0]).abs().max().item() <= gap
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert torch.equal(dr.refine_conformers(*inputs), graph[0])
+        assert (dr.refine_conformers(*inputs, use_graph=False) - eager[0]).abs().max() <= gap
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    alone, _ = _refine_group(smis[:1], cuda)
+    n = len(items[0][1][0])
+    torch.testing.assert_close(dr.refine_conformers(*alone)[0, :n], graph[0][0, :n],
+                               atol=1e-5, rtol=0)
+    cpu = dr.refine_conformers(*[t.cpu() for t in inputs])
+    for r, (_, item) in enumerate(items):
+        k = len(item[0])
+        torch.testing.assert_close(graph[0][r, :k].cpu(), cpu[r, :k], atol=1e-3, rtol=0)
+
+
+def test_device_refinement_does_not_wait_for_the_callers_stream(cuda):
+    """A warm featurization's copies, replays and pull run on the
+    refinement stream: with the default stream busy (a sleep kernel, as a
+    server's forward in flight), the coordinates come back before it ends,
+    bit-equal to those of an idle card."""
+    from mmdti_tpu_torch.chem import device_conformer as dc
+
+    smis = ["C" * 40, "CC(C)Cc1ccc(cc1)C(C)C(=O)O" * 3]
+    want = dc.device_smi2coords_batch(smis, min_atoms=0, device=cuda)   # records
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))
+    got = dc.device_smi2coords_batch(smis, min_atoms=0, device=cuda)
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy
+    for (a_atoms, a), (b_atoms, b) in zip(got, want):
+        assert a_atoms == b_atoms
+        np.testing.assert_array_equal(a, b)
+
+
+def test_stream_put_prefetches_on_a_side_stream(cuda):
+    """The fit's host branch feed: batches copied from pinned memory on a
+    side stream two ahead arrive whole on the consumer's stream."""
+    from mmdti_tpu_torch.data.pipeline import StreamPut, prefetch_to_device
+
+    rng = np.random.RandomState(0)
+    batches = [({"src_tokens": rng.randint(0, 30, (32, 208)).astype(np.int32)},
+                rng.randn(32, 1).astype(np.float32), None) for _ in range(6)]
+    put = StreamPut(cuda)
+    assert put.stream != torch.cuda.current_stream()
+    for staged, (feats, labels, _) in zip(prefetch_to_device(batches, put), batches):
+        got_feats, got_labels, got_weights = staged.take()
+        assert got_weights is None and got_labels.device.type == "cuda"
+        assert torch.equal(got_feats["src_tokens"].cpu(), torch.from_numpy(feats["src_tokens"]))
+        assert torch.equal(got_labels.cpu(), torch.from_numpy(labels))

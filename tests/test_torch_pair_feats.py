@@ -242,16 +242,9 @@ def test_numerical_embed_matches_flax():
 
 
 def test_pair_feats_false_features_equal_jax(featurized):
-    import mmdti_tpu.chem.native as jax_native
     from mmdti_tpu.chem.conformer import ConformerGen as JaxGen
 
-    mp = pytest.MonkeyPatch()
-    for fn in ("embed_coords", "refine_coords", "distance_matrix"):
-        mp.setattr(jax_native, fn, lambda *a, **k: None)
-    try:
-        theirs = JaxGen(pair_feats=False).transform(SMILES_20[:4])
-    finally:
-        mp.undo()
+    theirs = JaxGen(pair_feats=False).transform(SMILES_20[:4])
     ours = ConformerGen(pair_feats=False).transform(SMILES_20[:4])
     _, full = featurized
     for a, b, f in zip(ours, theirs, full):

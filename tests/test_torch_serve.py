@@ -2,8 +2,9 @@
 JAX package's, MolServe.predict equals the flax model on the same weights
 (atol 1e-4, fp32), and the port (serving from memory and from an
 experiment dir, one HTTP round trip, one train step, a k-fold CV fit and
-its ensemble predict, a stopped and resumed fit) imports nothing of JAX or
-the JAX package's host dependencies."""
+its ensemble predict, a stopped and resumed fit, the native chemistry, the
+device conformer provider and the prefetched feed) imports nothing of JAX
+or the JAX package's host dependencies."""
 
 import os
 import subprocess
@@ -16,7 +17,6 @@ import numpy as np
 import pytest
 import torch
 
-import mmdti_tpu.chem.native as jax_native
 from mmdti_tpu.chem.conformer import ConformerGen as JaxConformerGen
 from mmdti_tpu.chem.tokenizer import SmilesTokenizer as JaxTokenizer
 from mmdti_tpu.data.batching import BatchCollator as JaxCollator
@@ -36,15 +36,6 @@ CONFIG = dict(
 )
 
 
-@pytest.fixture
-def numpy_refine(monkeypatch):
-    """The port carries only the numpy refinement; route the JAX package's
-    built-in provider through the same numpy path (no C++ library)."""
-    monkeypatch.setattr(jax_native, "embed_coords", lambda *a, **k: None)
-    monkeypatch.setattr(jax_native, "refine_coords", lambda *a, **k: None)
-    monkeypatch.setattr(jax_native, "distance_matrix", lambda *a, **k: None)
-
-
 def _jax_batch(smiles):
     gen = JaxConformerGen(coord_provider="host")
     feats = gen.transform(smiles)
@@ -55,7 +46,7 @@ def _jax_batch(smiles):
     return gen, feats, batch
 
 
-def test_host_featurization_equals_jax(numpy_refine):
+def test_host_featurization_equals_jax():
     _, jax_feats, jax_batch = _jax_batch(SMILES_20)
     gen = ConformerGen()
     feats = gen.transform(SMILES_20)
@@ -74,7 +65,7 @@ def test_host_featurization_equals_jax(numpy_refine):
         np.testing.assert_array_equal(batch[k], jax_batch[k], err_msg=k)
 
 
-def test_predict_matches_flax_on_same_weights(numpy_refine):
+def test_predict_matches_flax_on_same_weights():
     smiles = SMILES_20[:6]
     gen, _, batch = _jax_batch(smiles)
     model = jax_build_model(
@@ -278,6 +269,19 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     assert isinstance(pre_server.tokenizer, RobertaBPETokenizer)
     served = pre_server.predict(list(read_csv(halves["val"])["smiles"]))["predict"]
     np.testing.assert_allclose(np.asarray(served).reshape(pred.shape), pred, atol=1e-5)
+    # conformers: the native library built from the port's own source, the
+    # device provider (on the CPU here) and the prefetched host feed
+    from mmdti_tpu_torch.chem import native
+    from mmdti_tpu_torch.chem.conformer import ConformerGen
+    from mmdti_tpu_torch.data.pipeline import StreamPut, prefetch_to_device
+    from mmdti_tpu_torch.ops._build import BUILD_DIR
+
+    assert native.available() and native._lib()._name.startswith(BUILD_DIR)
+    confs = ConformerGen(coord_provider="device", device="cpu",
+                         device_refine_min_atoms=0).transform(["CCO", "C" * 20])
+    assert all(np.isfinite(f["src_coord"]).all() for f in confs)
+    fed = [s.take() for s in prefetch_to_device([(np.ones(2), None)], StreamPut("cpu"))]
+    assert fed[0][0].sum().item() == 2 and fed[0][1] is None
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("PORT_ONLY_OK")

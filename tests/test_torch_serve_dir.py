@@ -25,7 +25,6 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import mmdti_tpu.chem.native as jax_native
 from mmdti_tpu import MolServe as JaxServe
 from mmdti_tpu import MolTrain as JaxTrain
 from mmdti_tpu.data.scaler import TargetScaler as JaxScaler
@@ -40,22 +39,18 @@ FIT = dict(epochs=1, learning_rate=1e-3, batch_size=8, early_stopping=5, smiles_
 
 
 @pytest.fixture(scope="module", autouse=True)
-def host_refinement():
-    """The JAX package's built-in provider through the port's numpy path,
-    and torch on one thread, for the whole module."""
+def torch_one_thread():
+    """Torch on one thread for the whole module; both packages featurize at
+    their defaults."""
     import torch
 
-    mp = pytest.MonkeyPatch()
-    for fn in ("embed_coords", "refine_coords", "distance_matrix"):
-        mp.setattr(jax_native, fn, lambda *a, **k: None)
     threads = one_thread()
     yield
     torch.set_num_threads(threads)
-    mp.undo()
 
 
 @pytest.fixture(scope="module")
-def cv_exp(tmp_path_factory, host_refinement):
+def cv_exp(tmp_path_factory, torch_one_thread):
     rng = np.random.RandomState(3)
     tmp = tmp_path_factory.mktemp("serve_dir_cv")
     csv = str(tmp / "train.csv")
@@ -68,7 +63,7 @@ def cv_exp(tmp_path_factory, host_refinement):
 
 
 @pytest.fixture(scope="module")
-def clf_exp(tmp_path_factory, host_refinement):
+def clf_exp(tmp_path_factory, torch_one_thread):
     rng = np.random.RandomState(7)
     tmp = tmp_path_factory.mktemp("serve_dir_clf")
     df = pd.DataFrame({"smiles": SMILES_20,
