@@ -3,8 +3,10 @@
 the train step, fit-and-predict through MolTrain/MolPredict, the
 classification tasks, cross-validation, resume and the fit profiler,
 fine-tuning from pretrained checkpoints with layers frozen, the MOF
-model family on crystals of up to 512 atoms, and conformer generation on
-the card beside the native host chemistry.  The pair distances and edge
+model family on crystals of up to 512 atoms, conformer generation on
+the card beside the native host chemistry, and data parallelism (a
+one-rank NCCL group, two gloo ranks on the card, a one-replica serving
+mesh).  The pair distances and edge
 types are built on the card from coordinates (device_pair_feats 'auto')
 unless a check names the host's arrays.
 
@@ -227,12 +229,32 @@ Phases, one result line each; any failure exits non-zero:
    against the host one alternated over 5 rounds: p50 each, answers within
    2e-2, and a cold featurization beside a 1 s sleep kernel on the default
    stream (the forward in flight) that returns before the sleep ends;
-13. one JSON line with every kernel's summary (each task's, phase cv's,
-   phase pretrained's, phase mof's and phase conformers' launches beside
-   the main path's), then {"ok": true, ...}.
+13. dp, data parallelism (parallel/mesh.py), with MMDTI_PALLAS_LN=1: (a)
+   phase 7's fit with the defaults (the feed, 2 steps a CUDA graph,
+   dropout on) without a group and in a one-rank NCCL group
+   (tcp://127.0.0.1, world size 1): the collectives one train graph
+   records (5 a step), one replay's device ms a step each way and the
+   kernels the group adds, weights (model_0.ckpt's bytes), history,
+   cv_pred and MolPredict's predictions bit-equal; (b) two ranks over
+   gloo on the one card (NCCL refuses two ranks on one GPU), this script
+   started twice with --dp-rank, eager steps, the flagship fit without
+   dropout for 2 epochs against the same fit in one process (2e-2, the
+   kernel-vs-plain tolerance: bf16 GEMMs over 16 rows a rank), the ranks
+   bit-equal to each other, each rank's launches of all eight kernels
+   (every gbf and attention launch on "mma"), no train graph recorded,
+   only rank 0 writing the experiment dir (an audit hook on each rank),
+   then dropout on: each rank's generator (its own stream) draws the
+   pair-bias kernel's mask for rows that are the same on both ranks, and
+   the masks and outputs differ across ranks; (c) MolServe(mesh_shape=
+   (1, 1)) bit-equal to MolServe() on phase serve's dir for requests of
+   1, 8 and 20 SMILES, and mesh_shape=(2, 1) refused, naming the one card;
+14. one JSON line with every kernel's summary (each task's, phase cv's,
+   phase pretrained's, phase mof's, phase conformers' and phase dp's
+   launches beside the main path's), then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
-file, it prints no result and exits 2.
+file, it prints no result and exits 2.  With ``--dp-rank R --dp-port P
+--dp-spec S`` it is one rank of phase dp (b), as that phase starts it.
 """
 
 from __future__ import annotations
@@ -2622,11 +2644,11 @@ def _fit_data():
     return paths, sizes
 
 
-def _run_fit(paths, exp, **dispatch):
+def _run_fit(paths, exp, epochs=FIT_EPOCHS, **dispatch):
     """MolTrain.fit(train, val) at the flagship width and depth (bf16, B=32,
-    FIT_EPOCHS epochs, dropout, InfoNCE, CT, sample weights, FDS) with
+    ``epochs`` epochs, dropout, InfoNCE, CT, sample weights, FDS) with
     MMDTI_PALLAS_LN=1 (restored after); ``dispatch`` sets device_feed and
-    steps_per_call (the defaults otherwise).  Returns the model, fit
+    steps_per_call (the defaults otherwise) or other MolTrain options.  Returns the model, fit
     seconds, the launch counts and routes of the fit, and its history."""
     import torch
 
@@ -2635,7 +2657,7 @@ def _run_fit(paths, exp, **dispatch):
     with _ln_kernels_on():
         _reset_counts()
         t0 = time.perf_counter()
-        clf = MolTrain(task="regression", epochs=FIT_EPOCHS, learning_rate=1e-4, batch_size=32,
+        clf = MolTrain(task="regression", epochs=epochs, learning_rate=1e-4, batch_size=32,
                        early_stopping=20, metrics="mse", smiles_col="smiles", save_path=exp,
                        target_cols=["measured"], using_infonce=True, using_ct=True,
                        raw_data=paths["train"], seed=42, use_weight=True, fds=True, fds_num=30,
@@ -4585,12 +4607,326 @@ def phase_conformers(dev, card, build):
     return launches
 
 
+DP_WORK = os.path.join(REPO, "build", "chip_smoke_dp")
+# phase dp (b): two ranks against one process, no dropout, bf16: each rank
+# runs its GEMMs over 16 rows instead of 32 and the ranks' gradients sum in
+# another order, so the fits part by rounding; the kernel-vs-plain
+# tolerance of the flagship logits bounds it
+DP_PRED_TOL = LOGITS_TOL
+DP_FIT_EPOCHS = 2        # (b): the two ranks step eagerly (gloo), so fewer epochs
+DP_COLLECTIVES_PER_STEP = 5   # gathers of logits|pooled and of InfoNCE, their backwards, the mean
+NO_DROPOUT = dict(
+    unimol_overrides={"dropout": 0.0, "emb_dropout": 0.0, "attention_dropout": 0.0,
+                      "pooler_dropout": 0.0},
+    chemberta_overrides={"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0},
+    crossmodal_overrides={"hidden_dropout_prob": 0.0, "attention_probs_dropout_prob": 0.0},
+)
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@contextlib.contextmanager
+def _no_infonce_dropout():
+    """InfoNCE's query dropout (0.1, no config knob) off inside the block."""
+    import functools
+
+    import mmdti_tpu_torch.models.mm_model as mm
+
+    real = mm.InfoNCE
+    mm.InfoNCE = functools.partial(real, embed_dropout=0.0)
+    try:
+        yield
+    finally:
+        mm.InfoNCE = real
+
+
+def _audit_writes(root):
+    """Every path under ``root`` this process opens to write, as it happens
+    (an audit hook; it stays for the process's life)."""
+    writes = []
+
+    def hook(event, args):
+        if event == "open" and isinstance(args[0], str) and args[0].startswith(root):
+            mode, flags = args[1] or "", args[2] or 0
+            if any(c in mode for c in "wax+") or flags & (os.O_WRONLY | os.O_RDWR | os.O_CREAT):
+                writes.append(os.path.relpath(args[0], root))
+
+    sys.addaudithook(hook)
+    return writes
+
+
+def _fit_predictions(fit, paths):
+    """(cv_pred, test predictions, model_0.ckpt bytes) of a _run_fit."""
+    import numpy as np
+
+    from mmdti_tpu_torch import MolPredict
+
+    exp = fit["clf"].save_path
+    with _ln_kernels_on():
+        test = MolPredict(load_model=exp).predict(paths["test"])
+    with open(os.path.join(exp, "model_0.ckpt"), "rb") as f:
+        ckpt = f.read()
+    return np.asarray(fit["clf"].cv_pred), np.asarray(test), ckpt
+
+
+def _step_replay(fit, k):
+    """One replay of a fit's train graph: the port kernels it launches,
+    device ms and kernels a step, {kernel name: launches} of one replay
+    and the collectives the graph recorded."""
+    import torch
+
+    trainer = fit["clf"].trainer
+    programs = trainer._last_programs[2]
+    res = trainer._slots["train"]
+    idx = torch.arange(k * 32, device=res.labels.device).view(k, 32)
+    (prog,) = programs.graphs.values()
+
+    def step():
+        programs.feed(res, idx)
+
+    with _ln_kernels_on():      # the fit's graph: recorded with the LayerNorm kernels on
+        launches, ms, kernels = _replay_launches(step)
+        names = {name: c for name, (c, _) in _kernel_events(step, 1).items()}
+    if len(programs.graphs) != 1:
+        raise Failed(f"dp: the replay recorded another train graph ({len(programs.graphs)})")
+    return {"port_kernels_one_replay": launches, "device_ms_per_step": ms / k,
+            "kernels_per_step": kernels / k, "collectives_recorded": prog.collectives}, names
+
+
+def dp_worker(rank, port, spec_path):
+    """One rank of phase dp (b): a gloo group of two processes on the one
+    card, the flagship fit without dropout, its launches and what it
+    wrote; then dropout on: the pair-bias attention kernel on rows that
+    are the same on both ranks, each rank's keep mask from its own
+    generator.  Writes its findings to the spec's ``out``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from mmdti_tpu_torch.models.layers import draw_seed
+    from mmdti_tpu_torch.ops.hopper_attention import keep_mask_for, pair_bias_attention_cuda
+    from mmdti_tpu_torch.parallel.mesh import DataGroup, initialize_distributed, rank_seed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    writes = _audit_writes(spec["exp"])
+    dev = initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    group = DataGroup()
+    t0 = time.perf_counter()
+    with _no_infonce_dropout():
+        fit = _run_fit(spec["paths"], spec["exp"], epochs=DP_FIT_EPOCHS, **NO_DROPOUT)
+    fit_s = time.perf_counter() - t0
+    out = {"rank": rank, "device": str(dev), "backend": group.backend, "fit_s": fit_s,
+           "launches": fit["counts"], "routes": fit["routes"],
+           "batch_size": fit["clf"].trainer.batch_size,
+           "train_graphs": len(fit["clf"].trainer._last_programs[2].graphs),
+           "history": fit["history"], "cv_pred": np.asarray(fit["clf"].cv_pred).tolist()}
+    # dropout on: rows that are the same on both ranks, each rank's seed
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(42, rank))
+    seed = draw_seed(gen, DROPOUT)
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, N, H, D = 2, 64, 64, 8
+    q, k, v = (torch.randn(1, N, H * D, generator=g, device=dev, dtype=torch.bfloat16)
+               .expand(B, N, H * D).contiguous() for _ in range(3))
+    bias = torch.zeros(B, H, N, N, device=dev, dtype=torch.bfloat16)
+    attn, _, _ = pair_bias_attention_cuda(q, k, v, bias, H, seed=seed, dropout_rate=DROPOUT)
+    mask = keep_mask_for(seed, DROPOUT, B, H, N, N, dev)
+    outs = group.gather_rows(attn.float().unsqueeze(0))        # [rank, B, N, H*D]
+    masks = group.gather_rows(mask.to(torch.uint8).unsqueeze(0))
+    out["dropout"] = {
+        "seed": int(seed.item()),
+        "keep_fraction": float(mask.float().mean()),
+        "outputs_differ_across_ranks": not torch.equal(outs[0], outs[1]),
+        "masks_differ_across_ranks": not torch.equal(masks[0], masks[1]),
+        "rows_differ_within_rank": not torch.equal(mask[0], mask[1]),
+    }
+    out["writes"] = sorted(set(writes))
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_dp(dev, card, graph_fit):
+    """Data parallelism: (a) a one-rank NCCL group against no group on the
+    flagship fit of phase 7's set (the feed, K steps a CUDA graph,
+    MMDTI_PALLAS_LN=1, dropout on): the collectives each train graph
+    records, device ms a step each way, bit-equal weights, history and
+    predictions; (b) two ranks over gloo on the one card, eager steps, no
+    dropout, against one process (DP_PRED_TOL), every kernel launched on
+    each rank, only rank 0 writing, and with dropout on each rank's own
+    attention masks; (c) MolServe(mesh_shape=(1, 1)) bit-equal to
+    MolServe() on phase serve's dir, and (2, 1) refused on one card.
+    Returns each run's launch counts."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mmdti_tpu_torch import MolServe
+    from mmdti_tpu_torch.parallel.mesh import initialize_distributed
+    from mmdti_tpu_torch.train.fit_loop import _snap_to_divisor
+
+    t_phase = time.perf_counter()
+    paths, sizes = graph_fit["paths"], graph_fit["sizes"]
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    os.makedirs(DP_WORK)
+    k = _snap_to_divisor(GRAPH_K, sizes["train"] // 32)
+
+    # (a) no group, then a one-rank NCCL group, the same fit
+    ref = _run_fit(paths, os.path.join(DP_WORK, "exp_ref"))
+    ref_out = _fit_predictions(ref, paths)
+    ref_step, ref_names = _step_replay(ref, k)
+    initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        grp = _run_fit(paths, os.path.join(DP_WORK, "exp_nccl"))
+        grp_out = _fit_predictions(grp, paths)
+        grp_step, grp_names = _step_replay(grp, k)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    # what the group adds to one replay: NCCL's kernels, the packing copies
+    added = {name: c - ref_names.get(name, 0) for name, c in grp_names.items()
+             if c != ref_names.get(name, 0)}
+    same = {"cv_pred": bool(np.array_equal(ref_out[0], grp_out[0])),
+            "test_pred": bool(np.array_equal(ref_out[1], grp_out[1])),
+            "model_0_ckpt_bytes": ref_out[2] == grp_out[2],
+            "history": _without_times(ref["history"]) == _without_times(grp["history"])}
+    print("dp: (a) " + json.dumps({
+        "backend": backend, "world_size": 1, "steps_per_graph": k,
+        "collectives_per_train_graph": grp_step["collectives_recorded"],
+        "collectives_expected": DP_COLLECTIVES_PER_STEP * k,
+        "no_group": ref_step, "nccl_group": grp_step, "kernels_the_group_adds": added,
+        "device_ms_per_step_cost_of_the_group": grp_step["device_ms_per_step"]
+        - ref_step["device_ms_per_step"],
+        "bit_equal": same, "fit_wall_s": {"no_group": ref["fit_s"], "nccl_group": grp["fit_s"]},
+        "launches_nccl_fit": grp["counts"], "card": card}), flush=True)
+    if grp_step["collectives_recorded"] != DP_COLLECTIVES_PER_STEP * k:
+        raise Failed(f"dp (a): a train graph recorded {grp_step['collectives_recorded']} "
+                     f"collectives, expected {DP_COLLECTIVES_PER_STEP * k}")
+    if not all(same.values()):
+        raise Failed(f"dp (a): the one-rank NCCL fit differs from the fit without a group: {same}")
+
+    # (b) two ranks over gloo on the one card, no dropout, against one process
+    with _no_infonce_dropout():
+        one = _run_fit(paths, os.path.join(DP_WORK, "exp_one"), epochs=DP_FIT_EPOCHS,
+                       **NO_DROPOUT)
+    one_pred, one_hist = np.asarray(one["clf"].cv_pred), one["history"]
+    del one
+    spec = {"paths": paths, "exp": os.path.join(DP_WORK, "exp_two"),
+            "out": os.path.join(DP_WORK, "rank{rank}.json")}
+    spec_path = os.path.join(DP_WORK, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               "--dp-port", str(port), "--dp-spec", spec_path],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise Failed(f"dp (b): rank {r} exited {p.returncode}:\n{log[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    preds = [np.asarray(x["cv_pred"]) for x in ranks]
+    diff = float(np.abs(preds[0] - one_pred).max())
+    print("dp: (b) " + json.dumps({
+        "backend": ranks[0]["backend"], "world_size": 2, "devices": [x["device"] for x in ranks],
+        "global_batch": ranks[0]["batch_size"], "rows_a_rank": ranks[0]["batch_size"] // 2,
+        "epochs": DP_FIT_EPOCHS, "dropout": "off", "both_ranks_s": two_s,
+        "fit_s": [x["fit_s"] for x in ranks],
+        "train_graphs_recorded": [x["train_graphs"] for x in ranks],
+        "launches": {f"rank{x['rank']}": x["launches"] for x in ranks},
+        "ranks_bit_equal": bool(np.array_equal(preds[0], preds[1])),
+        "vs_one_process_max_abs": diff, "tol": DP_PRED_TOL,
+        "epoch_wall_s": {f"rank{x['rank']}": [h["seconds"] for h in x["history"]]
+                         for x in ranks},
+        "one_process_epoch_wall_s": [h["seconds"] for h in one_hist],
+        "val_mse": {"two_ranks": [h["val_mse"] for h in ranks[0]["history"]],
+                    "one_process": [h["val_mse"] for h in one_hist]},
+        "writes": {f"rank{x['rank']}": x["writes"] for x in ranks},
+        "dropout_on": {f"rank{x['rank']}": x["dropout"] for x in ranks}, "card": card}),
+        flush=True)
+    for x in ranks:
+        for name, n in x["launches"].items():
+            if n == 0:
+                raise Failed(f"dp (b): rank {x['rank']} did not launch {name}")
+        _check_mma_routes(x["routes"], {k: x["launches"][k] for k in x["routes"]},
+                          f"dp (b) rank {x['rank']}")
+        if x["train_graphs"]:
+            raise Failed(f"dp (b): rank {x['rank']} recorded a train graph under gloo")
+    if not np.array_equal(preds[0], preds[1]):
+        raise Failed("dp (b): the two ranks predict differently")
+    if not diff <= DP_PRED_TOL:
+        raise Failed(f"dp (b): two ranks differ from one process by {diff} > {DP_PRED_TOL}")
+    if ranks[1]["writes"] or "model_0.ckpt.tmp" not in ranks[0]["writes"]:
+        raise Failed(f"dp (b): the writes break the single-writer rule: "
+                     f"{[x['writes'] for x in ranks]}")
+    drop = [x["dropout"] for x in ranks]
+    if not (drop[0]["outputs_differ_across_ranks"] and drop[0]["masks_differ_across_ranks"]
+            and drop[0]["seed"] != drop[1]["seed"]):
+        raise Failed(f"dp (b): the ranks drew correlated dropout: {drop}")
+
+    # (c) serving: a one-replica mesh is the server without one
+    plain = MolServe(SERVE_DIR, device=dev)
+    meshed = MolServe(SERVE_DIR, device=dev, mesh_shape=(1, 1))
+    equal = {}
+    for n in REQUESTS:
+        for srv in (plain, meshed):
+            srv.predict(SMILES_20[:n])          # record, then replay
+        a, b = plain.predict(SMILES_20[:n]), meshed.predict(SMILES_20[:n])
+        equal[n] = bool(np.array_equal(a["predict"], b["predict"]))
+    try:
+        MolServe(SERVE_DIR, device=dev, mesh_shape=(2, 1))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print("dp: (c) " + json.dumps({
+        "mesh": meshed.mesh.shape, "buckets": list(meshed.batch_buckets),
+        "graphs": len(meshed.graphs), "bit_equal_by_request": equal,
+        "mesh_2_1_refused": refused, "phase_s": time.perf_counter() - t_phase,
+        "card": card}), flush=True)
+    if not all(equal.values()):
+        raise Failed(f"dp (c): MolServe(mesh_shape=(1, 1)) differs from MolServe(): {equal}")
+    if refused is None or f"only {torch.cuda.device_count()} available" not in refused:
+        raise Failed(f"dp (c): mesh_shape=(2, 1) on one card was not refused: {refused}")
+    del plain, meshed
+    torch.cuda.empty_cache()
+    return {"w1_nccl": grp["counts"], "w2_rank0": ranks[0]["launches"],
+            "w2_rank1": ranks[1]["launches"]}
+
+
 def _without_times(history):
     return [{k: v for k, v in row.items() if k not in ("seconds", "val_seconds")}
             for row in history]
 
 
 def main() -> int:
+    if "--dp-rank" in sys.argv:       # one rank of phase dp (b), started by phase dp
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        dp_worker(int(args["--dp-rank"]), int(args["--dp-port"]), args["--dp-spec"])
+        return 0
     if not os.path.isdir(os.path.join(REPO, "mmdti_tpu_torch")):
         print("chip_smoke.py needs the mmdti_tpu_torch package beside it", file=sys.stderr)
         return 2
@@ -4617,6 +4953,7 @@ def main() -> int:
     pretrained_launches = phase_pretrained(dev, card, graph_fit)
     mof_launches = phase_mof(dev, card)
     conformer_launches = phase_conformers(dev, card, build)
+    dp_launches = phase_dp(dev, card, graph_fit)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
@@ -4624,7 +4961,8 @@ def main() -> int:
             raise Failed(f"{name} was not launched on its path")
     pretrained_total = _add_counts(*pretrained_launches.values())
     for task, counts in {**task_launches, "cv": cv_launches, "pretrained": pretrained_total,
-                         "conformers": conformer_launches}.items():
+                         "conformers": conformer_launches,
+                         **{f"dp {run}": c for run, c in dp_launches.items()}}.items():
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
@@ -4639,7 +4977,8 @@ def main() -> int:
          "cv_launches": cv_launches[name],
          "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()},
          "mof_launches": mof_launches[name],
-         "conformers_launches": conformer_launches[name]}
+         "conformers_launches": conformer_launches[name],
+         "dp_launches": {run: counts[name] for run, counts in dp_launches.items()}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

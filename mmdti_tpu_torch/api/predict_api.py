@@ -64,7 +64,10 @@ class MolPredict:
             self.config.metrics = metrics
         self.datahub = DataHub(data=data, is_train=False, save_path=self.load_model,
                                device=self.device, **self.config)
-        self.trainer = Trainer(save_path=self.load_model, device=self.device, **self.config)
+        # the mesh a fit trained on is not this process's: predict takes
+        # the default (its group's processes, or one)
+        self.trainer = Trainer(save_path=self.load_model, device=self.device,
+                               **{**self.config, "mesh_shape": None})
         cfg = dict(self.config)
         cfg["evaluate_only"] = True
         self.model = NNModel(self.datahub.data, self.datahub.data, self.trainer, **cfg)

@@ -31,8 +31,15 @@ mmdti_tpu/api/serve_api.py on one device).
   multiclass argmax) follows MolPredict's output contract.
 - ``make_server`` / ``serve`` put the stdlib HTTP front (api/serve_http.py)
   and the dynamic batcher (api/serve_batcher.py) in front of it.
+- ``mesh_shape=(d, 1)`` serves over d replicas in this one process, as the
+  JAX package serves over a mesh: the resident model (every served fold)
+  on each of the first d cards (on the CPU, d replicas on the CPU, as the
+  JAX package's virtual devices), the batch buckets rounded up to
+  multiples of d, each chunk's rows split evenly over the replicas (one
+  CUDA graph per replica and bucket, in a pool per replica) and their
+  outputs concatenated in order.  More replicas than cards raises, and
+  so does ``model > 1`` (tensor parallelism is not ported yet).
 
-Serving over a device mesh (``mesh_shape``) is not ported and raises.
 MolServe serves molecules, as the JAX package's does.
 """
 
@@ -62,6 +69,7 @@ from mmdti_tpu_torch.data.batching import BatchCollator
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
+from mmdti_tpu_torch.parallel.mesh import make_mesh
 from mmdti_tpu_torch.train.steps import _Graph, capture_graph
 from mmdti_tpu_torch.utils.device import resolve_device
 
@@ -90,6 +98,20 @@ def _tree(fn: Callable, out):
     return tuple(fn(x) for x in out) if isinstance(out, tuple) else fn(out)
 
 
+class _Replicas(list):
+    """The outputs of one launch on a mesh: each replica's, in row order."""
+
+
+def _to_host(out):
+    """A launch's output as host arrays (a meshed launch's concatenated)."""
+    if not isinstance(out, _Replicas):
+        return _tree(lambda x: x.float().cpu().numpy(), out)
+    parts = [_to_host(o) for o in out]
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate(p, axis=0) for p in zip(*parts))
+    return np.concatenate(parts, axis=0)
+
+
 class MolServe:
     """Load a trained experiment dir once; answer SMILES -> prediction
     requests.
@@ -113,7 +135,11 @@ class MolServe:
                      fold checkpoints of a CV experiment as an ensemble;
                      the forward is the mean of their activated outputs,
                      K models resident and K forwards a request.
-    mesh_shape:      None.  Serving over a device mesh raises (not ported).
+    mesh_shape:      None, or (d, 1): d replicas, one a card (on the CPU, d
+                     replicas on the CPU), the batch buckets rounded up to
+                     multiples of d and each chunk split evenly over them.
+                     d above the visible cards raises, and so does a model
+                     axis above 1 (tensor parallelism is not ported).
     device:          "cuda" (default) or "cpu"; "cuda" without CUDA raises.
                      On the card each shape bucket's forward is a CUDA
                      graph; a capture that fails raises.
@@ -132,11 +158,6 @@ class MolServe:
         mesh_shape: Optional[Sequence[int]] = None,
         device: Union[str, torch.device] = "cuda",
     ):
-        if mesh_shape is not None:
-            raise NotImplementedError(
-                f"mesh_shape={tuple(mesh_shape)!r}: serving over a device mesh is not "
-                "ported yet (ROADMAP.md, M8: data parallel)"
-            )
         if not load_model or not os.path.isdir(load_model):
             raise ValueError(f"load_model must be an experiment dir, got {load_model!r}")
         self.load_model = load_model
@@ -154,7 +175,7 @@ class MolServe:
             cfg, lambda dev, d, tok: load_resident_model(
                 load_model, cfg, task, d, tok, dev, use_kernels, serve_folds),
             device, batch_buckets, num_workers, feature_cache, feature_cache_bytes,
-            scaler, threshold, device_pair_feats,
+            scaler, threshold, device_pair_feats, mesh_shape,
         )
 
     @classmethod
@@ -190,8 +211,18 @@ class MolServe:
         return self
 
     def _setup(self, cfg, load, device, batch_buckets, num_workers, feature_cache,
-               feature_cache_bytes, scaler, threshold, device_pair_feats):
+               feature_cache_bytes, scaler, threshold, device_pair_feats, mesh_shape=None):
         self.device = resolve_device(device)
+        self.mesh = None
+        replicas = [self.device]
+        if mesh_shape is not None:
+            d = int(tuple(mesh_shape)[0])
+            cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                     if self.device.type == "cuda" else [self.device] * d)
+            self.mesh = make_mesh(tuple(int(x) for x in mesh_shape), cards)
+            replicas = list(self.mesh.devices)
+            self.device = replicas[0]
+        self.replica_devices = replicas
         self.pair_mode = resolve_pair_feats_mode(device_pair_feats, self.device)
         self.config = cfg
         self.task = cfg.get("task", "regression")
@@ -199,6 +230,12 @@ class MolServe:
         self.batch_buckets = tuple(sorted(int(b) for b in batch_buckets))
         if not self.batch_buckets:
             raise ValueError("batch_buckets must be non-empty")
+        dp = len(replicas)
+        if dp > 1:
+            # each replica takes an equal share of a bucket's rows: round
+            # up, so every request still fits one bucket
+            self.batch_buckets = tuple(sorted({max(dp, -(-b // dp) * dp)
+                                               for b in self.batch_buckets}))
 
         # _lock serializes the host stage and every launch (eager, capture,
         # replay); _pull_gate keeps device -> host pulls, which run outside
@@ -219,17 +256,21 @@ class MolServe:
         self.scaler = scaler
         self.threshold = threshold
 
-        rm = load(self.device, self.dictionary, self.tokenizer)
+        rms = [load(dev, self.dictionary, self.tokenizer) for dev in replicas]
+        rm = rms[0]
         self.model = rm.model
         self.output_dim = rm.output_dim
         self.serve_folds = rm.serve_folds
-        self._fns = {"forward": rm.forward, "embed": rm.embed}
+        self._replica_fns = [{"forward": r.forward, "embed": r.embed} for r in rms]
         self.use_graphs = self.device.type == "cuda"
         self.graphs: Dict[tuple, _Graph] = {}
-        # one pool for every graph: its captures and replays are serialized
-        # under _lock, each graph's inputs live outside the pool and its
-        # outputs are held (self.graphs) and cloned before _lock is released
-        self._pool = torch.cuda.graph_pool_handle() if self.use_graphs else None
+        # one pool for every graph of a replica: its captures and replays
+        # are serialized under _lock, each graph's inputs live outside the
+        # pool and its outputs are held (self.graphs) and cloned before
+        # _lock is released
+        self._pools = [torch.cuda.graph_pool_handle() if self.use_graphs else None
+                       for _ in replicas]
+        self._pool = self._pools[0]
         self._shapes_seen: set = set()
         self._feat_cache: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
         self._feat_cache_size = int(feature_cache)
@@ -238,9 +279,9 @@ class MolServe:
         self.cache_hits = 0
         self._latencies: "deque[float]" = deque(maxlen=1024)
         self._lat_lock = threading.Lock()
-        logger.info("MolServe ready: task=%s output_dim=%d folds=%d device=%s graphs=%s "
-                    "pair features=%s", self.task, self.output_dim, self.serve_folds,
-                    self.device, self.use_graphs, self.pair_mode)
+        logger.info("MolServe ready: task=%s output_dim=%d folds=%d device=%s replicas=%d "
+                    "graphs=%s pair features=%s", self.task, self.output_dim, self.serve_folds,
+                    self.device, dp, self.use_graphs, self.pair_mode)
 
     # ------------------------------------------------------------------
     def _featurize(self, smiles: List[str]) -> List[Dict[str, Any]]:
@@ -291,8 +332,9 @@ class MolServe:
         batch, _ = self.collator([(f, zero) for f in padded])
         return {k: np.ascontiguousarray(batch[k]) for k in _FEATURE_KEYS if k in batch}, n
 
-    def _place_feats(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
+    def _place_feats(self, arrays: Dict[str, np.ndarray],
+                     device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(v).to(device or self.device) for k, v in arrays.items()}
 
     # --- one launch of the forward or the embed -------------------------
     @staticmethod
@@ -302,32 +344,47 @@ class MolServe:
         return (kind, arrays["src_tokens"].shape[0], arrays["src_tokens"].shape[1],
                 arrays["input_ids"].shape[1], ln_kernels_on())
 
-    def _record(self, kind: str, arrays: Dict[str, np.ndarray]) -> _Graph:
+    def _record(self, kind: str, arrays: Dict[str, np.ndarray], replica: int = 0) -> _Graph:
         """Record ``kind``'s forward at this bucket into a CUDA graph in
-        the server's pool.  The pull gate is held throughout: a device ->
+        the replica's pool.  The pull gate is held throughout: a device ->
         host copy synchronizes, which a capture in CUDA's global mode
         forbids in every thread."""
-        fn = self._fns[kind]
-        inputs = self._place_feats(arrays)
-        with self._pull_gate, torch.no_grad():
-            graph, out = capture_graph(lambda: fn(inputs), pool=self._pool)
+        fn = self._replica_fns[replica][kind]
+        dev = self.replica_devices[replica]
+        inputs = self._place_feats(arrays, dev)
+        with self._pull_gate, torch.no_grad(), torch.cuda.device(dev):
+            graph, out = capture_graph(lambda: fn(inputs), pool=self._pools[replica])
         return _Graph(graph, inputs, out)
 
     def _launch(self, kind: str, arrays: Dict[str, np.ndarray]):
         """Run ``kind`` ("forward" or "embed") on one collated chunk; the
         caller holds _lock.  Returns device tensors the next launch does not
         overwrite: a replay's static outputs are cloned on the stream
-        before the lock is released."""
+        before the lock is released.  On a mesh each replica takes its
+        equal share of the rows, and the launch returns their outputs
+        (_Replicas) in row order."""
         self._shapes_seen.add((arrays["src_tokens"].shape[0], arrays["src_tokens"].shape[1],
                                arrays["input_ids"].shape[1]))
+        dp = len(self.replica_devices)
+        if dp == 1:
+            return self._launch_on(0, kind, arrays)
+        per = arrays["src_tokens"].shape[0] // dp
+        return _Replicas(self._launch_on(r, kind, {k: v[r * per:(r + 1) * per]
+                                                   for k, v in arrays.items()})
+                         for r in range(dp))
+
+    def _launch_on(self, replica: int, kind: str, arrays: Dict[str, np.ndarray]):
         if not self.use_graphs:
             with torch.no_grad():
-                return self._fns[kind](self._place_feats(arrays))
+                return self._replica_fns[replica][kind](
+                    self._place_feats(arrays, self.replica_devices[replica]))
         key = self._graph_key(kind, arrays)
+        if replica:
+            key = (*key, replica)
         prog = self.graphs.get(key)
         if prog is None:
-            prog = self.graphs[key] = self._record(kind, arrays)
-        with torch.no_grad():
+            prog = self.graphs[key] = self._record(kind, arrays, replica)
+        with torch.no_grad(), torch.cuda.device(self.replica_devices[replica]):
             for k, t in prog.inputs.items():
                 t.copy_(torch.from_numpy(arrays[k]))
             prog.graph.replay()
@@ -350,7 +407,7 @@ class MolServe:
     def _pull_batched(self, chunks):
         """Wait for the dispatched chunks; concatenate their valid rows."""
         with self._pull_gate:
-            outs = [_tree(lambda x: x[:n].float().cpu().numpy(), out) for out, n in chunks]
+            outs = [_tree(lambda x: x[:n], _to_host(out)) for out, n in chunks]
         if isinstance(outs[0], tuple):
             return tuple(np.concatenate(parts, axis=0) for parts in zip(*outs))
         return np.concatenate(outs, axis=0)

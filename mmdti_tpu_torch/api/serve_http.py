@@ -64,7 +64,8 @@ def make_server(serve, host: str = "127.0.0.1", port: int = 8000,
                         "compiled_shapes": serve.compiled_shapes,
                         "feature_cache_hits": serve.cache_hits,
                         "serve_folds": serve.serve_folds,
-                        "mesh": None,
+                        "mesh": (dict(serve.mesh.shape) if serve.mesh is not None
+                                 else None),
                         "device": str(serve.device),
                         "latency": serve.latency_stats(),
                     }
@@ -156,7 +157,8 @@ def main(argv: Optional[List[str]] = None):
                     help="1 (fold 0, default), K, or 'all': serve a CV experiment's "
                     "folds as an ensemble")
     ap.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
-                    help="a (data, model) device mesh: not ported, refused")
+                    help="serve over a (data, model) device mesh: DATA replicas, one a "
+                    "card, each taking an equal share of a batch's rows (MODEL must be 1)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     folds = args.serve_folds if args.serve_folds == "all" else int(args.serve_folds)

@@ -16,6 +16,13 @@ history_{fold}.json each, ``model_folds: kfold`` in config.yaml, and the
 out-of-fold predictions in ``cv_pred`` (the threshold search takes the
 out-of-fold labels).  ``device`` is "cuda" unless the caller asks for the
 CPU; it is not written to the config.
+
+Data parallelism: run the same script in one process per GPU, each in a
+torch.distributed group (``torchrun --nproc_per_node=N``, or
+parallel/mesh.py::initialize_distributed before MolTrain); ``mesh_shape``
+defaults to (N, 1) there and ``batch_size`` is the global batch.  Every
+rank fits, only rank 0 writes the experiment dir (the single-writer
+rule), and ``fit`` returns on every rank once the dir is whole.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 
 from mmdti_tpu_torch.configs.config import default_config, save_yaml
 from mmdti_tpu_torch.data.hub import DataHub
+from mmdti_tpu_torch.parallel.mesh import barrier, is_writer_process
 from mmdti_tpu_torch.splits import Splitter
 from mmdti_tpu_torch.train.nnmodel import NNModel
 from mmdti_tpu_torch.train.trainer import Trainer
@@ -158,6 +166,8 @@ class MolTrain:
             return self._fit_cv(data_train, kfold)
         self.datahub = DataHub(data=data_train, is_train=True, save_path=self.save_path,
                                device=self.device, **self.config)
+        # the validation hub reads the scaler rank 0 has just written
+        barrier()
         self.datahub_1 = DataHub(data=data_val, is_train=False, save_path=self.save_path,
                                  device=self.device, **self.config)
         self.data_train = self.datahub.data
@@ -217,9 +227,12 @@ class MolTrain:
                 threshold = self.trainer.metrics.search_threshold(
                     val_true, np.asarray(self.model.cv["pred"], dtype=float))
                 logger.info("Searched classification thresholds: %s", threshold)
-            with open(os.path.join(self.save_path, THRESHOLD_FILE), "wb") as f:
-                pickle.dump(threshold, f, protocol=4)
+            if is_writer_process():
+                with open(os.path.join(self.save_path, THRESHOLD_FILE), "wb") as f:
+                    pickle.dump(threshold, f, protocol=4)
         self.cv_pred = np.asarray(y_pred)
+        # every rank returns once rank 0's artifacts are written
+        barrier()
         return self
 
     def update_and_save_config(self, n_folds: int = 1):
@@ -231,6 +244,6 @@ class MolTrain:
             f"{self.config.get('kfold', 5)}fold_{self.config.get('split', 'random')}")
         # the number of model_{fold} checkpoints the predict side averages
         self.config["model_folds"] = int(n_folds)
-        if self.save_path is not None:
+        if self.save_path is not None and is_writer_process():
             os.makedirs(self.save_path, exist_ok=True)
             save_yaml(self.config, os.path.join(self.save_path, "config.yaml"))

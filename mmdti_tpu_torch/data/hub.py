@@ -29,6 +29,7 @@ from mmdti_tpu_torch.chem.mof import MOFReader
 from mmdti_tpu_torch.data.reader import MolDataReader, read_csv
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.data.weights import compute_sample_weights
+from mmdti_tpu_torch.parallel.mesh import is_writer_process
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -204,7 +205,7 @@ class DataHub:
                     features = gen.transform_raw(self.data["atoms"], self.data["coordinates"])
                 else:
                     features = gen.transform(self.data["smiles"])
-            if cache_dir is not None:
+            if cache_dir is not None and is_writer_process():
                 os.makedirs(os.path.dirname(os.path.abspath(cache_dir)), exist_ok=True)
                 with open(cache_dir, "wb") as f:
                     pickle.dump({"fingerprint": fingerprint, "features": features}, f)

@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 from scipy.stats import kurtosis, skew
 
+from mmdti_tpu_torch.parallel.mesh import is_writer_process
 from mmdti_tpu_torch.utils.joblib_pickle import GlobalPickler, RestrictedUnpickler
 
 logger = logging.getLogger("mmdti_tpu_torch")
@@ -110,7 +111,7 @@ class TargetScaler:
                 col = target[:, i]
                 valid = col[~np.isnan(col)]
                 self.scaler.append(ColumnScaler.fit(self._method(valid), valid))
-        if dump_dir:
+        if dump_dir and is_writer_process():      # rank 0 writes (parallel/mesh.py)
             os.makedirs(dump_dir, exist_ok=True)
             save_scaler(self.scaler, os.path.join(dump_dir, ARTIFACT_NAME),
                         as_list=self.task == "multilabel_regression")

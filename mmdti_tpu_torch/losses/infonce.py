@@ -4,12 +4,15 @@ Dropout on the query stream (with a ``generator``), per-modality 2-layer
 erf-GELU MLP projections (E -> E -> 50), mean-pool over the token axis (all
 positions, padding included, matching the reference), unit-normalize,
 in-batch similarity matrix with diagonal positives, symmetric cross-entropy
-averaged over both directions at temperature 0.1.
+averaged over both directions at temperature 0.1.  Under data parallelism
+the two pooled projections of every rank are gathered first
+(``gather_rows``), so the negatives span the global batch, as in the JAX
+package's jit over global arrays.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,11 +44,15 @@ class InfoNCE(nn.Module):
         self.proj_positive_fc2 = Dense(embed_dim, proj_dim, dtype)
 
     def forward(self, query_tokens, positive_tokens,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                gather_rows: Optional[Callable] = None):
         """query_tokens [B,N,E] (3D-graph stream), positive_tokens [B,L,E]
-        (SMILES stream) -> scalar loss."""
+        (SMILES stream) -> scalar loss; ``gather_rows`` (a data group's)
+        gathers the pooled projections of every rank before the loss."""
         q = dropout(query_tokens, self.embed_dropout, generator)
         proj_q = self.proj_query_fc2(F.gelu(self.proj_query_fc1(q)))
         proj_p = self.proj_positive_fc2(F.gelu(self.proj_positive_fc1(positive_tokens)))
-        return info_nce_loss(proj_q.mean(dim=1).float(), proj_p.mean(dim=1).float(),
-                             self.temperature)
+        q_mean, p_mean = proj_q.mean(dim=1).float(), proj_p.mean(dim=1).float()
+        if gather_rows is not None:
+            q_mean, p_mean = gather_rows(q_mean, p_mean)
+        return info_nce_loss(q_mean, p_mean, self.temperature)

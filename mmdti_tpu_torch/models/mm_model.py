@@ -170,6 +170,7 @@ class MMModel(nn.Module):
         epoch=0.0,
         fds_bucket: Tuple[float, float] = (0.0, 1.0),
         src_coord: Optional[torch.Tensor] = None,       # [B,N,3] fp32 (device pair mode)
+        gather_rows=None,
     ) -> Dict[str, Any]:
         """The JAX model's output dict, or the part of it a caller reads:
 
@@ -191,7 +192,9 @@ class MMModel(nn.Module):
         ``net_target`` (losses/fds.py::fds_smooth, from ``epoch`` on
         ``fds_cfg.start_smooth``; a number, or a 0-dim float32 tensor on the
         inputs' device as the fit loop passes it, like the JAX package's
-        ``epoch_f``); "pooled" stays the pre-smoothing value."""
+        ``epoch_f``); "pooled" stays the pre-smoothing value.
+        ``gather_rows`` (a data group's, parallel/mesh.py) makes InfoNCE's
+        negatives the global batch's."""
         if outputs not in ("all", "train", "logits"):
             raise ValueError(f"outputs must be 'all', 'train' or 'logits', got {outputs!r}")
         if deterministic:
@@ -205,7 +208,7 @@ class MMModel(nn.Module):
         encoder_rep = enc["rep"]                                  # [B,N,E]
         bert_rep = self.bert(input_ids, attention_mask, generator)  # [B,L,E]
         if outputs != "logits":
-            infonce_loss = self.infonce(encoder_rep, bert_rep, generator)
+            infonce_loss = self.infonce(encoder_rep, bert_rep, generator, gather_rows)
 
         a_to_b, b_to_a = self.cross_modal_module(
             encoder_rep, bert_rep, atom_mask, attention_mask, generator

@@ -138,10 +138,12 @@ class MOFModel(nn.Module):
         epoch=0.0,
         fds_bucket: Tuple[float, float] = (0.0, 1.0),
         src_coord: Optional[torch.Tensor] = None,       # [B,N,3] fp32 (device pair mode)
+        gather_rows=None,
     ) -> Dict[str, Any]:
         """MMModel.forward's contract (``outputs`` "all", "train" or
         "logits"; dropout from ``generator``; FDS on a train forward) over
-        the crystal and its gas and environment."""
+        the crystal and its gas and environment.  ``gather_rows`` is taken
+        for the train step's sake: there is no InfoNCE to gather for."""
         if outputs not in ("all", "train", "logits"):
             raise ValueError(f"outputs must be 'all', 'train' or 'logits', got {outputs!r}")
         if gas_id is None or gas_attr is None:

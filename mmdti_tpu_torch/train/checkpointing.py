@@ -23,6 +23,12 @@ their addresses) and realigns the loader's shuffle, so the resumed fit
 continues the uninterrupted trajectory bit for bit.  The file is the
 port's own: the JAX package's train state holds optax trees that map onto
 no buffer here, and either package refuses the other's.
+
+The single-writer rule of data parallelism (parallel/mesh.py): every rank
+runs the same fit against one experiment dir and only rank 0 writes the
+checkpoint, the history and the train state (a data-parallel train state
+holds every rank's generator state); a resume reads rank 0's files on
+every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from mmdti_tpu_torch.parallel.mesh import is_writer_process
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -267,7 +275,10 @@ def save_checkpoint(dump_dir: str, fold: int, params: Dict[str, Any],
                     fds_state: Optional[Dict[str, Any]] = None) -> None:
     """Write the best-weights checkpoint; ``params`` is the flax parameter
     tree of numpy arrays (models/convert.py::state_dict_to_flax_params),
-    ``fds_state`` a dict of arrays or tensors, or None."""
+    ``fds_state`` a dict of arrays or tensors, or None.  Rank 0 writes it
+    (the single-writer rule); another rank does nothing."""
+    if not is_writer_process():
+        return
     os.makedirs(dump_dir, exist_ok=True)
     fds = {} if fds_state is None else {
         k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach") else v)
@@ -293,8 +304,9 @@ def history_path(dump_dir: str, fold: int) -> str:
 
 
 def _write_history(dump_dir: Optional[str], fold: int, history) -> None:
-    """Rewrite the per-epoch scalar log (a few KB) after every epoch."""
-    if not dump_dir:
+    """Rewrite the per-epoch scalar log (a few KB) after every epoch (rank
+    0 only)."""
+    if not dump_dir or not is_writer_process():
         return
     with open(history_path(dump_dir, fold), "w") as f:
         json.dump(history, f, indent=1)
@@ -353,7 +365,10 @@ def _decode(tree):
 
 def save_train_state(dump_dir: str, fold: int, state: Dict[str, Any]) -> int:
     """Write ``state`` (a tree of dicts, lists, scalars and CPU tensors or
-    arrays) atomically; returns the file's bytes."""
+    arrays) atomically; returns the file's bytes.  Rank 0 writes it; another
+    rank writes nothing and gets 0."""
+    if not is_writer_process():
+        return 0
     os.makedirs(dump_dir, exist_ok=True)
     blob = msgpack_serialize({"format": TRAIN_STATE_FORMAT, **_encode(state)})
     path = train_state_path(dump_dir, fold)
@@ -456,15 +471,20 @@ class CheckpointResumeMixin:
         The tensors are pulled to the host here, on the loop's thread: a
         pull from another thread could meet a CUDA graph capture of this
         one.  With async_checkpoint the encoding and the write then run on
-        the writer thread."""
+        the writer thread.  Under data parallelism every rank gathers the
+        generators' states (a collective) and only rank 0 pulls the rest
+        and writes."""
         stopping = bool(self.stop_after_epoch and epoch + 1 >= self.stop_after_epoch
                         and epoch + 1 < self.max_epochs)
         interval = bool(self.checkpoint_interval and (epoch + 1) % self.checkpoint_interval == 0)
         if not (interval or stopping):
             return stopping
         t0 = time.perf_counter()
+        programs_state = programs.state_dict()
+        if not is_writer_process():
+            return stopping
         state = {
-            "programs": _host(programs.state_dict()),
+            "programs": _host(programs_state),
             "epoch": int(epoch), "global_step": int(global_step),
             "best_params": _host(best_params), "best_fds": _host(best_fds or {}),
             "early_stop": {"min_val_loss": float(min_val_loss), "wait": int(wait),

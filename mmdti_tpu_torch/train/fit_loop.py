@@ -23,6 +23,17 @@ train/checkpointing.py (resume, periodic and stop-after train states) and
 train/profiler.py (a trace of the first dispatches, the dispatch timer)
 run where the JAX loop runs them; ``debug_nans`` checks each dispatch's
 losses and gradient norms.
+
+Under data parallelism (the Trainer's ``data_group``) every rank runs this
+loop on the same global batches: it takes its own rows of each (the
+columns of the index block that are its, or its rows of a host batch
+collated whole, so every rank pads to the global batch's lengths), starts
+from rank 0's parameters and optimizer state and draws dropout from its
+own generator.  The FDS pass and validation run whole on every rank, so
+the FDS statistics, the history, the early stop and the best weights are
+the same everywhere; only rank 0 writes (train/checkpointing.py), and the
+final predict evaluates the best weights in memory on every rank instead
+of reloading the checkpoint rank 0 wrote.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from mmdti_tpu_torch.data.batching import CachedLoader, MolDataLoader
 from mmdti_tpu_torch.data.pipeline import StreamPut, prefetch_to_device
 from mmdti_tpu_torch.losses.fds import fds_epoch_update
 from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
+from mmdti_tpu_torch.parallel.mesh import barrier, is_writer_process, rank_seed
 from mmdti_tpu_torch.train.checkpointing import (
     _AsyncSaver,
     _load_history,
@@ -153,6 +165,8 @@ class FitLoopMixin:
         wait = 0
         start_epoch, global_step, resumed = self._resume_fit_state(dump_dir, fold, programs,
                                                                    train_loader)
+        if self.data_group is not None:
+            programs.broadcast_state()
         # per-epoch scalars; a resumed fit keeps the earlier run's rows
         history = _load_history(dump_dir, fold, start_epoch)
         if resumed is not None:
@@ -164,7 +178,9 @@ class FitLoopMixin:
             if use_metric_stop and not np.isnan(es["best_score"]):
                 best_score = float(es["best_score"])
         saver = _AsyncSaver()
-        prof = DispatchProfiler(self.profile_dir, self.profile_steps, name=f"fold{fold}")
+        # the trace is rank 0's (one writer)
+        prof = DispatchProfiler(self.profile_dir if is_writer_process() else None,
+                                self.profile_steps, name=f"fold{fold}")
 
         def dispatch(call, *args):
             """One train dispatch with the profiler's and debug_nans' hooks;
@@ -280,10 +296,20 @@ class FitLoopMixin:
             logger.exception("the periodic train-state save failed; still writing the best "
                              "checkpoint")
         save_checkpoint(dump_dir, fold, state_dict_to_flax_params(best_params), best_fds)
-        # the final predict reloads the artifact just written
+        if self.data_group is None:
+            # the final predict reloads the artifact just written
+            y_preds, _, _ = self.predict(model, valid_dataset, activation_fn, target_scaler,
+                                         collate_fn, eval_step=eval_step, batches=valid_loader,
+                                         load_from=(dump_dir, fold), device_data=val_device_data)
+            return y_preds
+        # only rank 0 wrote it: every rank evaluates the same best weights
+        # in memory (the checkpoint holds exactly these values)
+        with torch.no_grad():
+            model.load_state_dict(best_params)
         y_preds, _, _ = self.predict(model, valid_dataset, activation_fn, target_scaler,
                                      collate_fn, eval_step=eval_step, batches=valid_loader,
-                                     load_from=(dump_dir, fold), device_data=val_device_data)
+                                     skip_metrics=True, device_data=val_device_data)
+        barrier()
         return y_preds
 
     def _train_programs(self, model, loss_fn, num_updates: int, fds_state, fds_bucket,
@@ -293,13 +319,16 @@ class FitLoopMixin:
         next fold: its CUDA graphs replay again; the frozen set is part of
         what must match, since a graph records which gradients a step
         takes), else a new one with its optimizer over the model's
-        parameters and a generator from the seed."""
+        parameters and a generator from the seed (this rank's stream under
+        data parallelism)."""
         key = (id(model), id(loss_fn), num_updates, fds_state is None, tuple(fds_bucket),
                frozenset(frozen), tuple(sorted(loss_kw.items())))
+        seed = self.seed if self.data_group is None else rank_seed(self.seed,
+                                                                   self.data_group.rank)
         if self._last_programs is not None and self._last_programs[0] == key:
             programs = self._last_programs[2]
             programs.optimizer.reset()
-            programs.generator.manual_seed(self.seed)
+            programs.generator.manual_seed(seed)
             if fds_state is not None:
                 programs.set_fds_state(fds_state)
         else:
@@ -307,8 +336,9 @@ class FitLoopMixin:
             self._last_programs = None
             optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate,
                                   num_updates, self.warmup_ratio, self.max_norm, frozen=frozen,
-                                  mu_dtype=self.mu_dtype, accumulate_steps=self.accumulate_steps)
-            generator = torch.Generator(device=self.device).manual_seed(self.seed)
+                                  mu_dtype=self.mu_dtype, accumulate_steps=self.accumulate_steps,
+                                  data_group=self.data_group)
+            generator = torch.Generator(device=self.device).manual_seed(seed)
             programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,
                                      fds_state=fds_state, fds_bucket=fds_bucket,
                                      alpha=self.alpha, beta=self.beta, ct_w=self.ct_w, **loss_kw)
@@ -325,13 +355,17 @@ class FitLoopMixin:
         pad_mode='bucket'); ``dispatch(call, *args)`` runs each.  The
         batches come through data/pipeline.py's prefetch_to_device:
         collated in a background thread, put to the device two ahead (on
-        the card from pinned memory on a side stream).  Returns the number
+        the card from pinned memory on a side stream).  Under data
+        parallelism a batch is collated whole and this rank keeps its rows
+        of the features (the labels and weights whole).  Returns the number
         of steps."""
         count, pending, pend_sig = 0, [], None
         put = StreamPut(self.device)
 
         def stage(batch_labels):
             feats, weights = self._feature_arrays(batch_labels[0])
+            if self.data_group is not None:
+                feats = {k: self.data_group.local_rows(v) for k, v in feats.items()}
             return put((feats, self._label_array(batch_labels[1]), weights))
 
         def run_pending():

@@ -4,7 +4,10 @@ Adam with eps 1e-6 and no weight decay, the HF linear warmup -> linear decay
 schedule, global-norm clipping before the update, and the first moment
 stored in bf16 (computed in fp32; the second moment and the parameters stay
 fp32).  Parameters marked frozen get a zero gradient before the clip, so
-they neither count toward the global norm nor move.
+they neither count toward the global norm nor move.  Under data
+parallelism (``data_group``, parallel/mesh.py) the flat gradient is
+averaged over the ranks first, one collective a call, so the norm, the
+clip and the update are the same on every rank.
 
 The arithmetic follows the JAX fused apply op for op, including where its
 types promote: ``b1 * mu`` is taken in the stored mu dtype, with b1 itself
@@ -90,7 +93,9 @@ class FusedAdam:
     """Global-norm clip, Adam and the parameter update in one call.
 
     ``params`` maps names to the model's fp32 parameters
-    (``named_parameters``); ``frozen`` names the ones that must not move.
+    (``named_parameters``); ``frozen`` names the ones that must not move;
+    ``data_group`` (parallel/mesh.py DataGroup, or None) is the data axis
+    the gradients are averaged over.
 
     The parameters become views into one flat fp32 buffer, beside flat
     buffers for the moments, so an update is a dozen elementwise kernels
@@ -110,8 +115,9 @@ class FusedAdam:
                  num_training_steps: int, warmup_ratio: float = 0.03, max_norm: float = 5.0,
                  eps: float = ADAM_EPS, b1: float = ADAM_B1, b2: float = ADAM_B2,
                  frozen: Optional[Iterable[str]] = None, mu_dtype=torch.bfloat16,
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, data_group=None):
         self.params = dict(params)
+        self.data_group = data_group
         self.schedule = linear_warmup_schedule(learning_rate, num_training_steps, warmup_ratio)
         self.accumulate_steps = int(accumulate_steps)
         if self.accumulate_steps < 1:
@@ -234,6 +240,8 @@ class FusedAdam:
         were (or would be) clipped."""
         g = torch.cat([(torch.zeros_like(p) if grads.get(n) is None else grads[n]).reshape(-1)
                        for n, p in self.params.items()]).float()
+        if self.data_group is not None:
+            self.data_group.average_(g)
         if self._trained is not None:
             g = torch.where(self._trained, g, torch.zeros((), device=g.device))
         if self.accumulate_steps == 1:

@@ -18,11 +18,21 @@ where they are: the parameters and the optimizer's buffers and counts
 (train/optim.py), the index block or the stacked batches, the epoch, the
 FDS state and the valid-row count, all written in place.  On the CPU the
 same functions run their steps one by one.
+
+Under data parallelism (a ``data_group``, parallel/mesh.py) a train step
+runs the forward on this rank's rows of the global batch, gathers the
+rows every loss term reads (the logits and the pooled features; InfoNCE
+gathers its two projections in the model) and computes the loss of the
+whole global batch, the same on every rank; the optimizer averages the
+gradient over the ranks.  Under NCCL those collectives are recorded into
+the K-step CUDA graphs with everything else; under gloo, whose
+collectives cannot be recorded, the K variants run their steps eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
@@ -30,6 +40,8 @@ import torch
 from mmdti_tpu_torch.losses.contrastive import CT_REGISTRY
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.train.optim import FusedAdam
+
+logger = logging.getLogger("mmdti_tpu_torch")
 
 # a train step's metrics: its losses and the global norm of its gradients
 # (before the clip), which debug_nans reads
@@ -39,27 +51,39 @@ GRAPH_WARMUP = 2   # eager runs on a side stream before a capture
 
 def build_train_loss(loss_fn: Callable, task: str, use_infonce: bool = True,
                      use_ct: bool = True, use_weight: bool = True, alpha: float = 1.0,
-                     beta: float = 0.1, ct_w: float = 0.2):
+                     beta: float = 0.1, ct_w: float = 0.2, data_group=None):
     """``train_loss(model, feats, labels, weights, generator, **model_kw) ->
     (total, metrics)``: the forward (dropout on when ``generator`` is given;
     ``model_kw`` go to the model, e.g. the FDS state) and
     ``alpha * task + beta * InfoNCE + beta * CT``.  The metrics are 0-dim
-    tensors (loss, m_loss, infonce_loss, ct_loss) left on the device."""
+    tensors (loss, m_loss, infonce_loss, ct_loss) left on the device.
+
+    With a ``data_group`` (parallel/mesh.py DataGroup) ``feats`` hold this
+    rank's rows and ``labels`` and ``weights`` the whole global batch's:
+    the logits and pooled features of every rank are gathered (and InfoNCE
+    gathers its projections, ``gather_rows``), so every term is the global
+    batch's, as one process computes it on the whole batch.  Averaging the
+    ranks' local losses instead would be wrong wherever a denominator or
+    a pair depends on the batch: the NaN-masked multilabel losses, focal
+    and GHM's bin counts, CT's in-batch pairs, InfoNCE's negatives."""
     ct_fn = CT_REGISTRY.get(task) if use_ct else None
+    model_gather = {} if data_group is None else {"gather_rows": data_group.gather_rows}
 
     def train_loss(model, feats: Mapping[str, torch.Tensor], labels: torch.Tensor,
                    weights: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None, **model_kw):
         out = model(**feats, outputs="train", deterministic=generator is None,
-                    generator=generator, **model_kw)
-        task_loss = loss_fn(out["logits"], labels)
+                    generator=generator, **model_gather, **model_kw)
+        logits, pooled = out["logits"], out["pooled"]
+        if data_group is not None:
+            logits, pooled = data_group.gather_rows(logits, pooled)
+        task_loss = loss_fn(logits, labels)
         total = alpha * task_loss
         infonce = out["infonce_loss"]
         if use_infonce:
             total = total + beta * infonce
         if ct_fn is not None:
-            ct = ct_fn(out["pooled"], labels, out["logits"],
-                       weights=weights if use_weight else None, w=ct_w)
+            ct = ct_fn(pooled, labels, logits, weights=weights if use_weight else None, w=ct_w)
             total = total + beta * ct
         else:
             ct = torch.zeros((), device=total.device)
@@ -75,7 +99,9 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
     with respect to those of ``optimizer.params`` that require grad (a
     frozen parameter gets None, which the update counts as zero), and one
     optimizer update; the metrics add the gradients' global norm as
-    "grad_norm".
+    "grad_norm".  Under data parallelism (``loss_kw["data_group"]``, the
+    optimizer's too) ``feats`` are this rank's rows and ``labels`` and
+    ``weights`` the global batch's (build_train_loss).
 
     ``feats`` holds the model's input tensors (train/device_feed.py
     FEATURE_KEYS); ``generator`` (a torch.Generator on their device) draws
@@ -153,10 +179,13 @@ class Resident:
                    *(() if self.weights is None else (self.weights,))]
         return sum(t.numel() * t.element_size() for t in tensors)
 
-    def take(self, idx: torch.Tensor):
+    def take(self, idx: torch.Tensor, data_group=None):
         """(feats, labels, weights) of the rows ``idx`` (int64 [B] on the
-        device), gathered on the device."""
-        feats = {k: v.index_select(0, idx) for k, v in self.feats.items()}
+        device), gathered on the device.  With a ``data_group`` ``idx`` is
+        the global batch: the features are this rank's rows of it, the
+        labels and weights all of them."""
+        rows = idx if data_group is None else data_group.local_rows(idx)
+        feats = {k: v.index_select(0, rows) for k, v in self.feats.items()}
         weights = None if self.weights is None else self.weights.index_select(0, idx)
         return feats, self.labels.index_select(0, idx), weights
 
@@ -209,6 +238,7 @@ class _Graph:
     inputs: object         # the static tensors a call copies its inputs into
     out: object            # what the recorded call returned
     pins: tuple = ()       # objects the key names by id
+    collectives: int = 0   # the data group's collectives the recording holds
 
 
 class TrainPrograms:
@@ -239,14 +269,30 @@ class TrainPrograms:
     at its first call for each (variant, K, input shapes and dtypes: B, N,
     L among them, compute dtype, MMDTI_PALLAS_LN, resident dataset) and
     replayed after; ``single`` runs eagerly.  On the CPU the K variants run
-    their steps as a loop."""
+    their steps as a loop.
+
+    Under data parallelism (the optimizer's ``data_group``) the features
+    a variant takes are this rank's rows (``feed`` takes the global index
+    block and picks them), the labels and weights the global batch's; the
+    generator is this rank's own stream (parallel/mesh.py rank_seed), and
+    ``state_dict`` holds every rank's generator state.  The graphs hold the
+    step's collectives under NCCL; under gloo the K variants run eagerly,
+    as on the CPU.  The collectives run at every group size, one rank
+    too."""
 
     def __init__(self, model, optimizer: FusedAdam, loss_fn: Callable, task: str,
                  generator: torch.Generator, fds_state=None, fds_bucket=(0.0, 1.0), **loss_kw):
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.loss_fn = loss_fn
-        self._train_step = build_train_step(model, optimizer, loss_fn, task, **loss_kw)
+        self.data_group = optimizer.data_group
+        self._train_step = build_train_step(model, optimizer, loss_fn, task,
+                                            data_group=self.data_group, **loss_kw)
         self.device = optimizer._flat.device
+        self.use_graphs = self.device.type == "cuda" and (
+            self.data_group is None or self.data_group.recordable)
+        if self.device.type == "cuda" and not self.use_graphs:
+            logger.info("the %s group's collectives cannot be recorded into a CUDA graph: "
+                        "train steps run eagerly, one dispatch each", self.data_group.backend)
         self.epoch = torch.zeros((), dtype=torch.float32, device=self.device)
         self.fds_state = (None if fds_state is None
                           else {k: v.detach().clone() for k, v in fds_state.items()})
@@ -274,6 +320,10 @@ class TrainPrograms:
         state = {"optimizer": self.optimizer.named_state,
                  "generator": self.generator.get_state(),
                  "frozen": sorted(self.optimizer.frozen)}
+        if self.data_group is not None:
+            # a collective: every rank calls state_dict, rank 0 writes it
+            state["rank_generators"] = self.data_group.gather_objects(
+                self.generator.get_state())
         if self.fds_state is not None:
             state["fds"] = dict(self.fds_state)
         if hasattr(self.loss_fn, "state_dict"):
@@ -299,11 +349,27 @@ class TrainPrograms:
             self.set_fds_state(state["fds"])
         if "loss" in state:
             self.loss_fn.load_state_dict(state["loss"])
-        self.generator.set_state(state["generator"])
+        streams = state.get("rank_generators", [state["generator"]])
+        ranks, rank = (1, 0) if self.data_group is None else (self.data_group.size,
+                                                              self.data_group.rank)
+        if len(streams) != ranks:
+            raise ValueError(f"the saved train state was made by {len(streams)} data-parallel "
+                             f"process(es) and this fit runs {ranks}: each rank's dropout "
+                             "stream resumes only on as many processes")
+        self.generator.set_state(streams[rank])
+
+    @torch.no_grad()
+    def broadcast_state(self) -> None:
+        """Every rank takes rank 0's parameters, optimizer state, FDS and
+        loss state (a data-parallel fit's start; the generators stay each
+        rank's own)."""
+        fds = () if self.fds_state is None else self.fds_state.values()
+        self.data_group.broadcast_([*self.optimizer.graph_state, *fds, *self.loss_state])
 
     def single(self, feats, labels, weights=None) -> torch.Tensor:
+        rows = labels if self.data_group is None else self.data_group.local_rows(labels)
         metrics = self._train_step(feats, labels, weights, self.generator,
-                                   fds_state=self.fds_state, net_target=labels.float(),
+                                   fds_state=self.fds_state, net_target=rows.float(),
                                    epoch=self.epoch, fds_bucket=self.fds_bucket)
         m = torch.stack([metrics[k] for k in METRICS])
         self.metric_sums.add_(m)
@@ -322,16 +388,17 @@ class TrainPrograms:
                            None if weights is None else weights[k])
                 for k in range(labels.shape[0])])
 
-        if self.device.type != "cuda":
+        if not self.use_graphs:
             return run(*inputs)
         key = ("stacked", labels_k.shape[0], *_shape_key(*inputs))
         return self._replay(key, run, inputs)
 
     def feed(self, resident: Resident, idx_k: torch.Tensor) -> torch.Tensor:
         def run(idx):
-            return torch.stack([self.single(*resident.take(idx[k])) for k in range(idx.shape[0])])
+            return torch.stack([self.single(*resident.take(idx[k], self.data_group))
+                                for k in range(idx.shape[0])])
 
-        if self.device.type != "cuda":
+        if not self.use_graphs:
             return run(idx_k)
         key = ("feed", idx_k.shape[0], *_shape_key(idx_k, *resident.feats.values(),
                                                    resident.labels), id(resident))
@@ -342,10 +409,14 @@ class TrainPrograms:
         prog = self.graphs.get(key)
         if prog is None:
             static = tuple(None if x is None else x.clone() for x in inputs)
+            group = self.data_group
+            calls = group.calls if group is not None else 0
             graph, out = capture_graph(lambda: run(*static), self.generator,
                                        state=(*self.optimizer.graph_state, self.metric_sums,
                                               *self.loss_state))
-            prog = self.graphs[key] = _Graph(graph, static, out, pins)
+            # the warm-ups and the recording issued the same collectives
+            held = 0 if group is None else (group.calls - calls) // (GRAPH_WARMUP + 1)
+            prog = self.graphs[key] = _Graph(graph, static, out, pins, held)
         with torch.no_grad():
             for dst, src in zip(prog.inputs, inputs):
                 if dst is not None:

@@ -1,16 +1,22 @@
-"""Training orchestration (port of mmdti_tpu/train/trainer.py on one
-device): the config knobs of a fit, ``fit_predict`` (train/fit_loop.py),
-``predict`` over a dataset with exact handling of a padded last batch (per
-batch from the host, or one sweep over a device-resident dataset), and
-``inference`` (representation extraction).
+"""Training orchestration (port of mmdti_tpu/train/trainer.py): the config
+knobs of a fit, ``fit_predict`` (train/fit_loop.py), ``predict`` over a
+dataset with exact handling of a padded last batch (per batch from the
+host, or one sweep over a device-resident dataset), and ``inference``
+(representation extraction).
 
-Without a mesh there is nothing to place or shard: a Trainer holds the
-device its model runs on ("cuda" unless the caller asks for the CPU).
-The JAX knobs of resume and train states (``resume``,
+A Trainer holds the device its model runs on ("cuda" unless the caller
+asks for the CPU).  Data parallelism is one process per GPU: when the
+process belongs to a torch.distributed group
+(parallel/mesh.py::initialize_distributed, or torchrun) the Trainer's
+mesh is ``mesh_shape`` (default (world size, 1); the data axis must equal
+the world size, model > 1 raises), ``device="cuda"`` means this process's
+card, ``batch_size`` is the global batch, rounded up to a multiple of the
+data axis with the JAX package's warning, and the fit takes the
+global-batch steps of train/steps.py.  Without a group ``mesh_shape`` may
+only be (1, 1).  The JAX knobs of resume and train states (``resume``,
 ``checkpoint_interval``, ``stop_after_epoch``, ``async_checkpoint``),
 profiling (``profile_dir``, ``profile_steps``) and ``debug_nans`` work as
-there; ``checkpoint_backend="orbax"`` (TPU tooling) and ``mesh_shape``
-raise.
+there; ``checkpoint_backend="orbax"`` (TPU tooling) raises.
 """
 
 from __future__ import annotations
@@ -20,10 +26,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mmdti_tpu_torch.data.batching import MolDataLoader
 from mmdti_tpu_torch.losses.registry import target_is_integer
 from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
+from mmdti_tpu_torch.parallel.mesh import DataGroup, local_device, make_mesh
 from mmdti_tpu_torch.train.checkpointing import CheckpointResumeMixin, load_checkpoint
 from mmdti_tpu_torch.train.device_feed import (
     FEATURE_KEYS,
@@ -40,8 +48,7 @@ logger = logging.getLogger("mmdti_tpu_torch")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # knob -> the value that means "off"; anything else is not ported
 _NOT_PORTED = {"checkpoint_backend": ("msgpack", "orbax checkpoints are TPU tooling the port "
-                                      "leaves out (ROADMAP.md, leave-behind list)"),
-               "mesh_shape": (None, "meshes are not ported yet (ROADMAP.md §1 item 6, M8)")}
+                                      "leaves out (ROADMAP.md, leave-behind list)")}
 
 
 def load_weights(model, dump_dir: str, fold: int):
@@ -57,6 +64,18 @@ class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
             if params.get(knob) is not None and params[knob] != off:
                 raise NotImplementedError(f"{knob}={params[knob]!r}: {why}")
         self.save_path = save_path
+        # the mesh: the processes of the group (one without a group)
+        mesh_shape = params.get("mesh_shape", None)
+        self.mesh = make_mesh(tuple(mesh_shape) if mesh_shape is not None else None)
+        self.data_group = None
+        if dist.is_initialized():
+            world = dist.get_world_size()
+            if self.mesh.data != world:
+                raise ValueError(f"mesh_shape {tuple(mesh_shape)}: a fit's data axis is its "
+                                 f"{world} processes, one per GPU")
+            self.data_group = DataGroup()
+            if torch.device(device) == torch.device("cuda"):
+                device = local_device()
         self.device = resolve_device(device)
         self.task = params.get("task", None)
         self.metrics_str = params.get("metrics", "none")
@@ -65,6 +84,14 @@ class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
         np.random.seed(self.seed)
         self.learning_rate = float(params.get("learning_rate", 1e-4))
         self.batch_size = int(params.get("batch_size", 32))
+        # every batch is the global batch, its rows split evenly over the
+        # data axis
+        data_par = self.mesh.data
+        if self.batch_size % data_par:
+            rounded = -(-self.batch_size // data_par) * data_par
+            logger.warning("batch_size %d is not divisible by the %d-way data mesh axis; "
+                           "rounding up to %d", self.batch_size, data_par, rounded)
+            self.batch_size = rounded
         self.max_epochs = int(params.get("epochs", params.get("max_epochs", 50)))
         self.warmup_ratio = float(params.get("warmup_ratio", 0.1))
         self.patience = int(params.get("patience", 10))

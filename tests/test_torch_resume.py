@@ -16,7 +16,8 @@ tests/test_end_to_end.py's profiler case):
   GHM's state and the loader's ``advance_epochs`` round-trip;
 * ``profile_dir`` writes a Chrome trace of the first dispatches,
   ``debug_nans`` raises FloatingPointError at a non-finite loss, and
-  ``checkpoint_backend="orbax"`` and ``mesh_shape`` still raise.
+  ``checkpoint_backend="orbax"`` and a ``mesh_shape`` with a model axis (tensor
+  parallelism) still raise.
 
 Torch runs on one thread.
 """
@@ -330,7 +331,7 @@ def test_debug_nans_raises_at_a_non_finite_loss(csvs, tmp_path):
         _fit(str(tmp_path / "exp"), (bad, csvs[1]), debug_nans=True, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_backend="orbax"), dict(mesh_shape=(1, 1))],
+@pytest.mark.parametrize("kw", [dict(checkpoint_backend="orbax"), dict(mesh_shape=(1, 2))],
                          ids=["orbax", "mesh"])
 def test_tpu_knobs_still_raise(kw):
     from mmdti_tpu_torch.train.trainer import Trainer

@@ -9,7 +9,8 @@ on the CPU, against the JAX MolServe on the same dirs:
 * a JAX-written (joblib) StandardScaler, read without joblib;
 * pair features built on the device (``device_pair_feats`` "device" or
   True) answering as the host-mode server does (1e-5);
-* what is refused, with a pointer to ROADMAP.md: a device mesh, a scaler
+* what is refused, with a pointer to ROADMAP.md: a mesh with a model axis
+  (tensor parallelism), a scaler
   mode the port lacks;
   serve_folds outside 1..model_folds raises with JAX's message.
 
@@ -170,7 +171,7 @@ def test_classification_threshold_and_proba(clf_exp):
     np.testing.assert_array_equal(got["predict"], want["predict"])
 
 
-@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 1))])
+@pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 2))])
 def test_refusals_point_to_the_roadmap(cv_exp, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MolServe(cv_exp[0], device="cpu", **kw)

@@ -548,8 +548,9 @@ class TestInflightAccounting:
 
 def test_cli_refuses_a_mesh(server):
     """The CLI takes --mesh as the JAX package's does, and the server
-    refuses it with a pointer to ROADMAP.md before serving anything."""
+    refuses a model axis above 1 (tensor parallelism) with a pointer to
+    ROADMAP.md before serving anything."""
     from mmdti_tpu_torch.api.serve_http import main
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main([server.load_model, "--mesh", "1", "1", "--device", "cpu", "--port", "0"])
+        main([server.load_model, "--mesh", "1", "2", "--device", "cpu", "--port", "0"])
