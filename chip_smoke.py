@@ -4,7 +4,8 @@ the train step, fit-and-predict through MolTrain/MolPredict, the
 classification tasks, cross-validation, resume and the fit profiler,
 fine-tuning from pretrained checkpoints with layers frozen, the MOF
 model family on crystals of up to 512 atoms, conformer generation on
-the card beside the native host chemistry, and data parallelism (a
+the card beside the native host chemistry, the target scalers through
+fit, predict and serve, encoder remat, and data parallelism (a
 one-rank NCCL group, two gloo ranks on the card, a one-replica serving
 mesh).  The pair distances and edge
 types are built on the card from coordinates (device_pair_feats 'auto')
@@ -229,7 +230,28 @@ Phases, one result line each; any failure exits non-zero:
    against the host one alternated over 5 rounds: p50 each, answers within
    2e-2, and a cold featurization beside a 1 s sleep kernel on the default
    stream (the forward in flight) that returns before the sleep ends;
-13. dp, data parallelism (parallel/mesh.py), with MMDTI_PALLAS_LN=1: (a)
+13. scalers: the target_normalize modes minmax, maxabs, quantile,
+   power_trans (Box-Cox on targets moved above 0, Yeo-Johnson on
+   centred ones) and log1p, each through a 1-epoch flagship fit of phase
+   fit's data with the defaults and MMDTI_PALLAS_LN=1, and quantile
+   through a multilabel_regression fit over two NaN-masked columns:
+   MolPredict from the dir equal to the fit's predictions, MolServe over
+   the dir within 2e-3 of MolPredict on the scaled outputs, the round trip
+   within 1e-9 of the targets, target_scaler.ss read back to the same
+   numbers, all eight kernels launched (attention and gbf on "mma");
+14. remat (models/unimol.py, train/nnmodel.py), run right after phase 6
+   (early in the process, where the profiler's windows of a replay hold
+   every kernel), at B=32, N=280, flagship,
+   bf16, dropout on, MMDTI_PALLAS_LN=1: (a) one eager step with remat off
+   and on, loss, gradients and generator state bit-equal, the launches of
+   each (pair-bias forward 15 -> 30, LayerNorm forward 49 -> 79); (b) 4
+   steps replayed from one graph with remat against 4 eager ones, bit for
+   bit; (c) the peak allocated by one eager step off and on, here and at
+   the MOF step (B=16, N=528), beside train/nnmodel.py's predicted peaks,
+   and the bytes the forward saves (saved-tensor hooks); (d) device ms
+   and launches of a replayed step off and on; (e) the auto rule's
+   decision and predicted peaks at B=32-256, N=64 and 280, and MOF;
+15. dp, data parallelism (parallel/mesh.py), with MMDTI_PALLAS_LN=1: (a)
    phase 7's fit with the defaults (the feed, 2 steps a CUDA graph,
    dropout on) without a group and in a one-rank NCCL group
    (tcp://127.0.0.1, world size 1): the collectives one train graph
@@ -248,9 +270,10 @@ Phases, one result line each; any failure exits non-zero:
    the masks and outputs differ across ranks; (c) MolServe(mesh_shape=
    (1, 1)) bit-equal to MolServe() on phase serve's dir for requests of
    1, 8 and 20 SMILES, and mesh_shape=(2, 1) refused, naming the one card;
-14. one JSON line with every kernel's summary (each task's, phase cv's,
-   phase pretrained's, phase mof's, phase conformers' and phase dp's
-   launches beside the main path's), then {"ok": true, ...}.
+16. one JSON line with every kernel's summary (each task's, phase cv's,
+   phase pretrained's, phase mof's, phase conformers', phase scalers',
+   phase remat's and phase dp's launches beside the main path's), then
+   {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.  With ``--dp-rank R --dp-port P
@@ -4922,6 +4945,489 @@ def _without_times(history):
             for row in history]
 
 
+# ---- phase scalers: the target_normalize modes through fit, predict and serve ------------
+
+SCALER_WORK = os.path.join(REPO, "build", "chip_smoke_scalers")
+# (name, target_normalize, how the train targets are moved first)
+SCALER_FITS = (("minmax", "minmax", None), ("maxabs", "maxabs", None),
+               ("quantile", "quantile", None), ("box-cox", "power_trans", "positive"),
+               ("yeo-johnson", "power_trans", "centered"), ("log1p", "log1p", "positive"))
+SCALER_ROUND_TRIP_TOL = 1e-9   # inverse_transform(transform(y)) against y
+SCALER_EPOCHS = 1
+
+
+def _scaler_csvs(paths, work):
+    """Phase fit's splits with their targets moved: "positive" (the least
+    target of any split at 0.5, for Box-Cox and log1p), "centered" (the
+    train median at 0: both signs, Yeo-Johnson), and "multilabel":
+    measured and a second column, each with NaN holes.  Returns {kind:
+    {split: path}}."""
+    import numpy as np
+
+    from mmdti_tpu_torch.data.reader import read_csv, write_csv
+
+    y = {k: np.asarray(read_csv(p)["measured"], np.float64) for k, p in paths.items()}
+    shift = {"positive": 0.5 - min(v.min() for v in y.values()),
+             "centered": -float(np.median(y["train"]))}
+    out = {None: paths}
+    for kind in ("positive", "centered", "multilabel"):
+        out[kind] = {}
+        for split, path in paths.items():
+            table = read_csv(path)
+            y = np.asarray(table["measured"], np.float64)
+            if kind == "multilabel":
+                rows = np.arange(len(y))
+                t1 = np.where(rows % 5 == 1, np.nan, y)
+                t2 = np.where(rows % 7 == 3, np.nan, 0.5 * y ** 2 - 1.0)
+                table = {"smiles": table["smiles"], "t1": t1, "t2": t2}
+            else:
+                table = dict(table, measured=y + shift[kind])
+            out[kind][split] = os.path.join(work, f"{kind}_{split}.csv")
+            write_csv(table, out[kind][split])
+    return out
+
+
+def _scaler_fit(name, mode, paths, caches, task="regression"):
+    """MolTrain.fit(train, val) with ``target_normalize=mode`` at the
+    flagship width and depth, bf16, the card's defaults (the resident
+    feed, CUDA graphs), SCALER_EPOCHS epoch, MMDTI_PALLAS_LN=1; then
+    MolPredict and MolServe over its dir.  Returns what phase scalers
+    checks and prints."""
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch import MolPredict, MolServe, MolTrain
+    from mmdti_tpu_torch.data.reader import read_csv
+    from mmdti_tpu_torch.data.scaler import TargetScaler
+
+    exp = os.path.join(SCALER_WORK, f"exp_{name}")
+    target_cols = ["t1", "t2"] if task == "multilabel_regression" else ["measured"]
+    with _ln_kernels_on():
+        _reset_counts()
+        t0 = time.perf_counter()
+        clf = MolTrain(task=task, epochs=SCALER_EPOCHS, learning_rate=1e-4, batch_size=32,
+                       early_stopping=20, metrics="mae", smiles_col="smiles", save_path=exp,
+                       target_cols=target_cols, using_infonce=True, using_ct=True,
+                       target_normalize=mode, seed=42, cache_dir_train=caches["train"],
+                       cache_dir_test=caches["val"], device="cuda")
+        clf.fit(paths["train"], paths["val"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, routes = _read_counts(), _read_routes()
+        val_pred = np.asarray(MolPredict(load_model=exp, cache_dir=caches["val"]).predict(
+            paths["val"]), np.float64)
+        server = MolServe(exp)
+        served = np.asarray(server.predict(list(read_csv(paths["val"])["smiles"]))["predict"],
+                            np.float64).reshape(val_pred.shape)
+        del server
+    torch.cuda.empty_cache()
+    scaler = clf.data_train["target_scaler"]
+    # the targets as the fit took them: the rows its reader kept (3-sigma
+    # anomaly filter), read as float32
+    y = np.asarray(clf.data_train["raw_target"], np.float32).reshape(
+        -1, len(target_cols)).astype(np.float64)
+    round_trip = scaler.inverse_transform(scaler.transform(y))
+    reread = TargetScaler(mode, task, exp)
+    probe = np.concatenate([y, y[:8] * 0.5 + 0.25])
+    probe = np.where(np.isnan(probe), 1.0, probe)
+    t_fit, t_read = scaler.transform(probe), reread.transform(probe)
+    return {"clf": clf, "fit_s": fit_s, "counts": counts, "routes": routes,
+            "classes": [type(o).__name__[1:] for o in scaler.scaler],
+            "method": getattr(scaler.scaler[0], "method", None),
+            "predict_vs_fit_max_abs": float(np.abs(val_pred - clf.cv_pred).max()),
+            # the model's outputs (the scaled space) and the targets' units
+            "serve_vs_predict_scaled_max_abs": float(np.abs(
+                scaler.transform(served) - scaler.transform(val_pred)).max()),
+            "serve_vs_predict_max_abs": float(np.abs(served - val_pred).max()),
+            "round_trip_max_abs": float(np.nanmax(np.abs(round_trip - y))),
+            "artifact_transform_equal": bool(np.array_equal(t_fit, t_read)),
+            "artifact_inverse_equal": bool(np.array_equal(scaler.inverse_transform(t_fit),
+                                                          reread.inverse_transform(t_fit))),
+            "val_pred_finite": bool(np.isfinite(val_pred).all()),
+            "val_pred_range": [float(val_pred.min()), float(val_pred.max())]}
+
+
+def phase_scalers(dev, card, graph_fit):
+    """The target_normalize modes the other phases' fits do not run
+    (minmax, maxabs, quantile, power_trans as Box-Cox and as Yeo-Johnson,
+    log1p; normalizer has no inverse, so no fit of it finishes), each
+    through a short flagship fit of phase fit's data (and quantile through
+    a multilabel_regression fit over NaN-masked columns): MolPredict from
+    the dir reproduces the fit's predictions exactly (phase fit's check),
+    MolServe over the dir agrees with MolPredict within SERVE_PREDICT_TOL
+    on the model's scaled outputs (so the inverse runs on the serving path
+    too), inverse_transform(transform(y)) is within SCALER_ROUND_TRIP_TOL of
+    the train targets, the artifact read back gives the same numbers, and
+    the fit launched all eight kernels (attention and gbf on "mma").
+    Returns the launches summed over the fits."""
+    import torch
+
+    os.makedirs(SCALER_WORK, exist_ok=True)
+    csvs = _scaler_csvs(graph_fit["paths"], SCALER_WORK)
+    caches = {s: os.path.join(SCALER_WORK, f"conformers_{s}.pkl") for s in ("train", "val")}
+    runs = [(name, mode, csvs[kind], "regression") for name, mode, kind in SCALER_FITS]
+    runs.append(("multilabel-quantile", "quantile", csvs["multilabel"], "multilabel_regression"))
+    total = {k: 0 for k in KERNELS}
+    t_phase = time.perf_counter()
+    for name, mode, paths, task in runs:
+        r = _scaler_fit(name, mode, paths, caches, task)
+        info = {k: v for k, v in r.items() if k not in ("clf", "routes")}
+        info.update(task=task, target_normalize=mode,
+                    routes={k: v for k, v in r["routes"].items() if sum(v.values())},
+                    serve_tol=SERVE_PREDICT_TOL, round_trip_tol=SCALER_ROUND_TRIP_TOL)
+        print(f"scalers: {name} " + json.dumps(info), flush=True)
+        if r["predict_vs_fit_max_abs"] != 0.0:
+            raise Failed(f"scalers {name}: MolPredict differs from the fit's predictions by "
+                         f"{r['predict_vs_fit_max_abs']}")
+        if not r["serve_vs_predict_scaled_max_abs"] <= SERVE_PREDICT_TOL:
+            raise Failed(f"scalers {name}: MolServe differs from MolPredict by "
+                         f"{r['serve_vs_predict_scaled_max_abs']} (scaled)")
+        if not r["round_trip_max_abs"] <= SCALER_ROUND_TRIP_TOL:
+            raise Failed(f"scalers {name}: the round trip is off by {r['round_trip_max_abs']}")
+        if not (r["artifact_transform_equal"] and r["artifact_inverse_equal"]):
+            raise Failed(f"scalers {name}: target_scaler.ss read back gives other numbers")
+        if not r["val_pred_finite"]:
+            raise Failed(f"scalers {name}: predictions not finite")
+        if name == "box-cox" and r["method"] != "box-cox" or \
+                name == "yeo-johnson" and r["method"] != "yeo-johnson":
+            raise Failed(f"scalers {name}: the fit chose {r['method']}")
+        missing = [k for k in KERNELS if r["counts"][k] == 0]
+        if missing:
+            raise Failed(f"scalers {name}: {missing} were not launched in the fit")
+        _check_mma_routes(r["routes"], {k: r["counts"][k] for k in r["routes"]},
+                          f"scalers {name}")
+        total = _add_counts(total, r["counts"])
+        del r
+        torch.cuda.empty_cache()
+    print(f"scalers: {len(runs)} fits, predicts and serves in "
+          f"{time.perf_counter() - t_phase:.1f} s; launches " + json.dumps(total) + f" ({card})",
+          flush=True)
+    return total
+
+
+# ---- phase remat: the encoder recomputed in the backward -----------------------------------
+
+REMAT_B, REMAT_N, REMAT_L = 32, 280, 64
+REMAT_MOF_B, REMAT_MOF_N = 16, 528
+# (e): the shapes of PERF.md §4 the auto rule is asked about
+REMAT_RULE_SHAPES = tuple((b, n) for n in (64, 280) for b in (32, 64, 128, 256))
+
+
+def _set_remat(model, on):
+    """Rematerialize ``model``'s Uni-Mol encoder or not (its config is frozen:
+    a replaced copy with ``remat``)."""
+    import dataclasses
+
+    model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=on)
+
+
+def _saved_bytes(model, fn):
+    """Bytes autograd saves for the backward while ``fn()`` runs a forward
+    (each storage once, parameters left out), by where the tensor was
+    saved: "layer" (inside a Uni-Mol layer, summed over the layers) or
+    "other", and by kind: "pair" (a tensor whose last two dims are N x N)
+    or "token": {where: {kind: bytes}}.  The forward's graph dies before it
+    returns; one left alive would keep the parameters' gradient
+    accumulators, made on this stream, and a later CUDA graph capture
+    would wait on it."""
+    import torch
+
+    params = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    where, seen = ["other"], {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        if s.data_ptr() not in params and s.data_ptr() not in seen:
+            pair = t.dim() >= 3 and t.shape[-1] == t.shape[-2] > 1
+            seen[s.data_ptr()] = (where[-1], "pair" if pair else "token", s.nbytes())
+        # not t itself: a node saving its own output would hold it, and
+        # through it itself, in a cycle the collector cannot see
+        return t.detach()
+
+    def enter(*args):
+        where.append("layer")
+
+    def leave(*args):
+        where.pop()
+
+    layers = [m for name, m in model.encoder.named_children() if name.startswith("layers_")]
+    hooks = [m.register_forward_pre_hook(enter) for m in layers]
+    hooks += [m.register_forward_hook(leave) for m in layers]
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    total = {w: {"pair": 0, "token": 0} for w in ("layer", "other")}
+    for w, kind, n in seen.values():
+        total[w][kind] += n
+    return total
+
+
+def _step_peak(dev, fn):
+    """(peak bytes allocated while fn() runs, fn's result), synchronized."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev), out
+
+
+def _mof_batch(dev, B, N, seed=0):
+    """A MOF batch of B crystals of N-2 atoms (BOS, atoms, EOS) in device
+    pair mode: random tokens, coordinates in a 12 A box, gas and
+    environment."""
+    import torch
+
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+
+    d = Dictionary.load()
+    g = torch.Generator().manual_seed(seed)
+    tok = torch.randint(4, len(d), (B, N), generator=g)
+    tok[:, 0], tok[:, -1] = d.bos(), d.eos()
+    feats = {"src_tokens": tok.int(), "src_coord": torch.rand(B, N, 3, generator=g) * 12.0,
+             "gas_id": torch.randint(0, 4, (B,), generator=g),
+             "gas_attr": torch.rand(B, 6, generator=g), "pressure": torch.rand(B, generator=g),
+             "temperature": torch.rand(B, generator=g)}
+    return {k: v.to(dev) for k, v in feats.items()}
+
+
+def _mof_flagship():
+    from mmdti_tpu_torch.chem.dictionary import Dictionary
+    from mmdti_tpu_torch.models.mof import build_mof_model
+
+    d = Dictionary.load()
+    d.add_symbol("[MASK]", is_special=True)
+    return build_mof_model(1, len(d), d.pad(), "regression", compute_dtype="bfloat16",
+                           unimol_overrides={"pair_dtype": "bfloat16"})
+
+
+def remat_peaks(dev, model, feats, labels, weights, gen, base):
+    """One eager train step (loss, gradients, FusedAdam) of ``model`` on
+    ``feats`` with remat off and on, dropout on: {"off"|"on": peak bytes
+    allocated}, the bytes the model and optimizer hold before it, each
+    above ``base`` (what was allocated before the model was built, so a
+    process's earlier tensors stay out), and the bytes the forward saves
+    (_saved_bytes, remat off)."""
+    import torch
+
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import build_train_loss, build_train_step
+
+    opt = FusedAdam(dict(model.named_parameters()), 1e-4, 100)
+    step = build_train_step(model, opt, zoo.mse_loss, "regression")
+    _set_remat(model, False)
+    saved = _saved_bytes(model, lambda: build_train_loss(zoo.mse_loss, "regression")(
+        model, feats, labels, weights, gen))
+    torch.cuda.empty_cache()
+    peaks = {}
+    for way in ("off", "on"):
+        _set_remat(model, way == "on")
+        step(feats, labels, weights, gen)       # cuBLAS workspaces, kernel caches
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev) - base
+        peak, _ = _step_peak(dev, lambda: step(feats, labels, weights, gen))
+        peaks[way] = peak - base
+    _set_remat(model, False)
+    del opt, step
+    torch.cuda.empty_cache()
+    return {"peak": peaks, "resident": resident, "saved": saved}
+
+
+def phase_remat(dev, card):
+    """Encoder remat (models/unimol.py; train/nnmodel.py's rule) at the
+    flagship Uni-Mol shape B=32, N=280 (L=64), bf16, dropout on,
+    MMDTI_PALLAS_LN=1: (a) one eager step with remat off and on: loss,
+    every gradient and the generator's state after it bit-equal, the
+    launches of each; (b) GRAPH_K steps replayed from one CUDA graph with
+    remat on, bit-equal to GRAPH_K eager steps with remat on; (c) the
+    peak allocated by one eager step with remat off and on, here and at
+    the MOF step (B=16, N=528), each beside train/nnmodel.py's predicted
+    peak (LayerNorm kernels off, the default the model is fitted to); (d)
+    device ms and launches a step replayed, remat off and on (pair-bias
+    forward 15 -> 30, the Uni-Mol layers' LayerNorm forwards again in the
+    backward); (e) the auto rule's decision at the shapes of
+    PERF.md §4 with its predicted peaks.  Returns the launches of (a)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train import nnmodel
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP, TrainPrograms, build_train_loss
+
+    t_phase = time.perf_counter()
+    total_memory = torch.cuda.get_device_properties(dev).total_memory
+    B, N, L, K = REMAT_B, REMAT_N, REMAT_L, GRAPH_K
+    out = {"card": card, "total_memory": total_memory}
+    with _ln_kernels_on():
+        # (c) memory first, before any graph holds a pool: flagship, then MOF,
+        # with the LayerNorm of the fit's default (MMDTI_PALLAS_LN unset),
+        # which the memory model was fitted to
+        _set_ln("off")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        model = _flagship(True)
+        model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+        model.to(dev)
+        res = _graph_resident(dev, N, L, B)
+        feats, labels, weights = res.feats, res.labels, res.weights
+        gen = torch.Generator(device=dev).manual_seed(7)
+        ucfg = model.unimol_cfg
+        mem = {"flagship": remat_peaks(dev, model, feats, labels, weights, gen, base)}
+        mem["flagship"]["predicted"] = {
+            way: nnmodel.predicted_step_bytes(B, N, L, ucfg, remat=way == "on")
+            for way in ("off", "on")}
+        torch.cuda.synchronize()
+        mof_base = torch.cuda.memory_allocated(dev)
+        mof = _mof_flagship()
+        mof.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+        mof.to(dev)
+        mb = _mof_batch(dev, REMAT_MOF_B, REMAT_MOF_N)
+        mem["mof"] = remat_peaks(dev, mof, mb, labels[:REMAT_MOF_B], weights[:REMAT_MOF_B],
+                                 gen, mof_base)
+        mem["mof"]["predicted"] = {
+            way: nnmodel.predicted_step_bytes(REMAT_MOF_B, REMAT_MOF_N, 0, mof.unimol_cfg,
+                                              remat=way == "on") for way in ("off", "on")}
+        del mof, mb
+        torch.cuda.empty_cache()
+        out["c_memory"] = mem
+        print("remat: (c) LayerNorm kernels off " + json.dumps(mem) + f" ({card})", flush=True)
+        _set_ln("on")
+
+        # (a) one eager step off and on from one generator state
+        train_loss = build_train_loss(zoo.mse_loss, "regression")
+        params = [p for p in model.parameters()]
+        n_masked = model.bert.cfg.num_hidden_layers + 2 * model.cross_modal_module.cfg.num_layers
+        sites = _ln_sites(model)
+        layer_sites = 2 * ucfg.encoder_layers       # the two LayerNorms of every layer
+        gen0 = gen.get_state()
+
+        def eager_step(way):
+            """One step's loss, gradients, generator state and launches; the
+            step's graph dies here (a graph left alive keeps the gradient
+            accumulators made on this stream, and (b)'s capture would
+            wait on it)."""
+            _set_remat(model, way == "on")
+            gen.set_state(gen0)
+            _reset_counts()
+            total, _ = train_loss(model, feats, labels, weights, gen)
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            torch.cuda.synchronize()
+            return {"loss": total.detach().clone(), "grads": grads,
+                    "generator": gen.get_state(), "counts": _read_counts()}
+
+        steps = {way: eager_step(way) for way in ("off", "on")}
+        per_step = {way: {**_attention_launches(ucfg.encoder_layers, n_masked),
+                          "layer_norm": sites, "layer_norm_bwd": sites}
+                    for way in ("off", "on")}
+        per_step["on"]["pair_bias_attention"] *= 2
+        per_step["on"]["layer_norm"] += layer_sites
+        loss_equal = torch.equal(steps["off"]["loss"], steps["on"]["loss"])
+        grads_equal = all((a is None and b is None) or torch.equal(a, b)
+                          for a, b in zip(steps["off"]["grads"], steps["on"]["grads"]))
+        gen_equal = torch.equal(steps["off"]["generator"], steps["on"]["generator"])
+        moved = not torch.equal(steps["off"]["generator"], gen0)
+        out["a_eager"] = {"loss": float(steps["off"]["loss"]), "loss_bit_equal": loss_equal,
+                          "grads_bit_equal": grads_equal, "grads": len(params),
+                          "generator_state_equal": gen_equal, "generator_moved": moved,
+                          "launches": {w: steps[w]["counts"] for w in steps},
+                          "launches_expected": per_step}
+        print("remat: (a) " + json.dumps(out["a_eager"]), flush=True)
+        if not (loss_equal and grads_equal and gen_equal and moved):
+            raise Failed(f"remat (a): remat on differs from off: loss {loss_equal}, gradients "
+                         f"{grads_equal}, generator {gen_equal} (moved {moved})")
+        for way in steps:
+            got = {k: steps[way]["counts"][k] for k in per_step[way]}
+            if got != per_step[way]:
+                raise Failed(f"remat (a) {way}: launched {got}, expected {per_step[way]}")
+        launches = steps["on"]["counts"]
+        del steps
+        torch.cuda.empty_cache()
+
+        # (b) K replayed steps with remat on against K eager ones; (d) a
+        # replayed step's device ms and launches, remat off and on
+        rng = np.random.RandomState(0)
+        idx = torch.from_numpy(np.stack([rng.permutation(B) for _ in range(K)])).to(dev)
+        opt = FusedAdam(dict(model.named_parameters()), 1e-4, 1000, warmup_ratio=0.1,
+                        max_norm=1.0)
+        progs = {way: TrainPrograms(model, opt, zoo.mse_loss, "regression", gen)
+                 for way in ("off", "on")}
+
+        def state(p):
+            return [t.clone() for t in (*opt.graph_state, p.metric_sums)], gen.get_state()
+
+        def restore(p, saved):
+            with torch.no_grad():
+                for t, v in zip((*opt.graph_state, p.metric_sums), saved[0]):
+                    t.copy_(v)
+            gen.set_state(saved[1])
+
+        def same(a, b):
+            return all(torch.equal(x, y) for x, y in zip([*a[0]], [*b[0]])) and \
+                torch.equal(a[1], b[1])
+
+        _set_remat(model, True)
+        p = progs["on"]
+        s0 = state(p)
+        m_eager = torch.stack([p.single(*res.take(idx[k])) for k in range(K)])
+        after_eager = state(p)
+        restore(p, s0)
+        m_graph = p.feed(res, idx)
+        torch.cuda.synchronize()
+        after_graph = state(p)
+        graph_equal = torch.equal(m_graph, m_eager) and same(after_graph, after_eager)
+        out["b_graph"] = {"steps": K, "graph_bit_equal_eager": graph_equal,
+                          "graphs": len(p.graphs), "warmups": GRAPH_WARMUP}
+        print("remat: (b) " + json.dumps(out["b_graph"]), flush=True)
+        if not graph_equal:
+            raise Failed("remat (b): the replayed steps with remat differ from eager ones")
+        timing = {}
+        for way in ("off", "on"):
+            _set_remat(model, way == "on")
+            fn = (lambda p=progs[way]: p.feed(res, idx))
+            one, ms, kernels = _replay_launches(fn)
+            timing[way] = {"device_ms_per_step": ms / K, "device_kernels_per_step": kernels / K,
+                           "port_launches_per_step": {k: n / K for k, n in one.items()}}
+            if {k: n / K for k, n in one.items()} != per_step[way]:
+                raise Failed(f"remat (d) {way}: a replayed step launched {one} / {K}, "
+                             f"expected {per_step[way]}")
+        timing["on_over_off"] = timing["on"]["device_ms_per_step"] / \
+            timing["off"]["device_ms_per_step"]
+        out["d_step"] = timing
+        print("remat: (d) " + json.dumps(timing) + f" ({card})", flush=True)
+        _set_remat(model, False)
+        del progs, opt, model, res
+        torch.cuda.empty_cache()
+
+    # (e) the rule's decisions at the shapes of PERF.md §4
+    rule = []
+    for b, n in REMAT_RULE_SHAPES + ((REMAT_MOF_B, REMAT_MOF_N),):
+        mof_shape = (b, n) == (REMAT_MOF_B, REMAT_MOF_N)
+        cfg = ucfg
+        need = nnmodel.predicted_step_bytes(b, n, 0 if mof_shape else L, cfg)
+        rule.append({"B": b, "N": n, "model": "mof" if mof_shape else "mm",
+                     "predicted_peak_off": need,
+                     "predicted_peak_on": nnmodel.predicted_step_bytes(
+                         b, n, 0 if mof_shape else L, cfg, remat=True),
+                     "remat": nnmodel.auto_remat(dataclasses.asdict(cfg), n, L, b, dev,
+                                                 data_type="mof" if mof_shape else "molecule")})
+    out["e_rule"] = {"share": nnmodel.REMAT_MEMORY_SHARE, "total_memory": total_memory,
+                     "decisions": rule}
+    print("remat: (e) " + json.dumps(out["e_rule"]), flush=True)
+    if any(r["remat"] for r in rule if (r["B"], r["N"]) in ((32, 64), (32, 280))):
+        raise Failed("remat (e): the rule turned remat on at a shape the card holds easily")
+    print(f"remat: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if "--dp-rank" in sys.argv:       # one rank of phase dp (b), started by phase dp
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
@@ -4947,12 +5453,14 @@ def main() -> int:
     phase_serve(dev, card)
     train_launches = phase_train(dev)
     graph_fit = phase_graphs(dev)
+    remat_launches = phase_remat(dev, card)
     fit_launches = phase_fit(dev, graph_fit)
     task_launches = phase_tasks(dev)
     cv_launches = phase_cv(dev, graph_fit)
     pretrained_launches = phase_pretrained(dev, card, graph_fit)
     mof_launches = phase_mof(dev, card)
     conformer_launches = phase_conformers(dev, card, build)
+    scaler_launches = phase_scalers(dev, card, graph_fit)
     dp_launches = phase_dp(dev, card, graph_fit)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
@@ -4961,7 +5469,8 @@ def main() -> int:
             raise Failed(f"{name} was not launched on its path")
     pretrained_total = _add_counts(*pretrained_launches.values())
     for task, counts in {**task_launches, "cv": cv_launches, "pretrained": pretrained_total,
-                         "conformers": conformer_launches,
+                         "conformers": conformer_launches, "scalers": scaler_launches,
+                         "remat": remat_launches,
                          **{f"dp {run}": c for run, c in dp_launches.items()}}.items():
         for name, n in counts.items():
             if n == 0:
@@ -4978,6 +5487,7 @@ def main() -> int:
          "pretrained_launches": {run: counts[name] for run, counts in pretrained_launches.items()},
          "mof_launches": mof_launches[name],
          "conformers_launches": conformer_launches[name],
+         "scalers_launches": scaler_launches[name], "remat_launches": remat_launches[name],
          "dp_launches": {run: counts[name] for run, counts in dp_launches.items()}}
         for name, (src, rep) in KERNELS.items()
     ]

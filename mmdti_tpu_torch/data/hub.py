@@ -141,7 +141,10 @@ class DataHub:
         self.data = MolDataReader().read_data(data, self.is_train, **params)
         task = self.task
         num_classes = self.data.get("num_classes")
-        scaler = TargetScaler(self.ss_method, task, self.save_path) if self.use_scaler else None
+        # a training hub refits the scaler, so it reads no earlier artifact:
+        # under a data-parallel group rank 0 may be rewriting that file
+        scaler = (TargetScaler(self.ss_method, task, None if self.is_train else self.save_path)
+                  if self.use_scaler else None)
         self.data["target_scaler"] = scaler
 
         raw_target = self.data["raw_target"]

@@ -7,8 +7,8 @@ does.  LayerNorm always computes in fp32.
 Dropout is explicit, as in flax: every forward that drops takes a
 ``generator`` (a ``torch.Generator`` on the tensors' device), and None means
 deterministic.  ``nn.Dropout`` takes no generator, so ``dropout`` below
-draws its own mask; ``draw_seed`` draws the int32 seed of one attention
-call's keep mask (ops/dropout.py).
+draws its own mask (``draw_keep``, then ``apply_keep``); ``draw_seed``
+draws the int32 seed of one attention call's keep mask (ops/dropout.py).
 """
 
 from __future__ import annotations
@@ -32,14 +32,28 @@ ACT2FN = {
 }
 
 
+def draw_keep(generator: Optional[torch.Generator], rate: float, shape,
+              device) -> Optional[torch.Tensor]:
+    """The keep mask ``dropout`` draws for a tensor of ``shape`` (bool,
+    True with probability 1 - rate), or None when nothing drops."""
+    if generator is None or rate <= 0.0:
+        return None
+    return torch.rand(shape, generator=generator, device=device) >= rate
+
+
+def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """Zero ``x`` where ``keep`` is False and scale the rest by 1/(1 - rate);
+    the identity when ``keep`` is None."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate and scale the kept
     values by 1/(1 - rate); the identity when ``generator`` is None."""
-    if generator is None or rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return apply_keep(x, draw_keep(generator, rate, x.shape, x.device), rate)
 
 
 def draw_seed(generator: Optional[torch.Generator], rate: float) -> Optional[torch.Tensor]:

@@ -7,20 +7,30 @@ token/pair norm terms and the delta-pair representation.  Softmax and
 logits accumulate in fp32 while the projections run in the compute dtype;
 the threaded [B,H,N,N] logits are stored in ``cfg.pair_dtype``.  With a
 ``generator`` the forward applies the embedding, attention, activation and
-residual dropouts of the JAX encoder (models/layers.py).
+residual dropouts of the JAX encoder (models/layers.py).  With
+``cfg.remat`` and autograd on, each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the twin of the JAX encoder's
+``nn.remat``: its inner activations are dropped after the forward and
+recomputed in the backward, from the layer's input, its incoming pair bias
+and its draws (``PairBiasEncoderLayer.draw``, made once before the layer),
+so a step with remat is bit-equal to one without.  The incoming pair bias
+is a checkpoint input, so the chain of [B,H,N,N] logits stays resident.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmdti_tpu_torch.configs.architectures import UniMolEncoderConfig
 from mmdti_tpu_torch.models.layers import (
     Dense,
     LayerNormFP32,
+    apply_keep,
+    draw_keep,
     draw_seed,
     dropout,
     get_activation_fn,
@@ -34,6 +44,16 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r}: expected one of {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+class Draws(NamedTuple):
+    """One encoder layer's random draws (None where nothing drops)."""
+
+    deterministic: bool
+    seed: Optional[torch.Tensor]          # the attention call's int32 seed
+    attn_out: Optional[torch.Tensor]      # keep masks, bool
+    activation: Optional[torch.Tensor]
+    out: Optional[torch.Tensor]
 
 
 class PairBiasEncoderLayer(nn.Module):
@@ -50,22 +70,36 @@ class PairBiasEncoderLayer(nn.Module):
         self.fc1 = Dense(E, cfg.ffn_embed_dim, dtype)
         self.fc2 = Dense(cfg.ffn_embed_dim, E, dtype)
 
-    def forward(self, x, bias, generator: Optional[torch.Generator] = None):
-        """x [B,N,E], bias [B,H,N,N] -> (x', new_bias)."""
+    def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> Draws:
+        """The layer's random draws for input ``x``, in the order its
+        computation uses them: the attention call's seed, then the keep
+        masks of the attention output, the activation and the layer output.
+        A philox or Mersenne stream gives the same numbers to the same
+        calls in the same order, so drawing them before the layer runs
+        changes nothing; a recomputed layer (remat) takes them as inputs
+        and never touches the generator."""
+        cfg = self.cfg
+        return Draws(generator is None, draw_seed(generator, cfg.attention_dropout),
+                     draw_keep(generator, cfg.dropout, x.shape, x.device),
+                     draw_keep(generator, cfg.activation_dropout,
+                               (*x.shape[:-1], cfg.ffn_embed_dim), x.device),
+                     draw_keep(generator, cfg.dropout, x.shape, x.device))
+
+    def forward(self, x, bias, draws: "Draws"):
+        """x [B,N,E], bias [B,H,N,N], the layer's ``draws`` -> (x', new_bias)."""
         cfg = self.cfg
         residual = x
         q, k, v = self.in_proj(self.self_attn_layer_norm(x)).chunk(3, dim=-1)
         attn, new_bias = pair_bias_attention(
             q, k, v, bias, num_heads=cfg.attention_heads,
             pair_dtype=torch_dtype(cfg.pair_dtype), dropout_rate=cfg.attention_dropout,
-            seed=draw_seed(generator, cfg.attention_dropout),
-            deterministic=generator is None, use_kernels=self.use_kernels,
+            seed=draws.seed, deterministic=draws.deterministic, use_kernels=self.use_kernels,
         )
-        x = residual + dropout(self.out_proj(attn), cfg.dropout, generator)
+        x = residual + apply_keep(self.out_proj(attn), draws.attn_out, cfg.dropout)
         residual = x
         x = self.act(self.fc1(self.final_layer_norm(x)))
-        x = self.fc2(dropout(x, cfg.activation_dropout, generator))
-        return residual + dropout(x, cfg.dropout, generator), new_bias
+        x = self.fc2(apply_keep(x, draws.activation, cfg.activation_dropout))
+        return residual + apply_keep(x, draws.out, cfg.dropout), new_bias
 
 
 def _norm_loss(x, eps=1e-10, tolerance=1.0):
@@ -115,8 +149,18 @@ class UniMolEncoder(nn.Module):
 
         input_bias = attn_bias.to(torch_dtype(cfg.pair_dtype))
         bias = input_bias
+        # remat: each layer's activations are recomputed in the backward
+        # (flax nn.remat); its draws are made once, outside, so the
+        # recomputation replays them and the generator advances as without
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(cfg.encoder_layers):
-            x, bias = getattr(self, f"layers_{i}")(x, bias, generator)
+            layer = getattr(self, f"layers_{i}")
+            draws = layer.draw(x, generator)
+            if remat:
+                x, bias = checkpoint(layer, x, bias, draws, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                x, bias = layer(x, bias, draws)
 
         if not pair_outputs:
             return {"rep": self.final_layer_norm(x) if not cfg.post_ln else x}

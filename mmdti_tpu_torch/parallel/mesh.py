@@ -35,6 +35,7 @@ is not ported yet and raises (ROADMAP.md §1, tensor parallelism).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import logging
 import os
 from typing import Iterable, Optional, Sequence, Tuple
@@ -56,19 +57,24 @@ RANK_SEED_STRIDE = 0x9E3779B97F4A7C15
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None,
-                           backend: Optional[str] = None) -> torch.device:
+                           backend: Optional[str] = None,
+                           timeout: Optional[float] = None) -> torch.device:
     """Start this process's torch.distributed group and return its device.
 
     Without arguments the group reads torchrun's environment (``env://``:
     MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK); with
-    ``coordinator_address`` ("host:port") it meets the other
-    ``num_processes`` processes over ``tcp://``, this one as
-    ``process_id``.  The backend is NCCL when CUDA is available and gloo
-    otherwise (``backend`` names another).  Each process takes
+    ``coordinator_address`` ("host:port", or a URL such as
+    ``file:///path``, a rendezvous file that needs no free port) it meets
+    the other ``num_processes`` processes, this one as ``process_id``.
+    The backend is NCCL when CUDA is available and gloo otherwise
+    (``backend`` names another).  ``timeout`` (seconds) bounds the
+    rendezvous and every collective's wait, so a process whose peer died
+    raises instead of waiting for torch's default.  Each process takes
     ``cuda:{LOCAL_RANK}`` (torchrun sets it; without it, the rank modulo
     the visible cards)."""
     if coordinator_address is not None:
-        init_method = f"tcp://{coordinator_address}"
+        init_method = (coordinator_address if "://" in coordinator_address
+                       else f"tcp://{coordinator_address}")
         rank, world = int(process_id), int(num_processes)
     else:
         init_method = "env://"
@@ -76,6 +82,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
     device = torch.device("cpu")
     kwargs = {}
+    if timeout is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=float(timeout))
     if torch.cuda.is_available():
         device = local_device(rank)
         torch.cuda.set_device(device)

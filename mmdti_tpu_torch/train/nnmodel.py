@@ -34,6 +34,13 @@ device on a CUDA device and on the host on the CPU, and features made
 without host pair arrays (``pair_feats=False``) take the device mode.
 ``data_type='mof'`` builds models/mof.py's MOFModel (``mof_overrides``);
 it takes no InfoNCE and no ChemBERTa checkpoint.
+
+``unimol_overrides={"remat": True}`` (or False) decides encoder remat
+(models/unimol.py); without it the fit decides (``auto_remat``, logging
+the JAX package's message): on the CPU at the JAX package's XLA-path
+threshold, an atom pad of 160; on a CUDA device where the card's memory
+model (``predicted_step_bytes``) puts one eager step of this rank's rows
+past REMAT_MEMORY_SHARE of the device's memory.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch
 
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
+from mmdti_tpu_torch.configs.architectures import UniMolEncoderConfig
 from mmdti_tpu_torch.data.batching import BatchCollator, MolDataset, dataset_pad_lengths
 from mmdti_tpu_torch.data.reader import read_csv
 from mmdti_tpu_torch.losses import zoo
@@ -96,6 +104,67 @@ def frozen_parameter_names(model, freeze_layers=None, reversed_sel: bool = False
         if hit:
             frozen.add(name)
     return frozenset(frozen)
+
+
+# the JAX package's remat threshold on its XLA path, which the port's CPU
+# path twins: a fit whose atom pad reaches it rematerializes the encoder
+CPU_REMAT_ATOM_PAD = 160
+# on a CUDA device remat turns on where one eager train step's predicted
+# peak without it passes this share of the card's memory
+REMAT_MEMORY_SHARE = 0.8
+# The card's memory model of one eager train step (per rank: its rows of
+# the batch), in bytes: STATIC (the weights, FusedAdam's buffers) plus,
+# per row, for each Uni-Mol layer PAIR_LAYER bytes an element of its
+# [H,N,N] logits (the bf16 chain, which remat keeps too) and TOKEN_LAYER
+# bytes an atom (the activations remat frees; held for one layer, the one
+# recomputed, under remat; scaled by (E + FFN) / 2560), and for the rest
+# of the step TOKEN_OTHER bytes an atom and SMILES bytes a SMILES token.
+# PAIR_LAYER and TOKEN_LAYER are what autograd saves (saved-tensor
+# hooks), the rest a non-negative least-squares fit to the peaks
+# allocated: scripts/remat_memory.py on an NVIDIA H100 80GB HBM3 at
+# 700 W, flagship widths, bf16 compute and pair logits, LayerNorm kernels
+# off (the default), B=32-256, N=64-280, L=64/256.  Without remat every
+# peak is within 3.5 % of the model but the smallest (B=32, N=64: 12 %
+# under); with remat within 8 % from B=128 or N=160 up, and under by up
+# to 38 % below that, where the step's peak is not the activations'
+# (PERF.md §6).  The rule reads only the peak without remat.
+STEP_MEMORY = dict(static=1.187e9, pair_layer=2.0, token_layer=28_184.0,
+                   token_other=53_663.0, smiles=187_059.0)
+
+
+def predicted_step_bytes(rows: int, atom_pad: int, smiles_pad: int, cfg: UniMolEncoderConfig,
+                         remat: bool = False) -> float:
+    """One eager train step's peak allocated bytes on the card (the memory
+    model above): ``rows`` molecules of ``atom_pad`` atoms and
+    ``smiles_pad`` SMILES tokens (0 for a MOF model)."""
+    m = STEP_MEMORY
+    layers = cfg.encoder_layers
+    pair = cfg.attention_heads * float(atom_pad) ** 2
+    pair_scale = (2.0 if cfg.pair_dtype == "bfloat16" else 4.0) / 2.0
+    token = (cfg.embed_dim + cfg.ffn_embed_dim) / 2560.0 * atom_pad
+    per_row = (layers * m["pair_layer"] * pair_scale * pair
+               + (1 if remat else layers) * m["token_layer"] * token
+               + m["token_other"] * atom_pad + m["smiles"] * smiles_pad)
+    return m["static"] + rows * per_row
+
+
+def auto_remat(unimol_overrides: Dict[str, Any], atom_pad: int, smiles_pad: int, rows: int,
+               device: torch.device, data_type: str = "molecule",
+               total_memory: Optional[int] = None) -> bool:
+    """Whether a fit turns encoder remat on by itself (the JAX package's
+    train/nnmodel.py rule; an explicit ``remat`` is the caller's).  On the
+    CPU the port runs the plain path, the twin of the JAX package's XLA
+    path, so it takes that path's threshold: atom_pad >= 160.  On a CUDA
+    device remat turns on where the predicted peak of one eager step
+    without it, for this rank's ``rows``, passes REMAT_MEMORY_SHARE of the
+    card's memory (``total_memory``, else the device's own)."""
+    if device.type != "cuda":
+        return atom_pad >= CPU_REMAT_ATOM_PAD
+    if total_memory is None:
+        total_memory = torch.cuda.get_device_properties(device).total_memory
+    cfg = UniMolEncoderConfig(**{k: v for k, v in unimol_overrides.items() if k != "remat"})
+    need = predicted_step_bytes(rows, atom_pad, 0 if data_type == "mof" else smiles_pad, cfg)
+    return need > REMAT_MEMORY_SHARE * total_memory
 
 
 class NNModel:
@@ -168,6 +237,13 @@ class NNModel:
         unimol_overrides = dict(params.get("unimol_overrides") or {})
         unimol_overrides.setdefault(
             "pair_dtype", "bfloat16" if self.device.type == "cuda" else "float32")
+        # an explicit remat always wins; else the device's rule decides
+        if "remat" not in unimol_overrides and auto_remat(
+                unimol_overrides, self.atom_pad, self.smiles_pad,
+                trainer.batch_size // (trainer.data_group.size if trainer.data_group else 1),
+                self.device, data_type=self.data_type):
+            unimol_overrides["remat"] = True
+            logger.info("Auto-enabled encoder rematerialization (atom_pad=%d)", self.atom_pad)
         common = dict(
             output_dim=self.output_dim,
             atom_vocab_size=len(self.dictionary),

@@ -4,11 +4,15 @@ package).
 
 Reading: ``RestrictedUnpickler`` restores numpy arrays, dtypes and
 scalars, joblib's ``NumpyArrayWrapper`` (an array whose raw bytes follow
-its pickle in the file, as ``joblib.dump`` writes every array) and the
-stand-in classes a caller maps by (module, name); any other class is
-refused before it is called.  Writing: ``GlobalPickler`` writes the
-stand-in classes a caller names under other (module, name) globals, the
-classes a reader with that package restores, without importing them.
+its pickle in the file, as ``joblib.dump`` writes every array), the
+numpy ufuncs a caller names (a pickled ufunc is a global of
+``numpy._core._multiarray_umath`` in numpy 2.0, ``numpy.core.
+_multiarray_umath`` in numpy 1, or ``numpy`` itself in later numpy 2
+releases) and the stand-in classes a caller maps by (module, name); any
+other global is refused before it is called.  Writing: ``GlobalPickler``
+writes the stand-in classes a caller names under other (module, name)
+globals, the classes a reader with that package restores, without
+importing them.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ NUMPY_CLASSES = {("numpy", "ndarray"), ("numpy", "dtype")} | {
     (mod, name) for mod in ("numpy.core.multiarray", "numpy._core.multiarray")
     for name in ("_reconstruct", "scalar")}
 JOBLIB_ARRAY = ("joblib.numpy_pickle", "NumpyArrayWrapper")
+UFUNC_MODULES = ("numpy._core._multiarray_umath", "numpy.core._multiarray_umath", "numpy")
 
 
 class JoblibArray:
@@ -44,13 +49,18 @@ class JoblibArray:
 
 
 class RestrictedUnpickler(pickle._Unpickler):
-    """Reads numpy objects, joblib's arrays and the classes of ``classes``
-    ((module, name) -> class); ``refuse(module, name)`` raises for any
-    other.  ``what`` names the file in errors."""
+    """Reads numpy objects, joblib's arrays, the numpy ufuncs named in
+    ``ufuncs`` and the classes of ``classes`` ((module, name) -> class);
+    ``refuse(module, name)`` raises for any other.  ``what`` names the
+    file in errors."""
 
-    def __init__(self, f, what: str, classes: Dict[Tuple[str, str], type] = None):
+    def __init__(self, f, what: str, classes: Dict[Tuple[str, str], type] = None,
+                 ufuncs: Tuple[str, ...] = ()):
         super().__init__(f)
         self._f, self.what, self.classes = f, what, dict(classes or {})
+        for name in ufuncs:
+            for module in UFUNC_MODULES:
+                self.classes[module, name] = getattr(np, name)
 
     def refuse(self, module: str, name: str):
         raise pickle.UnpicklingError(f"{self.what} names {module}.{name}")

@@ -35,10 +35,10 @@ tests/test_distributed_dcn.py spawns its workers), SMALL_ARCH width
 import functools
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import numpy as np
@@ -63,12 +63,47 @@ DROPOUT_ARCH = {name: {k: v for k, v in SMALL_ARCH[name].items() if "dropout" no
                 for name in ("unimol_overrides", "chemberta_overrides")}
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# the ranks' work, started beside the one-process fits, must end within this
+RANKS_DEADLINE_S = 900
+
+
+def _start_ranks(tmp, spec_path):
+    """The two ranks, meeting through a rendezvous file in ``tmp``; each
+    one's output goes to a file (a pipe nobody reads while the one-process
+    fits run could fill and stop a rank)."""
+    env = dict(os.environ, MMDTI_DISABLE_FILE_LOG="1")
+    rendezvous = "file://" + str(tmp / "rendezvous")
+    procs = []
+    for r in range(2):
+        with open(tmp / f"rank{r}.out", "w") as out, open(tmp / f"rank{r}.err", "w") as err:
+            procs.append(subprocess.Popen([sys.executable, WORKER, str(r), rendezvous, spec_path],
+                                          env=env, stdout=out, stderr=err))
+    return procs
+
+
+def _stop(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _join_ranks(tmp, procs, deadline):
+    """Wait for both ranks until ``deadline`` (time.monotonic()); on a
+    failure or a timeout stop both and report both ranks' stderr."""
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        failed = any(p.returncode != 0 for p in procs)
+        what = "a rank failed"
+    except subprocess.TimeoutExpired:
+        failed, what = True, f"the ranks did not finish within {RANKS_DEADLINE_S} s"
+    finally:
+        _stop(procs)
+    if failed:
+        report = [f"rank {r} (rc {p.returncode}):\n{(tmp / f'rank{r}.err').read_text()[-6000:]}"
+                  for r, p in enumerate(procs)]
+        pytest.fail(f"{what}\n" + "\n".join(report))
 
 
 def _port_fit(kwargs, data):
@@ -180,18 +215,18 @@ def dp(tmp_path_factory):
         spec_path = str(tmp / "spec.json")
         with open(spec_path, "w") as f:
             json.dump(spec, f)
-        env = dict(os.environ, MMDTI_DISABLE_FILE_LOG="1")
-        port = _free_port()
-        procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(port), spec_path],
-                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True) for r in range(2)]
-        # the one-process runs while the ranks work
-        single = {"grad": _one_process_grad(spec),
-                  "multilabel": _port_fit(dict(ml_kw, save_path=str(tmp / "ml_exp")), ml_data),
-                  "ghm": _port_fit(dict(ghm_kw, save_path=str(tmp / "ghm_exp")), ghm_data)}
-        for p in procs:
-            out, err = p.communicate(timeout=600)
-            assert p.returncode == 0, f"rank failed:\n{out[-3000:]}\n{err[-6000:]}"
+        deadline = time.monotonic() + RANKS_DEADLINE_S
+        procs = _start_ranks(tmp, spec_path)
+        try:
+            # the one-process runs while the ranks work
+            single = {"grad": _one_process_grad(spec),
+                      "multilabel": _port_fit(dict(ml_kw, save_path=str(tmp / "ml_exp")),
+                                              ml_data),
+                      "ghm": _port_fit(dict(ghm_kw, save_path=str(tmp / "ghm_exp")), ghm_data)}
+        except BaseException:
+            _stop(procs)
+            raise
+        _join_ranks(tmp, procs, deadline)
         ranks = []
         for r in range(2):
             with open(spec["out"].format(rank=r)) as f:

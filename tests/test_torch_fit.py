@@ -1,7 +1,9 @@
 """mmdti_tpu_torch's fit-and-predict path on the CPU against the JAX package.
 
 * The host modules on the same numpy inputs: FDS (1e-6), target scaler
-  (auto/standard/robust, 1e-6: scikit-learn sums in another order), sample
+  (auto/standard/robust, 1e-6: scikit-learn sums in another order; every
+  mode at 1e-12 in tests/test_torch_scaler_modes.py), a power_trans fit
+  -> predict against the JAX package's, normalizer failing both fits, sample
   weights and scaffold/random splits (exact), the CSV reader and the
   synthetic protocol dataset (exact).
 * The artifact codecs both ways: config.yaml (PyYAML reads the port's,
@@ -26,6 +28,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import warnings
 
 import flax.serialization
 import jax
@@ -130,8 +133,12 @@ def test_target_scaler_matches_jax(tmp_path, method, values):
 
 
 def test_scaler_modes_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TargetScaler("minmax", "regression").fit(np.arange(5.0))
+    """Every mode of the JAX package is ported (tests/test_torch_scaler_modes.py);
+    a mode neither package has raises in both."""
+    with pytest.raises(ValueError, match="Unknown scaler method"):
+        TargetScaler("zscore", "regression").fit(np.arange(5.0))
+    with pytest.raises(KeyError):
+        JaxScaler("zscore", "regression").fit(np.arange(5.0))
 
 
 @pytest.mark.parametrize("lds", [False, True])
@@ -492,3 +499,59 @@ def test_classification_fit_path_runs_without_jax_or_host_deps(tmp_path):
     proc = _run_blocked(_BLOCKED_CLASSIFICATION_FIT, tmp_path, "classification")
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "PORT_FIT_OK" in proc.stdout
+
+
+# the scaler modes' fits run last: this process has compiled the JAX fit by now
+def test_power_trans_fit_matches_jax(tmp_path):
+    """target_normalize="power_trans" on positive targets (Box-Cox) through
+    both packages' fit -> predict (tests/torch_task_parity.py) at the fit
+    tolerances; joblib reads the port's scaler as a PowerTransformer."""
+    import joblib
+
+    from tests.torch_task_parity import (
+        assert_history_equal,
+        assert_predictions_equal,
+        both_fits,
+        one_thread,
+    )
+
+    threads = one_thread()
+    try:
+        y = np.abs(np.random.RandomState(4).randn(20)) * 2 + 0.3
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # scikit-learn's version warning
+            fits = both_fits(tmp_path, "regression", {"y": y}, "mse",
+                             target_normalize="power_trans")
+            scaler = joblib.load(os.path.join(fits["port"]["exp"], "target_scaler.ss"))
+    finally:
+        torch.set_num_threads(threads)
+    assert_history_equal(fits, "mse")
+    assert_predictions_equal(fits)
+    assert type(scaler).__name__ == "PowerTransformer" and scaler.method == "box-cox"
+
+
+def test_normalizer_fails_the_fit_in_both_packages(tmp_path):
+    """scikit-learn's Normalizer has no inverse_transform: the JAX fit fails
+    at its first validation with an AttributeError, the port's at the same
+    point with a ValueError that says why; both wrote the Normalizer."""
+    import joblib
+
+    from mmdti_tpu import MolTrain as JaxTrain
+    from mmdti_tpu_torch import MolTrain
+    from tests.torch_task_parity import fit_kwargs, one_thread, task_csvs
+
+    threads = one_thread()
+    try:
+        y = np.random.RandomState(3).randn(20) * 2 + 1
+        train_p, val_p = task_csvs(tmp_path, {"y": y})
+        kw = dict(fit_kwargs("regression", ["y"], "mse", ""), epochs=1,
+                  target_normalize="normalizer")
+        with pytest.raises(AttributeError, match="inverse_transform"):
+            JaxTrain(**dict(kw, save_path=str(tmp_path / "jax"))).fit(train_p, val_p)
+        with pytest.raises(ValueError, match="normalizer.*no inverse_transform"):
+            MolTrain(**dict(kw, save_path=str(tmp_path / "port")), device="cpu").fit(train_p,
+                                                                                     val_p)
+    finally:
+        torch.set_num_threads(threads)
+    for d in ("jax", "port"):
+        assert type(joblib.load(str(tmp_path / d / "target_scaler.ss"))).__name__ == "Normalizer"

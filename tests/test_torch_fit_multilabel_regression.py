@@ -7,7 +7,9 @@ NaN + InfoNCE + CT_Regress, the per-column target scaler, metrics="mae".
 * cv_pred and MolPredict's predictions, inverse-scaled (1e-5 abs / 1e-4
   rel);
 * the predict CSV: the same predict_<col> columns and the same
-  test_metric.result file.
+  test_metric.result file;
+* the same fit with target_normalize="quantile" over the NaN-masked
+  columns.
 """
 
 import numpy as np
@@ -49,6 +51,28 @@ def test_history_matches_jax(fits):
 def test_predictions_match_jax(fits):
     assert_predictions_equal(fits)
     assert fits["port"]["pred"].shape == (4, 2) and np.isfinite(fits["port"]["pred"]).all()
+
+
+def test_quantile_fit_matches_jax(tmp_path):
+    """target_normalize="quantile" over the NaN-masked columns (one
+    QuantileTransformer a column, fitted on its non-NaN rows): both
+    packages' fit -> predict at the same tolerances."""
+    import warnings
+
+    import joblib
+
+    threads = one_thread()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # scikit-learn's n_quantiles warning
+            fits = both_fits(tmp_path, "multilabel_regression", _columns(), "mae",
+                             target_normalize="quantile")
+            scalers = joblib.load(str(tmp_path / "exp_port" / "target_scaler.ss"))
+    finally:
+        torch.set_num_threads(threads)
+    assert_history_equal(fits, "mae")
+    assert_predictions_equal(fits)
+    assert [type(s).__name__ for s in scalers] == ["QuantileTransformer"] * 2
 
 
 def test_predict_csv_matches_jax(fits):

@@ -704,6 +704,56 @@ def test_plain_path_graph_steps_equal_eager_steps(cuda):
     assert torch.equal(gen_graph, gen.get_state())
 
 
+@pytest.mark.parametrize("ln", ["0", "1"])
+def test_remat_steps_equal_steps_without_remat(cuda, monkeypatch, ln):
+    """Encoder remat through the kernels, every dropout on: 3 eager steps
+    with remat equal 3 without from the same state (parameters, moments,
+    counts, metrics, generator), with the pair-bias forward run twice a
+    layer; and 3 steps replayed from one graph with remat equal them."""
+    import dataclasses
+
+    monkeypatch.setenv("MMDTI_PALLAS_LN", ln)
+    model, opt, gen, progs, res = _graph_setup(cuda)
+    idx = torch.arange(24, device=cuda).view(3, 8)
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    m_off = _eager_feed(progs, res, idx)
+    torch.cuda.synchronize()
+    after_off, gen_off = _train_state(opt, progs), gen.get_state()
+    _restore(opt, progs, gen, saved, gen0)
+    model.encoder.cfg = dataclasses.replace(model.encoder.cfg, remat=True)
+    before = ha.pair_bias_attention_cuda.launches
+    m_on = _eager_feed(progs, res, idx)
+    torch.cuda.synchronize()
+    assert ha.pair_bias_attention_cuda.launches - before == 2 * model.unimol_cfg.encoder_layers * 3
+    assert torch.equal(m_off, m_on)
+    for a, b in zip(after_off, _train_state(opt, progs)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_off, gen.get_state())
+    _restore(opt, progs, gen, saved, gen0)
+    m_graph = progs.feed(res, idx)
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1 and torch.equal(m_graph, m_on)
+    for a, b in zip(after_off, _train_state(opt, progs)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_off, gen.get_state())
+
+
+def test_card_remat_rule_reads_the_device_memory(cuda):
+    """The card's auto-remat rule compares the predicted peak of a step with
+    a share of this device's memory (no 80 GB assumed)."""
+    from mmdti_tpu_torch.configs.architectures import UniMolEncoderConfig
+    from mmdti_tpu_torch.train import nnmodel
+
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    cfg = UniMolEncoderConfig(pair_dtype="bfloat16")
+    for b, n in ((32, 64), (32, 280), (256, 280)):
+        want = nnmodel.predicted_step_bytes(b, n, 64, cfg) > nnmodel.REMAT_MEMORY_SHARE * total
+        assert nnmodel.auto_remat({"pair_dtype": "bfloat16"}, n, 64, b, cuda) is want
+    assert not nnmodel.auto_remat({"pair_dtype": "bfloat16"}, 280, 64, 32, cuda)
+    assert nnmodel.auto_remat({"pair_dtype": "bfloat16"}, 280, 64, 32, cuda,
+                              total_memory=total // 100)
+
+
 def test_graph_replay_reads_the_fds_state_copied_in(cuda):
     """set_fds_state writes the graph's FDS tensors in place: a replay
     after it equals eager steps on the new state, and differs from eager

@@ -5,8 +5,7 @@
   multilabel_regression), without either package: joblib restores
   scikit-learn objects that transform as the port does;
 * the port reads the JAX package's joblib scalers, and its own earlier
-  ``.npz``; a scaler of a mode the port lacks raises, naming its class and
-  ROADMAP.md;
+  ``.npz``; a scikit-learn class no mode writes raises, naming it;
 * experiment dirs: the JAX MolPredict on the port's regression and
   multilabel_regression dirs fitted with ``use_scaler=True`` gives the
   port's predictions, and the port's MolPredict and MolServe on a dir
@@ -98,8 +97,21 @@ def test_port_reads_its_earlier_npz(tmp_path):
 @pytest.mark.parametrize("method,name", [("minmax", "MinMaxScaler"), ("maxabs", "MaxAbsScaler"),
                                          ("quantile", "QuantileTransformer")])
 def test_other_jax_scaler_modes_raise(tmp_path, method, name):
-    JaxScaler(method, "regression").fit(TARGETS["regression"], str(tmp_path))
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md"):
+    """The JAX package's file of each of these modes is read and transforms
+    as the JAX scaler does; a scikit-learn class that no mode writes
+    (Binarizer) still raises, naming it."""
+    from sklearn.preprocessing import Binarizer
+
+    theirs = JaxScaler(method, "regression")
+    theirs.fit(TARGETS["regression"], str(tmp_path))
+    ours = TargetScaler(method, "regression", str(tmp_path))
+    assert type(ours.scaler[0]).__name__ == f"_{name}"
+    x = np.random.RandomState(3).randn(6, 1)
+    np.testing.assert_allclose(ours.transform(x), theirs.transform(x), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(ours.inverse_transform(x), theirs.inverse_transform(x),
+                               rtol=1e-12, atol=1e-12)
+    joblib.dump(Binarizer().fit(TARGETS["regression"]), str(tmp_path / ARTIFACT_NAME))
+    with pytest.raises(NotImplementedError, match="Binarizer"):
         TargetScaler(method, "regression", str(tmp_path))
 
 

@@ -117,6 +117,11 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
                 raise ImportError(f"blocked import: {name}")
             return None
 
+    # torch.utils.checkpoint (encoder remat) imports torch._dynamo, which
+    # asks importlib whether pandas and other packages exist; the block
+    # would answer with an error where a machine without them answers None
+    import torch._dynamo
+
     sys.meta_path.insert(0, Block())
 
     import numpy as np
@@ -282,6 +287,24 @@ _BLOCKED_SCRIPT = textwrap.dedent("""
     assert all(np.isfinite(f["src_coord"]).all() for f in confs)
     fed = [s.take() for s in prefetch_to_device([(np.ones(2), None)], StreamPut("cpu"))]
     assert fed[0][0].sum().item() == 2 and fed[0][1] is None
+    # every target_normalize mode fitted, written as joblib's pickle and
+    # read back; a fit step with encoder remat
+    from mmdti_tpu_torch.data.scaler import SCALER_MODE, TargetScaler
+
+    y = np.abs(np.random.RandomState(0).randn(30, 2)) + 0.1
+    for mode in SCALER_MODE:
+        fitted = TargetScaler(mode, "multilabel_regression")
+        fitted.fit(y, os.path.join(exp, "scaler_" + mode))
+        again = TargetScaler(mode, "multilabel_regression", os.path.join(exp, "scaler_" + mode))
+        np.testing.assert_array_equal(again.transform(y), fitted.transform(y))
+    remat = build_model(1, len(d), d.pad(), SmilesTokenizer().vocab_size,
+                        unimol_overrides=dict(cfg["unimol_overrides"], remat=True),
+                        chemberta_overrides=cfg["chemberta_overrides"],
+                        crossmodal_overrides=cfg["crossmodal_overrides"])
+    remat.load_state_dict(model.state_dict())
+    step = build_train_step(remat, FusedAdam(dict(remat.named_parameters()), 1e-4, 10),
+                            mse_loss, "regression")
+    assert torch.isfinite(step(feats, labels, None, torch.Generator().manual_seed(0))["loss"])
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("PORT_ONLY_OK")

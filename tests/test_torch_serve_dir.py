@@ -205,9 +205,9 @@ def test_host_pair_feature_spellings():
 
 
 def test_jax_joblib_scaler_refused(cv_exp, tmp_path):
-    """A JAX-written (joblib) StandardScaler is read and serves as the JAX
-    MolServe does; a scaler of a mode the port lacks is refused with a
-    pointer to ROADMAP.md."""
+    """A JAX-written (joblib) StandardScaler and MinMaxScaler are read and
+    serve as the JAX MolServe does; a scikit-learn class that no mode
+    writes (Binarizer) is refused, naming it."""
     exp = str(tmp_path / "exp_scaled")
     shutil.copytree(cv_exp[0], exp)
     cfg = load_yaml(os.path.join(exp, "config.yaml"))
@@ -219,5 +219,13 @@ def test_jax_joblib_scaler_refused(cv_exp, tmp_path):
     want = JaxServe(exp).predict(SMILES_20)
     np.testing.assert_allclose(got["predict"], want["predict"], atol=PRED_ATOL, rtol=PRED_RTOL)
     JaxScaler("minmax", "regression").fit(np.linspace(-3, 5, 20).reshape(-1, 1), exp)
-    with pytest.raises(NotImplementedError, match="MinMaxScaler.*ROADMAP.md"):
+    cfg["target_normalize"] = "minmax"
+    save_yaml(cfg, os.path.join(exp, "config.yaml"))
+    got = MolServe(exp, device="cpu").predict(SMILES_20)
+    want = JaxServe(exp).predict(SMILES_20)
+    np.testing.assert_allclose(got["predict"], want["predict"], atol=PRED_ATOL, rtol=PRED_RTOL)
+    from sklearn.preprocessing import Binarizer
+
+    joblib.dump(Binarizer().fit(np.zeros((2, 1))), os.path.join(exp, "target_scaler.ss"))
+    with pytest.raises(NotImplementedError, match="Binarizer"):
         MolServe(exp, device="cpu")

@@ -1,7 +1,10 @@
 """One rank of the two-process gloo group of tests/test_torch_dp.py (not a
-test module itself): ``python tests/torch_dp_worker.py RANK PORT SPEC``.
+test module itself): ``python tests/torch_dp_worker.py RANK RENDEZVOUS SPEC``.
 
-It joins the group through parallel/mesh.py::initialize_distributed and,
+It joins the group through parallel/mesh.py::initialize_distributed at
+RENDEZVOUS (a ``file://`` URL: the ranks meet through a file, so no port
+has to stay free between its choice and its use), with collectives that
+wait at most GROUP_TIMEOUT_S, and,
 as the spec (JSON) asks, takes the global-batch gradient of one step,
 draws dropout masks for rows that are the same on both ranks, checks the
 batch-size rounding and the mesh checks of a Trainer under a group, and
@@ -33,6 +36,8 @@ from mmdti_tpu_torch.parallel.mesh import (  # noqa: E402
 )
 
 WRITES = []
+# a rank whose peer stopped raises after this long instead of torch's default
+GROUP_TIMEOUT_S = 300
 
 
 def _audit(root):
@@ -142,12 +147,12 @@ def run_fit(fit):
             "batch_size": clf.trainer.batch_size}
 
 
-def main(rank: int, port: int, spec_path: str) -> None:
+def main(rank: int, rendezvous: str, spec_path: str) -> None:
     torch.set_num_threads(1)
     with open(spec_path) as f:
         spec = json.load(f)
     _audit(spec["exp_root"])
-    initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    initialize_distributed(rendezvous, 2, rank, backend="gloo", timeout=GROUP_TIMEOUT_S)
     group = DataGroup()
     out = {"rank": group.rank, "size": group.size, "backend": group.backend}
     if "batch" in spec:
@@ -162,4 +167,4 @@ def main(rank: int, port: int, spec_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    main(int(sys.argv[1]), sys.argv[2], sys.argv[3])
