@@ -5,9 +5,10 @@ classification tasks, cross-validation, resume and the fit profiler,
 fine-tuning from pretrained checkpoints with layers frozen, the MOF
 model family on crystals of up to 512 atoms, conformer generation on
 the card beside the native host chemistry, the target scalers through
-fit, predict and serve, encoder remat, and data parallelism (a
+fit, predict and serve, encoder remat, data parallelism (a
 one-rank NCCL group, two gloo ranks on the card, a one-replica serving
-mesh).  The pair distances and edge
+mesh) and tensor parallelism (two gloo ranks on the card as one model
+row, two serving shards on the card).  The pair distances and edge
 types are built on the card from coordinates (device_pair_feats 'auto')
 unless a check names the host's arrays.
 
@@ -270,14 +271,32 @@ Phases, one result line each; any failure exits non-zero:
    the masks and outputs differ across ranks; (c) MolServe(mesh_shape=
    (1, 1)) bit-equal to MolServe() on phase serve's dir for requests of
    1, 8 and 20 SMILES, and mesh_shape=(2, 1) refused, naming the one card;
-16. one JSON line with every kernel's summary (each task's, phase cv's,
-   phase pretrained's, phase mof's, phase conformers', phase scalers',
-   phase remat's and phase dp's launches beside the main path's), then
-   {"ok": true, ...}.
+16. tp, tensor parallelism (parallel/mesh.py's model axis), with
+   MMDTI_PALLAS_LN=1 for its step: (a) two gloo ranks on the one card as
+   one model row, mesh (1, 2), this script started twice with --tp-rank:
+   the flagship train step (B=32, N=L=64, bf16, every dropout on) on
+   each rank's shard against the one-process step on the same weights
+   and seed (loss 2e-2, each gradient, gathered whole, 0.1 of its max),
+   each rank's launches of all eight kernels at its shard's heads
+   (pair-bias 32, masked 4 and 8, gbf 32 on "mma"), its model-group
+   collectives and its peak memory beside the one-process step's; (b)
+   MolServe(mesh_shape=(1, 2)) on phase serve's dir with both shards on
+   cuda:0 (make_mesh given the card twice): graph replay bit-equal to the
+   eager forward, within 2e-3 of the one-shard server, p50 at 1, 8 and
+   20 SMILES graph, eager and one shard, alternated.  Phase 3 holds gbf
+   at a tensor-parallel rank's H = 16, 32 and 48 and the attention
+   kernels at a head offset (keep masks entry by entry) to their plain
+   versions;
+17. the seconds each phase took, one JSON line with every kernel's
+   summary (each task's, phase cv's, phase pretrained's, phase mof's,
+   phase conformers', phase scalers', phase remat's, phase dp's and
+   phase tp's launches beside the main path's), then {"ok": true, ...}.
 
 Imports nothing of JAX.  Without CUDA, or without the package beside this
 file, it prints no result and exits 2.  With ``--dp-rank R --dp-port P
---dp-spec S`` it is one rank of phase dp (b), as that phase starts it.
+--dp-spec S`` it is one rank of phase dp (b), with ``--tp-rank R
+--tp-port P --tp-spec S`` one rank of phase tp (a), as those phases start
+them.
 """
 
 from __future__ import annotations
@@ -573,7 +592,7 @@ class _PairRows:
         self.lib = _build.load("pair_bias_attention")
         self.inputs, self.bias, self.logits = (q, k, v), bias, logits
         self.cots = (g_out, g_logits)
-        self.drop = ha._dropout_args(seed, rate, q.device)
+        self.drop = ha._dropout_args(seed, rate, q.device, H)
         self.tail = (B, N, H, E // H, 1, 1, torch.cuda.current_stream(q.device).cuda_stream)
         self.out, self.new_logits = torch.empty_like(q), torch.empty_like(bias)
         self.grads = [torch.empty_like(t) for t in (q, k, v, bias)]
@@ -926,6 +945,9 @@ def _gbf_cases(dev, gen, record, B=32, K=128, cases=None):
         cases = [(N, 64, "gelu_tanh", "fp32") for N in (64, 280)]
         cases += [(N, 64, act, "bf16") for N in (64, 280, 65) for act in ("gelu_tanh", "gelu")]
         cases += [(64, 96, "gelu_tanh", "bf16")]
+        # a tensor-parallel rank's heads
+        cases += [(N, H, act, "bf16") for H in TP_GBF_HEADS for N in (64, 280)
+                  for act in ("gelu_tanh", "gelu")]
     params = {}
     for N, H, act, prec in cases:
         dt = torch.float32 if prec == "fp32" else torch.bfloat16
@@ -946,6 +968,8 @@ def _gbf_cases(dev, gen, record, B=32, K=128, cases=None):
         route = hg.gbf_route(dt, K, K, H)
         timed = prec == "bf16" and act == "gelu_tanh" and N != 65 and H == 64
         main = N == 64 and B == 32 and timed
+        # a tensor-parallel rank's widths: the FMA kernels' device times beside
+        fma_timed = timed or (prec == "bf16" and act == "gelu_tanh" and H in TP_GBF_HEADS)
         case = f"B={B} N={N} K={K} H={H} {act} padded keys"
         sfu = P * (2 * K if act == "gelu_tanh" else K) / sfu_per_s * 1e3
 
@@ -972,17 +996,21 @@ def _gbf_cases(dev, gen, record, B=32, K=128, cases=None):
             record.failures.append(f"gbf_proj {case} {prec}: the GEMM part of the output "
                                    f"(rms {extra['gemm_part_rms']}) is within twice the "
                                    f"tolerance {atol}: the check cannot tell a wrong kernel")
-        if timed:
+        if fma_timed:
             fma = _GbfFma(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
             fma.fwd()
             torch.cuda.synchronize()
             e_fma, ok_fma = _err(fma.out, want, atol, rtol)
             errs["fma_out"] = (e_fma, atol, ok_fma)
+            # at a tensor-parallel rank's widths timed with CUDA events (fewer
+            # profiler windows in the process)
+            extra.update(sfu_floor_ms=sfu, **({"fma_device_ms": _device_ms(fma.fwd)} if timed
+                                              else {"fma_ms": _time_ms(fma.fwd)}))
+        if timed:
             unfused = _GbfUnfused(u, means, std, w1, b1, w2, b2, pad, g, act, dt)
             with torch.no_grad():
-                extra.update(fma_device_ms=_device_ms(fma.fwd),
-                             unfused_device_ms=_device_ms(unfused.fwd, n=5))
-            extra.update(sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)
+                extra.update(unfused_device_ms=_device_ms(unfused.fwd, n=5))
+            extra.update(unfused_is=GBF_UNFUSED_IS)
         record("gbf_proj", case, prec, errs, _time_ms(fwd),
                _time_ms(plain_fwd, iters=10), None,
                _bound(P * (4 + H * BYTES[prec]), 2 * P * (K * K + K * H), prec), main, extra)
@@ -1002,17 +1030,114 @@ def _gbf_cases(dev, gen, record, B=32, K=128, cases=None):
         if not bit_equal:
             record.failures.append(f"gbf_proj_bwd {case} {prec}: repeated calls differ")
         extra = {"route": route, "repeat_bit_equal": bit_equal, "device_ms": _device_ms(bwd)}
-        if timed:
+        if fma_timed:
             fma.bwd()
             torch.cuda.synchronize()
             errs.update(_grad_errs(("fma_du", "fma_dmeans", "fma_dstd", "fma_dw1", "fma_db1",
                                     "fma_dw2", "fma_db2"), fma.grad_tuple(), want, prec))
-            extra.update(fma_device_ms=_device_ms(fma.bwd),
-                         unfused_fwd_bwd_device_ms=_device_ms(unfused.fwd_bwd, n=5),
-                         sfu_floor_ms=sfu, unfused_is=GBF_UNFUSED_IS)
+            extra.update(sfu_floor_ms=sfu, **({"fma_device_ms": _device_ms(fma.bwd)} if timed
+                                              else {"fma_ms": _time_ms(fma.bwd)}))
+        if timed:
+            extra.update(unfused_fwd_bwd_device_ms=_device_ms(unfused.fwd_bwd, n=5),
+                         unfused_is=GBF_UNFUSED_IS)
         record("gbf_proj_bwd", case, prec, errs, _time_ms(bwd), _time_ms(plain_bwd, iters=10),
                None, _bound(P * (8 + H * BYTES[prec]), 2 * P * (3 * K * K + 2 * K * H), prec),
                main, extra)
+
+
+def _extract_keep(run, B, H, Nq, Nk, D):
+    """The keep mask [B,H,Nq,Nk] an attention kernel drew, entry by entry:
+    with q = k = 0 and a zero bias every probability is 1/Nk, so with v
+    the unit vector e_d at key c*D + d (zero elsewhere) the output's column
+    d is keep[..., c*D + d] * scale / Nk.  ``run(v)`` returns the forward's
+    out [B,Nq,H*D] for v [B,Nk,H*D]; one call per D keys."""
+    import torch
+
+    keep = torch.zeros(B, H, Nq, Nk, dtype=torch.bool)
+    eye = torch.eye(D)
+    for c in range(0, Nk, D):
+        v = torch.zeros(B, Nk, H, D)
+        n = min(D, Nk - c)
+        v[:, c:c + n] = eye[:n][None, :, None, :]
+        out = run(v.view(B, Nk, H * D)).float().view(B, Nq, H, D).cpu()
+        keep[..., c:c + n] = out.permute(0, 2, 1, 3)[..., :n] > 0.5 / Nk
+    return keep
+
+
+def _head_offset_cases(dev, gen, seed, record):
+    """The attention kernels on a tensor-parallel rank's heads: the second
+    half of a layer's heads (h0 = H, H_total = 2H) at B=8, N=64, dropout
+    0.1, bf16 (tensor cores) and fp32 (row kernels): pair-bias at 32 of 64
+    heads (D=8), masked at ChemBERTa's 4 of 8 (D=64) and the cross-modal
+    layer's 8 of 16 (D=32).  Forward and backward against their plain
+    versions at the same offset, and the keep mask each forward drew,
+    entry by entry (_extract_keep), against ops/dropout.py's at the offset
+    (and unequal to the mask of the first heads)."""
+    import torch
+
+    from mmdti_tpu_torch.ops import dropout as drop
+    from mmdti_tpu_torch.ops import hopper_attention as ha
+
+    B, N = 8, 64
+    for kind, H, D in (("pair_bias", 32, 8), ("masked", 4, 64), ("masked", 8, 32)):
+        span = (H, 2 * H)
+        want_keep = drop.keep_mask(seed, DROPOUT, B, 2 * H, N, N, heads=slice(H, 2 * H),
+                                   device=dev).cpu()
+        first_keep = drop.keep_mask(seed, DROPOUT, B, 2 * H, N, N, heads=slice(0, H),
+                                    device=dev).cpu()
+        lens = _padded_lengths(gen, B, N)
+        pad = (torch.arange(N)[None, :] >= lens[:, None]).to(dev)
+        q, k, v, g = (torch.randn(B, N, H * D, generator=gen).to(dev) for _ in range(4))
+        for prec, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            args = [t.to(dt).contiguous() for t in (q, k, v)]
+            go = g.to(dt)
+            case = f"{kind} B={B} N={N} H={H} of {2 * H} (h0={H}) D={D} dropout={DROPOUT}"
+            zeros = torch.zeros(B, N, H * D, dtype=dt, device=dev)
+            if kind == "pair_bias":
+                bias = torch.randn(B, H, N, N, generator=gen).to(dev).masked_fill(
+                    pad[:, None, None, :], float("-inf")).to(dt)
+                gl = torch.randn(B, H, N, N, generator=gen).to(dev).to(dt)
+                out, logits, stats = ha.pair_bias_attention_cuda(*args, bias, H, seed, DROPOUT,
+                                                                 span)
+                w_out, w_logits, w_stats = ha.pair_bias_attention_plain(*args, bias, H, dt, seed,
+                                                                        DROPOUT, span)
+                rest = (go, gl, H, seed, DROPOUT, span)
+                grads = ha.pair_bias_attention_bwd_cuda(*args, w_logits, w_out, w_stats, *rest)
+                oracle = ha.pair_bias_attention_bwd_plain(*args, w_logits, *rest)
+                names = ("dq", "dk", "dv", "dbias")
+                zero_bias = torch.zeros(B, H, N, N, dtype=dt, device=dev)
+
+                def run(vv):
+                    return ha.pair_bias_attention_cuda(zeros, zeros, vv.to(dev, dt), zero_bias,
+                                                       H, seed, DROPOUT, span)[0]
+            else:
+                mask = pad.float() * torch.finfo(torch.float32).min
+                out, stats = ha.masked_attention_cuda(*args, mask, H, seed, DROPOUT, span)
+                w_out, w_stats = ha.masked_attention_plain(*args, mask, H, seed, DROPOUT, span)
+                grads = ha.masked_attention_bwd_cuda(*args, mask, w_out, w_stats, go, H, seed,
+                                                     DROPOUT, span)
+                oracle = ha.masked_attention_bwd_plain(*args, mask, go, H, seed, DROPOUT, span)
+                names = ("dq", "dk", "dv")
+                zero_mask = torch.zeros(B, N, dtype=torch.float32, device=dev)
+
+                def run(vv):
+                    return ha.masked_attention_cuda(zeros, zeros, vv.to(dev, dt), zero_mask, H,
+                                                    seed, DROPOUT, span)[0]
+            torch.cuda.synchronize()
+            atol, rtol = TOL[prec]["out"]
+            e, ok = _err(out, w_out, atol, rtol)
+            errs = {"out": (e, atol, ok), **_grad_errs(names, grads, oracle, prec)}
+            got_keep = _extract_keep(run, B, H, N, N, D)
+            mismatched = int((got_keep != want_keep).sum())
+            errs["keep_mask_mismatches"] = (mismatched, 0, mismatched == 0)
+            same_as_first = bool(torch.equal(got_keep, first_keep))
+            if same_as_first:
+                record.failures.append(f"{kind} {case} {prec}: the mask at h0={H} is the first "
+                                       f"heads' mask")
+            record(f"{kind}_attention_head_offset", case, prec, errs, None, None, None,
+                   (None, None), False, {"route": ha.masked_route(dt),
+                                         "keep_entries": got_keep.numel(),
+                                         "keep_fraction": float(got_keep.float().mean())})
 
 
 def phase_kernels(dev):
@@ -1038,6 +1163,7 @@ def phase_kernels(dev):
 
     _pair_bias_cases(dev, gen, seed, record)
     _gbf_cases(dev, gen, record)
+    _head_offset_cases(dev, gen, seed, record)
 
     # ---- masked attention, B=32: ChemBERTa (H=8, D=64), cross-modal (H=16, D=32)
     # bf16 runs the tensor-core route (its forward also returns the row
@@ -1903,9 +2029,10 @@ def _serve_http_checks(graph, card):
         raise Failed(f"serve http overload: shed {shed}, held riders {riders}")
 
 
-def _flagship(use_kernels, output_dim=1):
+def _flagship(use_kernels, output_dim=1, model_group=None):
     """The flagship model (bf16 compute, bf16 pair logits) on the CPU, with
-    the built-in dictionary and tokenizer's vocabularies."""
+    the built-in dictionary and tokenizer's vocabularies; with a sharding
+    ``model_group`` one model rank's shard of it."""
     from mmdti_tpu_torch.chem.dictionary import Dictionary
     from mmdti_tpu_torch.chem.tokenizer import SmilesTokenizer
     from mmdti_tpu_torch.models.mm_model import build_model
@@ -1914,7 +2041,7 @@ def _flagship(use_kernels, output_dim=1):
     d.add_symbol("[MASK]", is_special=True)
     return build_model(output_dim, len(d), d.pad(), SmilesTokenizer().vocab_size,
                        compute_dtype="bfloat16", use_kernels=use_kernels,
-                       unimol_overrides={"pair_dtype": "bfloat16"})
+                       unimol_overrides={"pair_dtype": "bfloat16"}, model_group=model_group)
 
 
 def _train_batch(dev, atom_pad, smiles_pad, B=32, pair_feats="device"):
@@ -2384,8 +2511,10 @@ def _replay_launches(fn, n=3, tries=5):
     """({launcher: launches} of the port's kernels in one call of fn, device
     ms of a call, device kernels of a call).  The launches come from a
     profiler window of one call (KERNEL_MARKERS), confirmed by a window of
-    n calls that holds n times as many of each port kernel, or both are
-    taken again (`tries` times, then the reading fails).  Only the port
+    n calls that holds n times as many of each port kernel; else from the
+    difference of windows of 2 and 1 calls, confirmed by that of n + 1 and
+    1 (which cancels kernels a tracer drops at every window's start); else
+    all are taken again (`tries` times, then the reading fails).  Only the port
     kernels are held to that: the tracer drops the last few of a replayed
     graph's kernels from every window (PyTorch's small gathers and fills
     at the end of the last step), so the device ms and kernel count come
@@ -2396,6 +2525,9 @@ def _replay_launches(fn, n=3, tries=5):
         return {k: sum(c for name, (c, _) in events.items() if m in name)
                 for k, m in KERNEL_MARKERS.items()}
 
+    def less(a, b):
+        return {k: a[k] - b[k] for k in a}
+
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -2404,8 +2536,20 @@ def _replay_launches(fn, n=3, tries=5):
         if any(one.values()) and ports(window) == {k: c * n for k, c in one.items()}:
             return (one, sum(us for _, us in window.values()) / n / 1e3,
                     sum(c for c, _ in window.values()) / n)
+        # a tracer that drops the same kernels at every window's start
+        # (seen on a card that lost a replay's first gbf and LayerNorm
+        # forwards in each window): those cancel between a window of k + 1
+        # calls and one of 1, which must still hold k times one call's
+        base = ports(_kernel_events(fn, 1))
+        one_more = less(ports(_kernel_events(fn, 2)), base)
+        n_more = less(ports(_kernel_events(fn, n + 1)), base)
+        if any(one_more.values()) and n_more == {k: c * n for k, c in one_more.items()}:
+            return (one_more, sum(us for _, us in window.values()) / n / 1e3,
+                    sum(c for c, _ in window.values()) / n)
         REJECTED_WINDOWS.append({"port_kernels_one_call": one,
-                                 f"port_kernels_window_of_{n}": ports(window)})
+                                 f"port_kernels_window_of_{n}": ports(window),
+                                 "port_kernels_one_more_call": one_more,
+                                 f"port_kernels_{n}_more_calls": n_more})
     raise Failed(f"graph replay windows disagreed {tries} times: {REJECTED_WINDOWS[-tries:]}")
 
 
@@ -5428,10 +5572,283 @@ def phase_remat(dev, card):
     return launches
 
 
+# ---- tensor parallelism ---------------------------------------------------------
+
+TP_WORK = os.path.join(REPO, "build", "chip_smoke_tp")
+TP_GBF_HEADS = (16, 32, 48)   # a model rank's gbf heads: flagship 64/4, 64/2, scale-arch 96/2
+TP_SEED = 11                  # the step's weights and dropout stream
+TP_RANK_TIMEOUT_S = 600
+TP_SERVE_TOL = SERVE_PREDICT_TOL   # the two-shard server against the one-shard server
+
+
+class _HeadLog:
+    """Inside the block, the head count of every launch of the attention
+    and gbf launchers: {"launcher heads=H": n}.  The launchers are wrapped
+    in their module while the block runs (their counters still count) and
+    restored after it."""
+
+    def __enter__(self):
+        from mmdti_tpu_torch.ops import hopper_attention as ha
+        from mmdti_tpu_torch.ops import hopper_gbf as hg
+
+        self.seen, self._saved = {}, []
+        heads = {"pair_bias_attention_cuda": lambda a: a[4],
+                 "pair_bias_attention_bwd_cuda": lambda a: a[8],
+                 "masked_attention_cuda": lambda a: a[4],
+                 "masked_attention_bwd_cuda": lambda a: a[7],
+                 "gbf_pair_bias_cuda": lambda a: a[5].shape[0],
+                 "gbf_pair_bias_bwd_cuda": lambda a: a[5].shape[0]}
+        for mod in (ha, hg):
+            for name, of in heads.items():
+                if not hasattr(mod, name):
+                    continue
+                real = getattr(mod, name)
+
+                def fn(*a, _real=real, _name=name, _of=of, **kw):
+                    key = f"{_name} heads={_of(a)}"
+                    self.seen[key] = self.seen.get(key, 0) + 1
+                    return _real(*a, **kw)
+
+                # a launcher counts through its module's name for it, the
+                # wrapper while the block runs: it carries the counters
+                fn.launches, fn.routes = real.launches, real.routes
+                self._saved.append((mod, name, real, fn))
+                setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real, fn in self._saved:
+            real.launches = fn.launches
+            setattr(mod, name, real)
+        return False
+
+
+def _tp_step(dev, model, data_group=None):
+    """One flagship train step (B=32, N=L=64, bf16, every dropout on, the
+    LayerNorm kernels on) from seed TP_SEED: (loss, gradients by name,
+    launch counts, routes, heads, the step's bytes: the peak allocated
+    less what the process held before the model came to the card)."""
+    import torch
+
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.parallel.mesh import rank_seed
+    from mmdti_tpu_torch.train.steps import build_train_loss
+
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(TP_SEED))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    model.to(dev)
+    B = 32
+    feats = _train_batch(dev, 64, 64, B)
+    labels = torch.randn(B, 1, generator=torch.Generator().manual_seed(1)).to(dev)
+    weights = torch.ones(B, 1, device=dev)
+    train_loss = build_train_loss(zoo.mse_loss, "regression", data_group=data_group)
+    gen = torch.Generator(device=dev).manual_seed(
+        rank_seed(TP_SEED, 0 if data_group is None else data_group.rank))
+    names, params = zip(*model.named_parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_counts()
+    with _ln_kernels_on(), _HeadLog() as log:
+        total, _ = train_loss(model, feats, labels, weights, gen)
+        grads = torch.autograd.grad(total, params)
+    torch.cuda.synchronize()
+    return (float(total.detach()), dict(zip(names, grads)), _read_counts(), _read_routes(),
+            log.seen, torch.cuda.max_memory_allocated(dev) - held)
+
+
+def tp_worker(rank, port, spec_path):
+    """One rank of phase tp (a): a gloo group of two processes on the one
+    card as one model row, mesh (1, 2); the flagship step on this rank's
+    shard (_tp_step); rank 0 saves the loss and the gradient gathered whole
+    over the model group.  Writes its findings to the spec's ``out``."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from mmdti_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, mesh_groups
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    dev = initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                                 timeout=TP_RANK_TIMEOUT_S)
+    data_group, model_group = mesh_groups(make_mesh((1, 2)))
+    t0 = time.perf_counter()
+    loss, grads, counts, routes, heads, peak = _tp_step(
+        dev, _flagship(True, model_group=model_group), data_group)
+    step_s = time.perf_counter() - t0
+    whole = model_group.gather_state_dict(grads)
+    if rank == 0:
+        torch.save({"loss": loss, "grads": whole}, spec["grads"])
+    out = {"rank": rank, "device": str(dev), "model_index": model_group.index,
+           "loss": loss, "launches": counts, "routes": routes, "heads": heads,
+           "step_peak_bytes": peak, "step_s_with_setup": step_s,
+           "model_collectives": model_group.calls}
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _tp_ranks(dev, card):
+    """Phase tp (a): the two ranks beside the one-process step."""
+    import torch
+
+    shutil.rmtree(TP_WORK, ignore_errors=True)
+    os.makedirs(TP_WORK)
+    spec = {"out": os.path.join(TP_WORK, "rank{rank}.json"),
+            "grads": os.path.join(TP_WORK, "grads.pt")}
+    spec_path = os.path.join(TP_WORK, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    procs = []
+    for r in range(2):
+        with open(os.path.join(TP_WORK, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+                 "--tp-port", str(port), "--tp-spec", spec_path],
+                stdout=log, stderr=subprocess.STDOUT))
+    try:
+        # the one-process step meanwhile
+        loss1, grads1, counts1, routes1, heads1, peak1 = _tp_step(dev, _flagship(True))
+        grads1 = {k: v.float().cpu() for k, v in grads1.items()}
+        for p in procs:
+            p.wait(timeout=TP_RANK_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        tails = []
+        for r in range(2):
+            with open(os.path.join(TP_WORK, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}:\n" + f.read()[-3000:])
+        raise Failed("tp (a): a rank failed\n" + "\n".join(tails))
+    ranks = []
+    for r in range(2):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    saved = torch.load(spec["grads"], weights_only=True)
+    floor = 1e-3 * max(float(g.abs().max()) for g in grads1.values())
+    rel = {}
+    for name, g in grads1.items():
+        got = saved["grads"][name].float()
+        if not torch.isfinite(got).all():
+            raise Failed(f"tp (a): the gathered gradient of {name} is not finite")
+        rel[name] = float((got - g).abs().max()) / max(float(g.abs().max()), floor)
+    worst = max(rel, key=rel.get)
+    want_heads = {"pair_bias_attention_cuda heads=32", "pair_bias_attention_bwd_cuda heads=32",
+                  "masked_attention_cuda heads=4", "masked_attention_cuda heads=8",
+                  "masked_attention_bwd_cuda heads=4", "masked_attention_bwd_cuda heads=8",
+                  "gbf_pair_bias_cuda heads=32", "gbf_pair_bias_bwd_cuda heads=32"}
+    print("tp: (a) " + json.dumps({
+        "mesh": [1, 2], "backend": "gloo, two ranks on one card", "B": 32, "N": 64, "L": 64,
+        "dropout": "every layer's default", "loss_one_process": loss1,
+        "loss_ranks": [r["loss"] for r in ranks], "loss_tol": TRAIN_LOSS_TOL,
+        "max_rel_grad_diff": rel[worst], "worst_param": worst,
+        "median_rel_grad_diff": statistics.median(rel.values()), "grad_tol": TRAIN_GRAD_TOL,
+        # the weights, the batch and the step's activations and gradients
+        "step_peak_gb": {"one_process": peak1 / 1e9,
+                         **{f"rank{r['rank']}": r["step_peak_bytes"] / 1e9 for r in ranks}},
+        "launches": {"one_process": counts1,
+                     **{f"rank{r['rank']}": r["launches"] for r in ranks}},
+        "heads": {"one_process": heads1, **{f"rank{r['rank']}": r["heads"] for r in ranks}},
+        "gbf_routes": {f"rank{r['rank']}": [r["routes"]["gbf_proj"], r["routes"]["gbf_proj_bwd"]]
+                       for r in ranks},
+        "model_collectives": [r["model_collectives"] for r in ranks],
+        "step_s_with_setup": [r["step_s_with_setup"] for r in ranks], "card": card}),
+        flush=True)
+    for r in ranks:
+        if abs(r["loss"] - loss1) > TRAIN_LOSS_TOL:
+            raise Failed(f"tp (a): rank {r['rank']} loss {r['loss']} vs one process {loss1}")
+        if r["loss"] != ranks[0]["loss"]:
+            raise Failed("tp (a): the model ranks' losses differ")
+        zero = [k for k, n in r["launches"].items() if n == 0]
+        if zero:
+            raise Failed(f"tp (a): rank {r['rank']} launched {zero} no time")
+        missing = want_heads - set(r["heads"])
+        if missing:
+            raise Failed(f"tp (a): rank {r['rank']} launched no {sorted(missing)}: {r['heads']}")
+        if r["routes"]["gbf_proj"]["fma"] or r["routes"]["gbf_proj_bwd"]["fma"]:
+            raise Failed(f"tp (a): rank {r['rank']} ran gbf on the FMA route: {r['routes']}")
+    if rel[worst] > TRAIN_GRAD_TOL:
+        raise Failed(f"tp (a): gathered gradient of {worst} differs by {rel[worst]} of its max")
+    return {f"rank{r['rank']}": r["launches"] for r in ranks}
+
+
+def _tp_server(dev, card):
+    """Phase tp (b): the two shards of one replica on cuda:0."""
+    import numpy as np
+
+    from mmdti_tpu_torch import MolServe
+    from mmdti_tpu_torch.api import serve_api
+
+    real_mesh = serve_api.make_mesh
+    serve_api.make_mesh = lambda shape, devices=None: real_mesh(shape, [dev, dev])
+    try:
+        tp_srv = MolServe(SERVE_DIR, mesh_shape=(1, 2))
+    finally:
+        serve_api.make_mesh = real_mesh
+    one = MolServe(SERVE_DIR)
+    requests = {n: SMILES_20[:n] for n in REQUESTS}
+    smi20 = requests[20]
+    _reset_counts()
+    graph_out = tp_srv.predict(smi20)["predict"]
+    counts = _read_counts()
+    eager_srv = MolServe.__new__(MolServe)
+    eager_srv.__dict__.update(tp_srv.__dict__)
+    eager_srv.use_graphs = False
+    eager_out = eager_srv.predict(smi20)["predict"]
+    one_out = one.predict(smi20)["predict"]
+    p50, _ = _alternated_p50({"graph": tp_srv, "eager": eager_srv, "one_shard_graph": one},
+                             requests)
+    gap = float(np.abs(graph_out - one_out).max())
+    same = bool(np.array_equal(graph_out, eager_out))
+    print("tp: (b) " + json.dumps({
+        "mesh": [1, 2], "shards_on": [str(d) for d in tp_srv.mesh.devices],
+        "graphs": len(tp_srv.graphs), "graph_equals_eager": same,
+        "max_abs_vs_one_shard": gap, "tol": TP_SERVE_TOL, "p50_ms": p50,
+        "launches_first_request_20": counts, "card": card}), flush=True)
+    if not same:
+        raise Failed("tp (b): the two-shard server's graph replay differs from its eager "
+                     "forward")
+    if gap > TP_SERVE_TOL:
+        raise Failed(f"tp (b): the two-shard server is {gap} from the one-shard server")
+    if not tp_srv.graphs:
+        raise Failed("tp (b): the two-shard server recorded no graph")
+
+
+def phase_tp(dev, card):
+    """Tensor parallelism on the one card.  (a) Two gloo ranks as one model
+    row, mesh (1, 2): the flagship train step (B=32, N=L=64, bf16, dropout
+    on) on each rank's shard, held to the one-process step on the same
+    weights and seed (loss TRAIN_LOSS_TOL, each gradient TRAIN_GRAD_TOL of
+    its max, gathered whole); every kernel launched on each rank, at its
+    shard's heads (pair-bias 32, masked 4 and 8, gbf 32 on "mma"); each
+    rank's peak memory beside the one-process step's (above what each
+    process held before its model came to the card).  (b) A (1, 2) server
+    whose two shards share cuda:0 (make_mesh given the card twice, the
+    twin of the CPU's repeated device): its graph replay bit-equal to its
+    eager forward, within TP_SERVE_TOL of the one-shard server, p50 at 1,
+    8 and 20 SMILES each way.  NCCL refuses two ranks on one card: the
+    collectives of (a) are gloo's (eager steps).  Returns (a)'s launch
+    counts by rank."""
+    t0 = time.perf_counter()
+    launches = _tp_ranks(dev, card)
+    t1 = time.perf_counter()
+    _tp_server(dev, card)
+    print("tp: " + json.dumps({"a_s": t1 - t0, "b_s": time.perf_counter() - t1}), flush=True)
+    return launches
+
+
 def main() -> int:
     if "--dp-rank" in sys.argv:       # one rank of phase dp (b), started by phase dp
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         dp_worker(int(args["--dp-rank"]), int(args["--dp-port"]), args["--dp-spec"])
+        return 0
+    if "--tp-rank" in sys.argv:       # one rank of phase tp (a), started by phase tp
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        tp_worker(int(args["--tp-rank"]), int(args["--tp-port"]), args["--tp-spec"])
         return 0
     if not os.path.isdir(os.path.join(REPO, "mmdti_tpu_torch")):
         print("chip_smoke.py needs the mmdti_tpu_torch package beside it", file=sys.stderr)
@@ -5447,21 +5864,33 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = torch.device("cuda", 0)
 
-    card = phase_card()
-    build = phase_build()
-    summary = phase_kernels(dev)
-    phase_serve(dev, card)
-    train_launches = phase_train(dev)
-    graph_fit = phase_graphs(dev)
-    remat_launches = phase_remat(dev, card)
-    fit_launches = phase_fit(dev, graph_fit)
-    task_launches = phase_tasks(dev)
-    cv_launches = phase_cv(dev, graph_fit)
-    pretrained_launches = phase_pretrained(dev, card, graph_fit)
-    mof_launches = phase_mof(dev, card)
-    conformer_launches = phase_conformers(dev, card, build)
-    scaler_launches = phase_scalers(dev, card, graph_fit)
-    dp_launches = phase_dp(dev, card, graph_fit)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"seconds: {name} {seconds[name]}", flush=True)
+        return out
+
+    card = timed("card", phase_card)
+    build = timed("build", phase_build)
+    summary = timed("kernels", phase_kernels, dev)
+    timed("serve", phase_serve, dev, card)
+    train_launches = timed("train", phase_train, dev)
+    graph_fit = timed("graphs", phase_graphs, dev)
+    remat_launches = timed("remat", phase_remat, dev, card)
+    fit_launches = timed("fit", phase_fit, dev, graph_fit)
+    task_launches = timed("tasks", phase_tasks, dev)
+    cv_launches = timed("cv", phase_cv, dev, graph_fit)
+    pretrained_launches = timed("pretrained", phase_pretrained, dev, card, graph_fit)
+    mof_launches = timed("mof", phase_mof, dev, card)
+    conformer_launches = timed("conformers", phase_conformers, dev, card, build)
+    scaler_launches = timed("scalers", phase_scalers, dev, card, graph_fit)
+    dp_launches = timed("dp", phase_dp, dev, card, graph_fit)
+    tp_launches = timed("tp", phase_tp, dev, card)
+    print("seconds: " + json.dumps({**seconds, "total": round(sum(seconds.values()), 1)}),
+          flush=True)
 
     launches = {k: train_launches[k] if k in TRAIN_KERNELS else fit_launches[k] for k in KERNELS}
     for name, n in launches.items():
@@ -5471,7 +5900,8 @@ def main() -> int:
     for task, counts in {**task_launches, "cv": cv_launches, "pretrained": pretrained_total,
                          "conformers": conformer_launches, "scalers": scaler_launches,
                          "remat": remat_launches,
-                         **{f"dp {run}": c for run, c in dp_launches.items()}}.items():
+                         **{f"dp {run}": c for run, c in dp_launches.items()},
+                         **{f"tp {run}": c for run, c in tp_launches.items()}}.items():
         for name, n in counts.items():
             if n == 0:
                 raise Failed(f"{name} was not launched on the {task} path")
@@ -5488,7 +5918,8 @@ def main() -> int:
          "mof_launches": mof_launches[name],
          "conformers_launches": conformer_launches[name],
          "scalers_launches": scaler_launches[name], "remat_launches": remat_launches[name],
-         "dp_launches": {run: counts[name] for run, counts in dp_launches.items()}}
+         "dp_launches": {run: counts[name] for run, counts in dp_launches.items()},
+         "tp_launches": {run: counts[name] for run, counts in tp_launches.items()}}
         for name, (src, rep) in KERNELS.items()
     ]
     print(card, flush=True)   # again beside the summary, for readers of the tail

@@ -31,14 +31,21 @@ mmdti_tpu/api/serve_api.py on one device).
   multiclass argmax) follows MolPredict's output contract.
 - ``make_server`` / ``serve`` put the stdlib HTTP front (api/serve_http.py)
   and the dynamic batcher (api/serve_batcher.py) in front of it.
-- ``mesh_shape=(d, 1)`` serves over d replicas in this one process, as the
-  JAX package serves over a mesh: the resident model (every served fold)
-  on each of the first d cards (on the CPU, d replicas on the CPU, as the
-  JAX package's virtual devices), the batch buckets rounded up to
-  multiples of d, each chunk's rows split evenly over the replicas (one
-  CUDA graph per replica and bucket, in a pool per replica) and their
-  outputs concatenated in order.  More replicas than cards raises, and
-  so does ``model > 1`` (tensor parallelism is not ported yet).
+- ``mesh_shape=(d, m)`` serves over d replicas of m tensor-parallel
+  shards each in this one process, as the JAX package serves over a mesh:
+  the mesh's d x m devices are the first cards, row-major (on the CPU,
+  the CPU repeated, as the JAX package's virtual devices); replica i is
+  devices[i*m:(i+1)*m].  With m = 1 each replica holds the resident model
+  (every served fold); with m > 1 each holds one fold's model in m shards
+  (api/serve_model.py; a fold ensemble raises) whose forward runs them in
+  lockstep with the reductions between them (parallel/mesh.py
+  ReplicaShards).  The batch buckets round up to multiples of d, each
+  chunk's rows split evenly over the replicas (one CUDA graph per replica
+  and bucket, in a pool per replica) and their outputs concatenate in
+  order.  A replica whose shards share one card is one CUDA graph per
+  bucket, shards and reductions included; a server whose replicas span
+  several cards runs eagerly (one graph records one device).  More
+  devices than cards raises.
 
 MolServe serves molecules, as the JAX package's does.
 """
@@ -135,11 +142,12 @@ class MolServe:
                      fold checkpoints of a CV experiment as an ensemble;
                      the forward is the mean of their activated outputs,
                      K models resident and K forwards a request.
-    mesh_shape:      None, or (d, 1): d replicas, one a card (on the CPU, d
-                     replicas on the CPU), the batch buckets rounded up to
-                     multiples of d and each chunk split evenly over them.
-                     d above the visible cards raises, and so does a model
-                     axis above 1 (tensor parallelism is not ported).
+    mesh_shape:      None, or (d, m): d replicas of m tensor-parallel shards,
+                     one shard a card (on the CPU, all on the CPU), the
+                     batch buckets rounded up to multiples of d and each
+                     chunk split evenly over the replicas.  d x m above the
+                     visible cards raises; m > 1 serves one fold and runs
+                     eagerly where a replica spans several cards.
     device:          "cuda" (default) or "cpu"; "cuda" without CUDA raises.
                      On the card each shape bucket's forward is a CUDA
                      graph; a capture that fails raises.
@@ -214,14 +222,17 @@ class MolServe:
                feature_cache_bytes, scaler, threshold, device_pair_feats, mesh_shape=None):
         self.device = resolve_device(device)
         self.mesh = None
-        replicas = [self.device]
+        # each replica's devices: one, or its m shards'
+        shards = [[self.device]]
         if mesh_shape is not None:
-            d = int(tuple(mesh_shape)[0])
+            d, m = (int(x) for x in mesh_shape)
             cards = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-                     if self.device.type == "cuda" else [self.device] * d)
-            self.mesh = make_mesh(tuple(int(x) for x in mesh_shape), cards)
-            replicas = list(self.mesh.devices)
-            self.device = replicas[0]
+                     if self.device.type == "cuda" else [self.device] * (d * m))
+            self.mesh = make_mesh((d, m), cards)
+            devs = list(self.mesh.devices)
+            shards = [devs[i * m:(i + 1) * m] for i in range(d)]
+            self.device = devs[0]
+        replicas = [r[0] for r in shards]
         self.replica_devices = replicas
         self.pair_mode = resolve_pair_feats_mode(device_pair_feats, self.device)
         self.config = cfg
@@ -256,13 +267,15 @@ class MolServe:
         self.scaler = scaler
         self.threshold = threshold
 
-        rms = [load(dev, self.dictionary, self.tokenizer) for dev in replicas]
+        rms = [load(devs if len(devs) > 1 else devs[0], self.dictionary, self.tokenizer)
+               for devs in shards]
         rm = rms[0]
         self.model = rm.model
         self.output_dim = rm.output_dim
         self.serve_folds = rm.serve_folds
         self._replica_fns = [{"forward": r.forward, "embed": r.embed} for r in rms]
-        self.use_graphs = self.device.type == "cuda"
+        # a graph records one device: a replica over several cards runs eagerly
+        self.use_graphs = self.device.type == "cuda" and all(len(set(r)) == 1 for r in shards)
         self.graphs: Dict[tuple, _Graph] = {}
         # one pool for every graph of a replica: its captures and replays
         # are serialized under _lock, each graph's inputs live outside the

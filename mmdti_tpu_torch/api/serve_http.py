@@ -157,8 +157,9 @@ def main(argv: Optional[List[str]] = None):
                     help="1 (fold 0, default), K, or 'all': serve a CV experiment's "
                     "folds as an ensemble")
     ap.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("DATA", "MODEL"),
-                    help="serve over a (data, model) device mesh: DATA replicas, one a "
-                    "card, each taking an equal share of a batch's rows (MODEL must be 1)")
+                    help="serve over a (data, model) device mesh: DATA replicas of MODEL "
+                    "tensor-parallel shards, one shard a card, each replica taking an equal "
+                    "share of a batch's rows")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     folds = args.serve_folds if args.serve_folds == "all" else int(args.serve_folds)

@@ -8,6 +8,13 @@ is the mean of the K activated outputs, MolPredict's ensemble algebra.
 The JAX package vmaps stacked parameters; the port's kernels are ctypes
 launches that ``torch.func.vmap`` cannot map, so the K forwards run in a
 row (on the card inside one CUDA graph, api/serve_api.py).
+
+A tensor-parallel replica (``devices``: its m shards' devices) holds m
+models, shard i built with its handle of one ``ReplicaShards``
+(parallel/mesh.py) and loaded with its shard of each checkpoint; its
+forward runs the m shards in lockstep and returns the first shard's
+output (every shard computes the same).  A fold ensemble on a model axis
+raises, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -22,14 +29,18 @@ import torch
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_output_dim
 from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_params_to_state_dict
 from mmdti_tpu_torch.models.mm_model import MMModel, build_model
+from mmdti_tpu_torch.parallel.mesh import ReplicaShards, shard_state_dict
 from mmdti_tpu_torch.train.checkpointing import load_checkpoint
+
+TP_FOLDS_REFUSED = ("serve_folds > 1 with a tensor-parallel mesh (model axis > 1) is "
+                    "unsupported; use a pure data-parallel mesh_shape=(n, 1)")
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
 
 @dataclass
 class ResidentModel:
-    models: List[MMModel]      # one per served fold, fold 0 first
+    models: List[MMModel]      # one per served fold, fold 0 first (shard 0's on a model axis)
     forward: Callable          # (feats of device tensors) -> activated preds, fold mean
     embed: Callable            # (feats) -> (cls_repr, pooled) of fold 0
     output_dim: int
@@ -46,7 +57,7 @@ def resident_model(
     task: str,
     dictionary,
     tokenizer,
-    device: Union[str, torch.device],
+    device: Union[str, torch.device, Sequence],
     use_kernels: bool = True,
 ) -> ResidentModel:
     """One model per state dict, built on ``device`` as train/nnmodel.py
@@ -55,33 +66,19 @@ def resident_model(
     ``chemberta_dir`` under the saved overrides; the weights are the state
     dicts', never the pretrained files').  The pair dtype defaults to
     bf16 on CUDA and fp32 on the CPU; ``cfg["unimol_overrides"]
-    ["pair_dtype"]`` overrides it."""
+    ["pair_dtype"]`` overrides it.  ``device`` a list of m > 1 devices:
+    one tensor-parallel replica of one fold, shard i on the i-th."""
+    if isinstance(device, (list, tuple)):
+        return _sharded_replica(cfg, state_dicts, task, dictionary, tokenizer,
+                                [torch.device(d) for d in device], use_kernels)
     device = torch.device(device)
-    unimol_overrides = dict(cfg.get("unimol_overrides") or {})
-    unimol_overrides.setdefault(
-        "pair_dtype", "bfloat16" if device.type == "cuda" else "float32"
-    )
     output_dim = resolve_output_dim(
         task, cfg.get("num_classes"), cfg.get("multiclass_cnt")
     )
     activation = ACTIVATION_REGISTRY[task]
-    cb_overrides = chemberta_overrides(cfg)
     models = []
     for sd in state_dicts:
-        model = build_model(
-            output_dim=output_dim,
-            atom_vocab_size=len(dictionary),
-            atom_pad_idx=dictionary.pad(),
-            smiles_vocab_size=getattr(tokenizer, "vocab_size", 600),
-            compute_dtype=cfg.get("compute_dtype", "bfloat16"),
-            use_kernels=use_kernels,
-            unimol_overrides=unimol_overrides,
-            chemberta_overrides=cb_overrides or None,
-            crossmodal_overrides=dict(cfg.get("crossmodal_overrides") or {}) or None,
-            task=task,
-            use_fds=bool(cfg.get("fds", False)),
-            fds_num=int(cfg.get("fds_num", 30) or 30),
-        )
+        model = _build(cfg, task, dictionary, tokenizer, device, use_kernels, output_dim)
         model.load_state_dict(sd, strict=True)
         models.append(model.to(device).eval())
 
@@ -100,20 +97,80 @@ def resident_model(
                          output_dim=output_dim, serve_folds=len(models))
 
 
+def _build(cfg, task, dictionary, tokenizer, device, use_kernels, output_dim, group=None):
+    """The served model of ``cfg`` (see resident_model), on the CPU."""
+    unimol_overrides = dict(cfg.get("unimol_overrides") or {})
+    unimol_overrides.setdefault(
+        "pair_dtype", "bfloat16" if device.type == "cuda" else "float32"
+    )
+    return build_model(
+        output_dim=output_dim,
+        atom_vocab_size=len(dictionary),
+        atom_pad_idx=dictionary.pad(),
+        smiles_vocab_size=getattr(tokenizer, "vocab_size", 600),
+        compute_dtype=cfg.get("compute_dtype", "bfloat16"),
+        use_kernels=use_kernels,
+        unimol_overrides=unimol_overrides,
+        chemberta_overrides=chemberta_overrides(cfg) or None,
+        crossmodal_overrides=dict(cfg.get("crossmodal_overrides") or {}) or None,
+        task=task,
+        use_fds=bool(cfg.get("fds", False)),
+        fds_num=int(cfg.get("fds_num", 30) or 30),
+        model_group=group,
+    )
+
+
+def _sharded_replica(cfg, state_dicts, task, dictionary, tokenizer, devices, use_kernels):
+    """One tensor-parallel replica: shard i of the one fold's model on
+    ``devices[i]``, the shards run in lockstep (ReplicaShards)."""
+    if len(state_dicts) != 1:
+        raise ValueError(TP_FOLDS_REFUSED)
+    output_dim = resolve_output_dim(task, cfg.get("num_classes"), cfg.get("multiclass_cnt"))
+    activation = ACTIVATION_REGISTRY[task]
+    shards = ReplicaShards(devices)
+    models = []
+    for i, dev in enumerate(devices):
+        model = _build(cfg, task, dictionary, tokenizer, devices[0], use_kernels, output_dim,
+                       shards.handle(i))
+        model.load_state_dict(shard_state_dict(state_dicts[0], i, shards.size), strict=True)
+        models.append(model.to(dev).eval())
+
+    def on_shards(fn, feats):
+        # every shard reads the replica's inputs on its own device
+        placed = [feats if dev == devices[0] else {k: v.to(dev) for k, v in feats.items()}
+                  for dev in devices]
+        return shards.run([lambda m=m, f=f: fn(m, f) for m, f in zip(models, placed)])[0]
+
+    def _forward(feats):
+        return on_shards(lambda m, f: activation(m(**f, outputs="logits")["logits"]), feats)
+
+    def _embed(feats):
+        def embed(m, f):
+            out = m(**f, outputs="train")
+            return out["cls_repr"], out["pooled"]
+        return on_shards(embed, feats)
+
+    return ResidentModel(models=models, forward=_forward, embed=_embed,
+                         output_dim=output_dim, serve_folds=1)
+
+
 def load_resident_model(
     load_model: str,
     cfg: Mapping[str, Any],
     task: str,
     dictionary,
     tokenizer,
-    device: Union[str, torch.device],
+    device: Union[str, torch.device, Sequence],
     use_kernels: bool = True,
     serve_folds: Union[str, int] = 1,
 ) -> ResidentModel:
     """The first ``serve_folds`` fold checkpoints of the experiment dir
-    ``load_model`` (1, K or "all"), resident on ``device``."""
+    ``load_model`` (1, K or "all"), resident on ``device`` (a list of m
+    devices: one tensor-parallel replica, which serves one fold)."""
     model_folds = int(cfg.get("model_folds", 1) or 1)
     k = model_folds if serve_folds == "all" else int(serve_folds)
+    if isinstance(device, (list, tuple)) and k != 1:
+        raise ValueError(TP_FOLDS_REFUSED)
     if k < 1 or k > model_folds:
         raise ValueError(
             f"serve_folds={serve_folds!r} but the experiment dir has "

@@ -17,12 +17,14 @@ out-of-fold predictions in ``cv_pred`` (the threshold search takes the
 out-of-fold labels).  ``device`` is "cuda" unless the caller asks for the
 CPU; it is not written to the config.
 
-Data parallelism: run the same script in one process per GPU, each in a
-torch.distributed group (``torchrun --nproc_per_node=N``, or
-parallel/mesh.py::initialize_distributed before MolTrain); ``mesh_shape``
-defaults to (N, 1) there and ``batch_size`` is the global batch.  Every
-rank fits, only rank 0 writes the experiment dir (the single-writer
-rule), and ``fit`` returns on every rank once the dir is whole.
+Data and tensor parallelism: run the same script in one process per
+GPU, each in a torch.distributed group (``torchrun --nproc_per_node=N``,
+or parallel/mesh.py::initialize_distributed before MolTrain);
+``mesh_shape`` = (d, m) with d x m = N, by default (N, 1): d data ranks,
+each row of m model ranks holding one shard of the model, and
+``batch_size`` is the global batch.  Every rank fits, only rank 0 writes
+the experiment dir (the single-writer rule; the checkpoint is the whole
+model), and ``fit`` returns on every rank once the dir is whole.
 """
 
 from __future__ import annotations

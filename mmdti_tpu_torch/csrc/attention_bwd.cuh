@@ -154,7 +154,7 @@ attention_bwd_rows_kernel(AttentionBwdArgs<T, P> a) {
 
   // ---- dp_eff = keep ? (g_out v^T) * c : 0 ---------------------------------
   const bool dropping = a.drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(a.drop, b * H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(a.drop, b, h) : 0u;
   if (has_g) {
     for (int t0 = 0; t0 < Nk; t0 += kTileK) {
       __syncthreads();
@@ -292,7 +292,7 @@ attention_bwd_cols_kernel(AttentionBwdArgs<T, P> a) {
   const float* stats = a.stats + ((size_t)b * H + h) * Nq * kStats;
   const bool has_g = a.gout != nullptr;
   const bool dropping = a.drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(a.drop, b * H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(a.drop, b, h) : 0u;
   const float c_drop = dropping ? a.drop.scale : 1.f;
 
   for (int idx = tid; idx < kCols * D; idx += kColThreads) {

@@ -126,7 +126,7 @@ attention_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // ---- softmax over each full row (warp-local), then dropout ---------------
   const bool dropping = drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(drop, b * H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(drop, b, h) : 0u;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int rr = warp * kRowsPerWarp + r;

@@ -11,6 +11,11 @@
 //   keep = fmix32(key ^ fmix32(i*Nk + j + 0x7F4A7C15)) >= threshold
 //
 // A kept probability is scaled by `scale` = 1/(1 - rate); a dropped one is 0.
+//
+// Under tensor parallelism a launch holds heads h0 .. h0 + H - 1 of a layer
+// with `heads` heads in all, and hashes b*heads + h0 + h for its local head
+// h: the bits a one-process launch over every head draws for that head.
+// With h0 = 0 and heads = H the hash is b*H + h.
 #pragma once
 
 #include <stdint.h>
@@ -21,6 +26,8 @@ struct DropoutArgs {
   const int* seed;     // one int32 on the device; nullptr = no dropout
   uint32_t threshold;  // min(rate * 2^32, 2^32 - 1), computed by the caller
   float scale;         // 1 / (1 - rate)
+  int h0;              // the launch's first head among the layer's
+  int heads;           // the layer's heads in all (H_total)
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -32,8 +39,11 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t dropout_key(const DropoutArgs& d, int bh) {
-  return fmix32(static_cast<uint32_t>(*d.seed) ^ fmix32(static_cast<uint32_t>(bh) + 0x9E3779B9u));
+// the key of the launch's local head h of batch row b
+__device__ __forceinline__ uint32_t dropout_key(const DropoutArgs& d, int b, int h) {
+  const uint32_t bh = static_cast<uint32_t>(b) * static_cast<uint32_t>(d.heads) +
+                      static_cast<uint32_t>(d.h0 + h);
+  return fmix32(static_cast<uint32_t>(*d.seed) ^ fmix32(bh + 0x9E3779B9u));
 }
 
 __device__ __forceinline__ bool dropout_keep(uint32_t key, uint32_t ij, uint32_t threshold) {

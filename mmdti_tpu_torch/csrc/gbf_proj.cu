@@ -31,10 +31,13 @@
 // exp and Kh tanh a pair on the special-function units (16 a clock an SM).
 //
 // Two routes (ops/hopper_gbf.py::gbf_route):
-// * "fma" (fp32 compute, and any width but K = Kh = 128, H 64 / 96): the
+// The head counts H instantiated are 64 and 96 (a whole flagship or
+// scale-arch layer) and 16, 32 and 48 (a tensor-parallel rank's share of
+// them: 64/4, 64/2, 96/2).
+// * "fma" (fp32 compute, and any width but K = Kh = 128): the
 //   first kernels, every GEMM on the FMA units from shared memory, with
 //   W1/W2 resident for a grid-stride loop over 64-pair tiles.
-// * "mma" (bf16 compute at K = Kh = 128, H 64 / 96, the model's path): every
+// * "mma" (bf16 compute at K = Kh = 128, the model's path): every
 //   GEMM on mma.sync m16n8k16 (bf16 operands, fp32 sums), W1/W2 staged once
 //   per persistent block as bf16 in their nn.Linear layout, which is
 //   already the "col" B operand of x W^T.
@@ -54,7 +57,8 @@
 //     K and Kh columns for G (its ex2 once: fp32 kept lane-private in shared
 //     memory, bf16 in the tile), h_pre, dh = go W2, dpre and dG = dpre W1;
 //     then, with the tile's pairs as depth, it owns a 32 x 64 tile of dW1
-//     and 2 or 3 16 x 32 units of dW2, accumulated in registers over the
+//     and up to 3 16 x 32 units of dW2 (none for the last warps at H = 16
+//     or 48), accumulated in registers over the
 //     whole loop (96 or 112 fp32 a thread; 254-255 registers, no spills;
 //     166 KB of shared memory at H=64 with a bf16 pair).  The next tile's
 //     cotangent is fetched with cp.async while this one is computed, as it
@@ -73,11 +77,20 @@
 
 #include "mma_tiles.cuh"
 
+// The library is built in parts (ops/_build.py PARTS), one nvcc each, all
+// at once, then linked: MMDTI_PART selects the one entry point a part
+// defines (0 the FMA forward, 1 the FMA backward, 2 the tensor-core
+// forward, 3 its backward), so each part instantiates only its own
+// kernels; without MMDTI_PART one compile defines all four.
+
 namespace {
 
 constexpr int kPairs = 64;     // pairs per tile
 constexpr int kThreads = 256;  // 16 pair groups x 16 column groups
 constexpr int kMaxSmemBytes = 227 * 1024;
+
+// the head counts H the kernels are instantiated at
+bool gbf_width(int H) { return H == 16 || H == 32 || H == 48 || H == 64 || H == 96; }
 
 // Grid of at most (blocks an SM) x SMs persistent blocks, found once per
 // instantiation from the first call's shared memory; the kernel's shared
@@ -257,13 +270,19 @@ cudaError_t dispatch_widths(int Kh, int H, const float* u, const float* means,
                             const float* stds, const float* w1, const float* b1,
                             const float* w2, const float* b2, const uint8_t* pad, void* out,
                             int B, int N, int K, float sqrt_2pi, cudaStream_t stream) {
-  if (Kh == 128 && H == 64)
-    return launch<P, kBf16, ACT, 8, 4>(u, means, stds, w1, b1, w2, b2, pad, out, B, N, K,
-                                       sqrt_2pi, stream);
-  if (Kh == 128 && H == 96)
-    return launch<P, kBf16, ACT, 8, 6>(u, means, stds, w1, b1, w2, b2, pad, out, B, N, K,
-                                       sqrt_2pi, stream);
-  return cudaErrorInvalidValue;
+  if (Kh != 128) return cudaErrorInvalidValue;
+  auto run = [&](auto npt2) {
+    return launch<P, kBf16, ACT, 8, decltype(npt2)::value>(u, means, stds, w1, b1, w2, b2, pad,
+                                                           out, B, N, K, sqrt_2pi, stream);
+  };
+  switch (H) {  // a tensor-parallel rank's heads (16, 32, 48) and the whole layer's (64, 96)
+    case 16: return run(std::integral_constant<int, 1>{});
+    case 32: return run(std::integral_constant<int, 2>{});
+    case 48: return run(std::integral_constant<int, 3>{});
+    case 64: return run(std::integral_constant<int, 4>{});
+    case 96: return run(std::integral_constant<int, 6>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 
@@ -577,7 +596,7 @@ cudaError_t launch_bwd(const float* u, const float* means, const float* stds, co
 }
 
 // ---------------------------------------------------------------------------
-// bf16 route ("mma"): every GEMM on the tensor cores, K = Kh = 128, H 64 / 96
+// bf16 route ("mma"): every GEMM on the tensor cores, K = Kh = 128, H 16-96
 // ---------------------------------------------------------------------------
 
 using mmdti::bf16;
@@ -985,8 +1004,11 @@ gbf_mma_bwd_kernel(const float* __restrict__ u, const float* __restrict__ means,
                    const uint8_t* __restrict__ pad, const P* __restrict__ g,
                    float* __restrict__ du, float* __restrict__ partials, int B, int N,
                    float sqrt_2pi) {
-  constexpr int U2 = (H / 16) * 4 / kBwdWarps;  // dW2 units (16 heads x 32 hidden) a warp
-  static_assert((H / 16) * 4 % kBwdWarps == 0, "dW2 units must split evenly over the warps");
+  // dW2 in units of 16 heads x 32 hidden columns, U2 a warp in warp order; at
+  // H = 16 or 48 the last warps hold none (kUnits < U2 * kBwdWarps)
+  static_assert(H % 16 == 0, "the heads come in tiles of 16");
+  constexpr int kUnits = (H / 16) * 4;
+  constexpr int U2 = (kUnits + kBwdWarps - 1) / kBwdWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* w1_s = reinterpret_cast<bf16*>(smem_raw);  // [Kh][kMS] W1
   bf16* w2_s = w1_s + kMK * kMS;                    // [H][kMS]  W2
@@ -1194,6 +1216,7 @@ gbf_mma_bwd_kernel(const float* __restrict__ u, const float* __restrict__ means,
 #pragma unroll
       for (int un = 0; un < U2; ++un) {
         const int unit = warp * U2 + un, mt = unit / 4, nq = unit % 4;
+        if (unit >= kUnits) break;  // warp-uniform
         if (un == 0 || nq == 0) mmdti::load_a<kGS>(a2, go_s, mt * 16, ks * 16);
 #pragma unroll
         for (int pp = 0; pp < 2; ++pp) {
@@ -1224,6 +1247,7 @@ gbf_mma_bwd_kernel(const float* __restrict__ u, const float* __restrict__ means,
 #pragma unroll
   for (int un = 0; un < U2; ++un) {
     const int unit = warp * U2 + un, mt = unit / 4, nq = unit % 4;
+    if (unit >= kUnits) break;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       float* row = o2 + (mt * 16 + g8) * kMK + nq * 32 + nt * 8 + 2 * t;
@@ -1284,6 +1308,7 @@ cudaError_t launch_mma_bwd(const float* u, const float* means, const float* stds
 
 }  // namespace
 
+#if !defined(MMDTI_PART) || MMDTI_PART == 0
 // u [B, N, N] fp32; means/stds [K] (stds already |.| + 1e-5); w1 [Kh, K],
 // b1 [Kh], w2 [H, Kh], b2 [H] fp32 (nn.Linear layout); pad [B, N] uint8 or null; out
 // [B, H, N, N] (bf16 if pair_bf16 else fp32).  compute_bf16 rounds the GEMM
@@ -1322,7 +1347,9 @@ extern "C" int mmdti_gbf_proj_fwd(const void* u, const void* means, const void* 
   MMDTI_GBF_CASE(float, false, 1);
 #undef MMDTI_GBF_CASE
 }
+#endif
 
+#if !defined(MMDTI_PART) || MMDTI_PART == 1
 // u [B, N, N] fp32; means/stds [K] (stds already |.| + 1e-5); w1 [Kh, K],
 // b1 [Kh], w2 [H, Kh] fp32; pad [B, N] uint8 or null; g [B, H, N, N] (bf16
 // if pair_bf16 else fp32), the cotangent of the forward's output.  Writes
@@ -1335,7 +1362,7 @@ extern "C" int mmdti_gbf_proj_bwd(const void* u, const void* means, const void* 
                                   void* partials, int max_blocks, int B, int N, int K, int Kh,
                                   int H, int compute_bf16, int pair_bf16, int act,
                                   float sqrt_2pi, void* stream) {
-  if (K != kBwdK || Kh != kBwdK || (H != 64 && H != 96) || (act != 0 && act != 1))
+  if (K != kBwdK || Kh != kBwdK || !gbf_width(H) || (act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
   auto f = static_cast<const float*>(u);
   auto mu = static_cast<const float*>(means);
@@ -1354,8 +1381,13 @@ extern "C" int mmdti_gbf_proj_bwd(const void* u, const void* means, const void* 
                                             B, N, sqrt_2pi, st);
   };
   auto by_width = [&](auto p, auto bf, auto a) -> cudaError_t {
-    return H == 64 ? run(p, bf, a, std::integral_constant<int, 4>{})
-                   : run(p, bf, a, std::integral_constant<int, 6>{});
+    switch (H) {
+      case 16: return run(p, bf, a, std::integral_constant<int, 1>{});
+      case 32: return run(p, bf, a, std::integral_constant<int, 2>{});
+      case 48: return run(p, bf, a, std::integral_constant<int, 3>{});
+      case 64: return run(p, bf, a, std::integral_constant<int, 4>{});
+      default: return run(p, bf, a, std::integral_constant<int, 6>{});
+    }
   };
   auto by_act = [&](auto p, auto bf) -> cudaError_t {
     return act == 0 ? by_width(p, bf, std::integral_constant<int, 0>{})
@@ -1366,15 +1398,17 @@ extern "C" int mmdti_gbf_proj_bwd(const void* u, const void* means, const void* 
   };
   return (int)(pair_bf16 ? by_compute(__nv_bfloat16{}) : by_compute(float{}));
 }
+#endif
 
-// The bf16 route ("mma"): K = Kh = 128, H 64 or 96, every GEMM on the tensor
+#if !defined(MMDTI_PART) || MMDTI_PART == 2
+// The bf16 route ("mma"): K = Kh = 128, H 16, 32, 48, 64 or 96, every GEMM on the tensor
 // cores.  Arguments as mmdti_gbf_proj_fwd's, less K, Kh and compute_bf16.
 extern "C" int mmdti_gbf_proj_mma_fwd(const void* u, const void* means, const void* stds,
                                       const void* w1, const void* b1, const void* w2,
                                       const void* b2, const void* pad, void* out, int B, int N,
                                       int H, int pair_bf16, int act, float sqrt_2pi,
                                       void* stream) {
-  if ((H != 64 && H != 96) || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+  if (!gbf_width(H) || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
   auto run = [&](auto p, auto a, auto h) -> cudaError_t {
     return launch_mma_fwd<decltype(p), decltype(a)::value, decltype(h)::value>(
         static_cast<const float*>(u), static_cast<const float*>(means),
@@ -1384,8 +1418,13 @@ extern "C" int mmdti_gbf_proj_mma_fwd(const void* u, const void* means, const vo
         static_cast<cudaStream_t>(stream));
   };
   auto by_width = [&](auto p, auto a) -> cudaError_t {
-    return H == 64 ? run(p, a, std::integral_constant<int, 64>{})
-                   : run(p, a, std::integral_constant<int, 96>{});
+    switch (H) {
+      case 16: return run(p, a, std::integral_constant<int, 16>{});
+      case 32: return run(p, a, std::integral_constant<int, 32>{});
+      case 48: return run(p, a, std::integral_constant<int, 48>{});
+      case 64: return run(p, a, std::integral_constant<int, 64>{});
+      default: return run(p, a, std::integral_constant<int, 96>{});
+    }
   };
   auto by_act = [&](auto p) -> cudaError_t {
     return act == 0 ? by_width(p, std::integral_constant<int, 0>{})
@@ -1393,7 +1432,9 @@ extern "C" int mmdti_gbf_proj_mma_fwd(const void* u, const void* means, const vo
   };
   return (int)(pair_bf16 ? by_act(bf16{}) : by_act(float{}));
 }
+#endif
 
+#if !defined(MMDTI_PART) || MMDTI_PART == 3
 // The bf16 route's backward.  Arguments as mmdti_gbf_proj_bwd's, less K, Kh
 // and compute_bf16; the same outputs and partials layout.
 extern "C" int mmdti_gbf_proj_mma_bwd(const void* u, const void* means, const void* stds,
@@ -1401,7 +1442,7 @@ extern "C" int mmdti_gbf_proj_mma_bwd(const void* u, const void* means, const vo
                                       const void* pad, const void* g, void* du, void* grads,
                                       void* partials, int max_blocks, int B, int N, int H,
                                       int pair_bf16, int act, float sqrt_2pi, void* stream) {
-  if ((H != 64 && H != 96) || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+  if (!gbf_width(H) || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
   auto run = [&](auto p, auto a, auto h) -> cudaError_t {
     return launch_mma_bwd<decltype(p), decltype(a)::value, decltype(h)::value>(
         static_cast<const float*>(u), static_cast<const float*>(means),
@@ -1412,8 +1453,13 @@ extern "C" int mmdti_gbf_proj_mma_bwd(const void* u, const void* means, const vo
         static_cast<cudaStream_t>(stream));
   };
   auto by_width = [&](auto p, auto a) -> cudaError_t {
-    return H == 64 ? run(p, a, std::integral_constant<int, 64>{})
-                   : run(p, a, std::integral_constant<int, 96>{});
+    switch (H) {
+      case 16: return run(p, a, std::integral_constant<int, 16>{});
+      case 32: return run(p, a, std::integral_constant<int, 32>{});
+      case 48: return run(p, a, std::integral_constant<int, 48>{});
+      case 64: return run(p, a, std::integral_constant<int, 64>{});
+      default: return run(p, a, std::integral_constant<int, 96>{});
+    }
   };
   auto by_act = [&](auto p) -> cudaError_t {
     return act == 0 ? by_width(p, std::integral_constant<int, 0>{})
@@ -1421,3 +1467,4 @@ extern "C" int mmdti_gbf_proj_mma_bwd(const void* u, const void* means, const vo
   };
   return (int)(pair_bf16 ? by_act(bf16{}) : by_act(float{}));
 }
+#endif

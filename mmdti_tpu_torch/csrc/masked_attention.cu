@@ -105,7 +105,7 @@ masked_mma_fwd_kernel(MmaAttentionArgs a) {
 
   const int rows[2] = {row0 + warp * 16 + (lane >> 2), row0 + warp * 16 + (lane >> 2) + 8};
   const bool dropping = a.drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(a.drop, b * a.H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(a.drop, b, h) : 0u;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float o[D / 8][4] = {};
   uint32_t qf[G::DP / 16][4];
@@ -252,7 +252,7 @@ masked_mma_bwd_dq_kernel(MmaAttentionArgs a) {
   }
 
   const bool dropping = a.drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(a.drop, b * a.H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(a.drop, b, h) : 0u;
   float dqa[D / 8][4] = {};
   uint32_t qf[G::DP / 16][4], gf[G::DP / 16][4];
 
@@ -347,7 +347,7 @@ masked_mma_bwd_dkdv_kernel(MmaAttentionArgs a) {
   for (int r = 0; r < 2; ++r)
     mk[r] = keys[r] < Nk ? a.mask[(size_t)b * Nk + keys[r]] : -INFINITY;
   const bool dropping = a.drop.seed != nullptr;
-  const uint32_t key = dropping ? dropout_key(a.drop, b * a.H + h) : 0u;
+  const uint32_t key = dropping ? dropout_key(a.drop, b, h) : 0u;
   float dka[D / 8][4] = {}, dva[D / 8][4] = {};
   uint32_t kf[G::DP / 16][4], vf[G::DP / 16][4];
 
@@ -449,7 +449,8 @@ cudaError_t launch_masked_mma_bwd(const MmaAttentionArgs& a, int B, cudaStream_t
 extern "C" int mmdti_masked_attention_mma_fwd(const void* q, const void* k, const void* v,
                                               const void* mask, void* out, void* stats,
                                               const void* seed, unsigned int threshold,
-                                              float drop_scale, int B, int Nq, int Nk, int H,
+                                              float drop_scale, int drop_h0, int drop_heads,
+                                              int B, int Nq, int Nk, int H,
                                               int D, void* stream) {
   using namespace mmdti;
   if (Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
@@ -457,7 +458,8 @@ extern "C" int mmdti_masked_attention_mma_fwd(const void* q, const void* k, cons
                      static_cast<const bf16*>(v), static_cast<const float*>(mask),
                      static_cast<bf16*>(out), nullptr, static_cast<float*>(stats), nullptr,
                      nullptr, nullptr, nullptr,
-                     DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale},
+                     DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads},
                      Nq, Nk, H, 1.0f / sqrtf((float)D)};
   return (int)dispatch_dim(D, [&](auto d) {
     return launch_masked_mma_fwd<decltype(d)::value>(a, B, static_cast<cudaStream_t>(stream));
@@ -471,7 +473,8 @@ extern "C" int mmdti_masked_attention_mma_bwd(const void* q, const void* k, cons
                                               const void* mask, const void* out,
                                               const void* gout, const void* stats, void* rsum,
                                               void* dq, void* dk, void* dv, const void* seed,
-                                              unsigned int threshold, float drop_scale, int B,
+                                              unsigned int threshold,
+                                              float drop_scale, int drop_h0, int drop_heads, int B,
                                               int Nq, int Nk, int H, int D, void* stream) {
   using namespace mmdti;
   if (Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
@@ -480,7 +483,8 @@ extern "C" int mmdti_masked_attention_mma_bwd(const void* q, const void* k, cons
                      static_cast<bf16*>(const_cast<void*>(out)), static_cast<const bf16*>(gout),
                      static_cast<float*>(const_cast<void*>(stats)), static_cast<float*>(rsum),
                      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                     DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale},
+                     DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads},
                      Nq, Nk, H, 1.0f / sqrtf((float)D)};
   return (int)dispatch_dim(D, [&](auto d) {
     return launch_masked_mma_bwd<decltype(d)::value>(a, B, static_cast<cudaStream_t>(stream));
@@ -493,11 +497,13 @@ extern "C" int mmdti_masked_attention_mma_bwd(const void* q, const void* k, cons
 // int32 on the device, or null for no dropout.  Returns a cudaError_t.
 extern "C" int mmdti_masked_attention_fwd(const void* q, const void* k, const void* v,
                                           const void* mask, void* out, const void* seed,
-                                          unsigned int threshold, float drop_scale, int B,
+                                          unsigned int threshold,
+                                          float drop_scale, int drop_h0, int drop_heads, int B,
                                           int Nq, int Nk, int H, int D, void* stream) {
   using namespace mmdti;
   const float scale = 1.0f / sqrtf((float)D);
-  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale};
+  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   KeyMaskEpilogue epi{static_cast<const float*>(mask), Nk};
   return (int)dispatch_dim(D, [&](auto d) {
     return launch_attention_rows<float, decltype(d)::value>(
@@ -511,10 +517,12 @@ extern "C" int mmdti_masked_attention_fwd(const void* q, const void* k, const vo
 extern "C" int mmdti_masked_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* mask, const void* gout, void* dq,
                                           void* dk, void* dv, void* stats, const void* seed,
-                                          unsigned int threshold, float drop_scale, int B,
+                                          unsigned int threshold,
+                                          float drop_scale, int drop_h0, int drop_heads, int B,
                                           int Nq, int Nk, int H, int D, void* stream) {
   using namespace mmdti;
-  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale};
+  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   return (int)dispatch_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     AttentionBwdArgs<float, float> a{

@@ -223,7 +223,7 @@ pair_mma_fwd_kernel(PairMmaArgs a) {
 
   const int lr[2] = {warp * 16 + (lane >> 2), warp * 16 + (lane >> 2) + 8};  // tile rows
   const int rows[2] = {row0 + lr[0], row0 + lr[1]};
-  const uint32_t key = kDrop ? dropout_key(a.drop, b * a.H + h) : 0u;
+  const uint32_t key = kDrop ? dropout_key(a.drop, b, h) : 0u;
   // running max, row sum of exp(l - m) (the softmax) and of exp(l~ - m)
   // over the stored logits l~ (the backward's normaliser)
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, ls_run[2] = {0.f, 0.f};
@@ -351,7 +351,7 @@ pair_mma_bwd_kernel(PairMmaArgs a) {
   const size_t pair = (size_t)(b * a.H + h) * N * N;
   const size_t st_base = (size_t)(b * a.H + h) * N;
   const bool vec = (N & 7) == 0, has_g = a.gout != nullptr, has_gl = a.glog != nullptr;
-  const uint32_t key = kDrop ? dropout_key(a.drop, b * a.H + h) : 0u;
+  const uint32_t key = kDrop ? dropout_key(a.drop, b, h) : 0u;
   const bf16 neg_inf = __float2bfloat16(-INFINITY), zero = __float2bfloat16(0.f);
 
   // Stage s = kt * T + qt (query tiles fastest) into buffer `par`: its Q,
@@ -553,8 +553,9 @@ cudaError_t launch_pair_mma_bwd(const PairMmaArgs& a, int B, cudaStream_t stream
 extern "C" int mmdti_pair_bias_attention_mma_fwd(const void* q, const void* k, const void* v,
                                                  const void* bias, void* out, void* logits,
                                                  void* stats, const void* seed,
-                                                 unsigned int threshold, float drop_scale, int B,
-                                                 int N, int H, int D, void* stream) {
+                                                 unsigned int threshold,
+                                                 float drop_scale, int drop_h0, int drop_heads,
+                                                 int B, int N, int H, int D, void* stream) {
   using namespace mmdti;
   if (N <= 0) return (int)cudaErrorInvalidValue;
   PairMmaArgs a{};
@@ -565,7 +566,8 @@ extern "C" int mmdti_pair_bias_attention_mma_fwd(const void* q, const void* k, c
   a.out = static_cast<bf16*>(out);
   a.logits = static_cast<bf16*>(logits);
   a.stats = static_cast<float*>(stats);
-  a.drop = DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale};
+  a.drop = DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   a.N = N;
   a.H = H;
   a.scale = 1.0f / sqrtf((float)D);
@@ -587,8 +589,9 @@ extern "C" int mmdti_pair_bias_attention_mma_bwd(const void* q, const void* k, c
                                                  const void* stats, const void* gout,
                                                  const void* glog, void* dq, void* dk, void* dv,
                                                  void* dbias, const void* seed,
-                                                 unsigned int threshold, float drop_scale, int B,
-                                                 int N, int H, int D, void* stream) {
+                                                 unsigned int threshold,
+                                                 float drop_scale, int drop_h0, int drop_heads,
+                                                 int B, int N, int H, int D, void* stream) {
   using namespace mmdti;
   if (N <= 0) return (int)cudaErrorInvalidValue;
   PairMmaArgs a{};
@@ -604,7 +607,8 @@ extern "C" int mmdti_pair_bias_attention_mma_bwd(const void* q, const void* k, c
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
   a.dbias = static_cast<bf16*>(dbias);
-  a.drop = DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale};
+  a.drop = DropoutArgs{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   a.N = N;
   a.H = H;
   a.scale = 1.0f / sqrtf((float)D);
@@ -624,11 +628,13 @@ extern "C" int mmdti_pair_bias_attention_mma_bwd(const void* q, const void* k, c
 extern "C" int mmdti_pair_bias_attention_fwd(const void* q, const void* k, const void* v,
                                              const void* bias, void* out, void* logits,
                                              const void* seed, unsigned int threshold,
-                                             float drop_scale, int B, int N, int H, int D,
+                                             float drop_scale, int drop_h0, int drop_heads,
+                                             int B, int N, int H, int D,
                                              int qkv_bf16, int pair_bf16, void* stream) {
   using namespace mmdti;
   const float scale = 1.0f / sqrtf((float)D);
-  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale};
+  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   auto run = [&](auto t, auto d) -> cudaError_t {
     using T = decltype(t);
     constexpr int kD = decltype(d)::value;
@@ -654,11 +660,13 @@ extern "C" int mmdti_pair_bias_attention_bwd(const void* q, const void* k, const
                                              const void* logits, const void* gout,
                                              const void* glog, void* dq, void* dk, void* dv,
                                              void* dbias, void* stats, const void* seed,
-                                             unsigned int threshold, float drop_scale, int B,
+                                             unsigned int threshold,
+                                             float drop_scale, int drop_h0, int drop_heads, int B,
                                              int N, int H, int D, int qkv_bf16, int pair_bf16,
                                              void* stream) {
   using namespace mmdti;
-  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale};
+  const DropoutArgs drop{static_cast<const int*>(seed), threshold, drop_scale,
+                         drop_h0, drop_heads};
   auto run = [&](auto t, auto d) -> cudaError_t {
     using T = decltype(t);
     constexpr int kD = decltype(d)::value;

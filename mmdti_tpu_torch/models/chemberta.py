@@ -4,7 +4,11 @@ mmdti_tpu/models/chemberta.py).
 RoBERTa position ids offset from the pad token, post-LN BERT blocks, fp32
 LayerNorm and softmax, and the HF additive mask (1 - mask) * finfo(fp32).min
 over keys.  With a ``generator`` the forward applies the hidden and
-attention-probability dropouts of the JAX model (models/layers.py).
+attention-probability dropouts of the JAX model (models/layers.py).  With
+a sharding model group (parallel/mesh.py) each layer holds this shard's
+heads of ``attn_query``/``attn_key``/``attn_value`` and the matching input
+columns of ``attn_output``, and its columns of ``intermediate`` and
+``output``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from mmdti_tpu_torch.models.layers import (
     draw_seed,
     dropout,
     get_activation_fn,
+    row_dense,
+    tensor_parallel,
 )
 from mmdti_tpu_torch.ops.attention import masked_attention
 
@@ -56,44 +62,51 @@ class RobertaEmbeddings(nn.Module):
 
 
 class RobertaLayer(nn.Module):
-    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True):
+    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True, group=None):
         super().__init__()
-        E = cfg.hidden_size
+        E, F, H = cfg.hidden_size, cfg.intermediate_size, cfg.num_attention_heads
         self.cfg = cfg
         self.compute_dtype = dtype
         self.use_kernels = use_kernels
+        self.group = group = tensor_parallel(group)
+        m = group.size if group else 1
+        self.heads = H // m
+        self.head_span = None if group is None else (group.span(H)[0], H)
         self.act = get_activation_fn(cfg.hidden_act)
-        self.attn_query = Dense(E, E, dtype)
-        self.attn_key = Dense(E, E, dtype)
-        self.attn_value = Dense(E, E, dtype)
-        self.attn_output = Dense(E, E, dtype)
+        self.attn_query = Dense(E, E // m, dtype)
+        self.attn_key = Dense(E, E // m, dtype)
+        self.attn_value = Dense(E, E // m, dtype)
+        self.attn_output = row_dense(E, E, dtype, group)
         self.attn_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
-        self.intermediate = Dense(E, cfg.intermediate_size, dtype)
-        self.output = Dense(cfg.intermediate_size, E, dtype)
+        self.intermediate = Dense(E, F // m, dtype)
+        self.output = row_dense(F, E, dtype, group)
         self.output_LayerNorm = FusedLN(E, cfg.layer_norm_eps, use_kernels)
 
     def forward(self, x, key_mask_bias, generator: Optional[torch.Generator] = None):
         cfg = self.cfg
+        h = x if self.group is None else self.group.copy(x)
         ctx = masked_attention(
-            self.attn_query(x), self.attn_key(x), self.attn_value(x), key_mask_bias,
-            num_heads=cfg.num_attention_heads, dropout_rate=cfg.attention_probs_dropout_prob,
+            self.attn_query(h), self.attn_key(h), self.attn_value(h), key_mask_bias,
+            num_heads=self.heads, dropout_rate=cfg.attention_probs_dropout_prob,
             seed=draw_seed(generator, cfg.attention_probs_dropout_prob),
             deterministic=generator is None, use_kernels=self.use_kernels,
+            head_span=self.head_span,
         )
         ctx = dropout(self.attn_output(ctx), cfg.hidden_dropout_prob, generator)
         x = self.attn_LayerNorm(ctx + x, out_dtype=self.compute_dtype)
-        out = self.output(self.act(self.intermediate(x)))
+        h = x if self.group is None else self.group.copy(x)
+        out = self.output(self.act(self.intermediate(h)))
         out = dropout(out, cfg.hidden_dropout_prob, generator)
         return self.output_LayerNorm(out + x, out_dtype=self.compute_dtype)
 
 
 class ChemBerta(nn.Module):
-    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True):
+    def __init__(self, cfg: ChemBertaConfig, dtype=torch.float32, use_kernels=True, group=None):
         super().__init__()
         self.cfg = cfg
         self.embeddings = RobertaEmbeddings(cfg, dtype, use_kernels)
         for i in range(cfg.num_hidden_layers):
-            self.add_module(f"layer_{i}", RobertaLayer(cfg, dtype, use_kernels))
+            self.add_module(f"layer_{i}", RobertaLayer(cfg, dtype, use_kernels, group))
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmdti_tpu_torch.models.layers import Dense, FusedLN, NonLinearHead
+from mmdti_tpu_torch.models.layers import Dense, FusedLN, NonLinearHead, tensor_parallel
 from mmdti_tpu_torch.ops.hopper_gbf import gaussian_pdf, gbf_pair_bias_fused
 
 
@@ -72,21 +72,32 @@ class FusedGbfProj(nn.Module):
     """Fused twin of the gbf_proj NonLinearHead (K -> K -> H) with the same
     parameters (linear1/linear2), evaluated by ops/hopper_gbf.py: the
     [B,N,N,K] Gaussian features and hidden layer never reach device memory,
-    and the output is the encoder's [B,H,N,N] bias with -inf at padded keys."""
+    and the output is the encoder's [B,H,N,N] bias with -inf at padded keys.
+
+    With a sharding model group (parallel/mesh.py) linear2 holds this
+    shard's out_dim / m heads and the kernels run at H/m; the gradients of
+    the replicated inputs (u, the Gaussian means and stds, linear1) that
+    the backward kernel returns are this shard's part of the sum over its
+    heads, so they are summed over the group (``group.copy``: the twin of
+    the transpose psum of the JAX package's shard_map)."""
 
     def __init__(self, out_dim: int, kernels: int = 128,
                  activation_fn: str = "gelu_tanh", dtype=torch.float32,
-                 pair_dtype=torch.float32):
+                 pair_dtype=torch.float32, group=None):
         super().__init__()
         self.activation_fn = activation_fn
         self.compute_dtype = dtype
         self.pair_dtype = pair_dtype
+        self.group = tensor_parallel(group)
         self.linear1 = Dense(kernels, kernels, dtype)
-        self.linear2 = Dense(kernels, out_dim, dtype)
+        self.linear2 = Dense(kernels, out_dim // (self.group.size if self.group else 1), dtype)
 
     def forward(self, u, means, stds, padding_mask):
+        w1, b1 = self.linear1.weight, self.linear1.bias
+        if self.group is not None:
+            u, means, stds, w1, b1 = self.group.copy(u, means, stds, w1, b1)
         return gbf_pair_bias_fused(
-            u, means, stds, self.linear1.weight, self.linear1.bias,
+            u, means, stds, w1, b1,
             self.linear2.weight, self.linear2.bias, padding_mask,
             activation=self.activation_fn, pair_dtype=self.pair_dtype,
             compute_dtype=self.compute_dtype,

@@ -9,11 +9,18 @@ Dropout is explicit, as in flax: every forward that drops takes a
 deterministic.  ``nn.Dropout`` takes no generator, so ``dropout`` below
 draws its own mask (``draw_keep``, then ``apply_keep``); ``draw_seed``
 draws the int32 seed of one attention call's keep mask (ops/dropout.py).
+
+Under tensor parallelism (a ModelGroup of parallel/mesh.py with more than
+one shard) a column-parallel product is a Dense of this shard's output
+features behind ``group.copy`` of its input, and a row-parallel one a
+``RowParallelDense``; a mask over a sharded activation is drawn whole and
+sliced (``draw_keep(..., columns=)``), so every shard drops what one
+process drops.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,12 +40,15 @@ ACT2FN = {
 
 
 def draw_keep(generator: Optional[torch.Generator], rate: float, shape,
-              device) -> Optional[torch.Tensor]:
+              device, columns: Optional[Tuple[int, int]] = None) -> Optional[torch.Tensor]:
     """The keep mask ``dropout`` draws for a tensor of ``shape`` (bool,
-    True with probability 1 - rate), or None when nothing drops."""
+    True with probability 1 - rate), or None when nothing drops; with
+    ``columns`` (start, stop) the mask is drawn whole and those columns of
+    its last axis kept (a tensor-parallel shard's)."""
     if generator is None or rate <= 0.0:
         return None
-    return torch.rand(shape, generator=generator, device=device) >= rate
+    keep = torch.rand(shape, generator=generator, device=device) >= rate
+    return keep if columns is None else keep[..., columns[0]:columns[1]].contiguous()
 
 
 def apply_keep(x: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
@@ -82,6 +92,37 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def tensor_parallel(group):
+    """``group`` when it shards (a ModelGroup of more than one shard), else
+    None: a layer then runs as without one."""
+    return group if group is not None and group.size > 1 else None
+
+
+class RowParallelDense(Dense):
+    """The row-parallel product of tensor parallelism: the weight holds
+    this shard's ``in_features`` input columns; every shard's partial
+    product (in ``dtype``) is summed in fp32 over ``group`` (its backward
+    is the identity), the whole bias added once, and the sum cast to
+    ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=torch.float32, group=None):
+        super().__init__(in_features, out_features, dtype)
+        self.group = group
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        partial = F.linear(x.to(dt), self.weight.to(dt))
+        return (self.group.reduce(partial) + self.bias.float()).to(dt)
+
+
+def row_dense(in_features: int, out_features: int, dtype, group) -> Dense:
+    """A Dense, or under tensor parallelism (``group``) a RowParallelDense
+    of this shard's in_features / size input columns."""
+    if group is None:
+        return Dense(in_features, out_features, dtype)
+    return RowParallelDense(in_features // group.size, out_features, dtype, group)
 
 
 # tables up to this many rows take the one-hot backward below; past it the
@@ -162,18 +203,22 @@ class LayerNormFP32(nn.Module):
 
 
 class NonLinearHead(nn.Module):
-    """Two-layer MLP head (reference: models/mm_model.py:86-128)."""
+    """Two-layer MLP head (reference: models/mm_model.py:86-128).  With a
+    sharding ``group`` its output is column-parallel: linear2 holds this
+    shard's out_dim / size outputs behind ``group.copy``."""
 
     def __init__(self, in_dim: int, out_dim: int, activation_fn: str = "gelu",
-                 hidden: Optional[int] = None, dtype=torch.float32):
+                 hidden: Optional[int] = None, dtype=torch.float32, group=None):
         super().__init__()
         hidden = hidden or in_dim
         self.act = get_activation_fn(activation_fn)
+        self.group = tensor_parallel(group)
         self.linear1 = Dense(in_dim, hidden, dtype)
-        self.linear2 = Dense(hidden, out_dim, dtype)
+        self.linear2 = Dense(hidden, out_dim // (self.group.size if self.group else 1), dtype)
 
     def forward(self, x):
-        return self.linear2(self.act(self.linear1(x)))
+        h = self.act(self.linear1(x))
+        return self.linear2(h if self.group is None else self.group.copy(h))
 
 
 class ClassificationHead(nn.Module):

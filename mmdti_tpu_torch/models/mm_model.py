@@ -14,6 +14,15 @@ CUDA tensors, their plain versions on CPU tensors); ``False`` takes the
 plain oracle path everywhere, the counterpart of the JAX XLA path.  Both
 paths are differentiable; on the kernel path every attention and the
 Gaussian bias run their own backward kernels.
+
+Built with a sharding ``model_group`` (parallel/mesh.py) a model holds one
+model rank's shard of every transformer layer and of the gbf projection's
+output heads (``TP_RULES``); InfoNCE, FDS, the heads and the embeddings
+stay whole.  Its state dict is the shard's: ``mesh.load_model_state`` and
+``mesh.model_state`` move between it and the whole one, and
+``reset_parameters_like_flax`` draws the whole model's weights (on a
+full-width twin) and keeps the shard, so every mesh starts from the same
+weights.  A width the model ranks do not divide raises.
 """
 
 from __future__ import annotations
@@ -40,19 +49,64 @@ from mmdti_tpu_torch.models.layers import (
     Embed,
     NonLinearHead,
     init_like_flax,
+    tensor_parallel,
 )
 from mmdti_tpu_torch.models.unimol import UniMolEncoder, torch_dtype
 from mmdti_tpu_torch.ops.attention import merge_padding_into_bias
 from mmdti_tpu_torch.ops.pair_feats import mof_pair_feats_from_coords, pair_feats_from_coords
+from mmdti_tpu_torch.parallel.mesh import check_divisible, load_model_state
+
+# the fused gbf kernel's gate on a shard's heads: the JAX package's
+# gbf_fused_supported takes heads % 8 == 0 per shard
+GBF_SHARD_HEADS = 8
+
+
+class ShardedModel:
+    """The model axis of MMModel and MOFModel: ``model_group`` (a ModelGroup
+    of more than one shard, or None), a full-width twin built from the
+    same arguments, and the flax-like initialization of the whole model,
+    sharded."""
+
+    model_group = None
+
+    def full_width(self) -> nn.Module:
+        """The same model without a model group, on the CPU."""
+        return type(self)(**{**self._init_kwargs, "model_group": None})
+
+    def reset_parameters_like_flax(self, generator: torch.Generator):
+        """Random weights drawn as the flax initializers draw them (for a
+        shard: the whole model's, then the shard's part)."""
+        if self.model_group is None:
+            init_like_flax(self, generator)
+            return self
+        twin = self.full_width()
+        init_like_flax(twin, generator)
+        load_model_state(self, twin.state_dict())
+        return self
 
 
 def build_3d_stream(mdl: nn.Module, ucfg: UniMolEncoderConfig, atom_vocab_size: int,
-                    dtype, use_kernels: bool) -> None:
+                    dtype, use_kernels: bool, group=None) -> None:
     """Attach the 3D stream's submodules to ``mdl`` under their flax names
     (embed_tokens / gbf / gbf_proj / encoder), as MMModel and MOFModel
     share them.  The Gaussian kernel on the kernel path takes the fused
     Gaussian + gbf_proj kernels; the numerical kernel and the plain path a
-    gbf_proj NonLinearHead (the JAX package's unfused route)."""
+    gbf_proj NonLinearHead (the JAX package's unfused route).  A sharding
+    ``group`` shards the encoder and gbf_proj's heads; heads or FFN
+    columns it does not divide, and on the fused path a shard's heads that
+    break the gbf kernel's gate, raise ValueError."""
+    group = tensor_parallel(group)
+    if group is not None:
+        m = group.size
+        check_divisible("Uni-Mol attention_heads", ucfg.attention_heads, m)
+        check_divisible("Uni-Mol ffn_embed_dim", ucfg.ffn_embed_dim, m)
+        local = ucfg.attention_heads // m
+        if use_kernels and ucfg.kernel == "gaussian" and local % GBF_SHARD_HEADS:
+            raise ValueError(
+                f"tensor parallelism over {m} model ranks: the fused gbf kernel's gate (a "
+                f"shard's heads a multiple of {GBF_SHARD_HEADS}, the JAX package's "
+                f"gbf_fused_supported) fails at attention_heads / {m} = {local}; "
+                "use_pallas=False takes the plain path")
     edge_types = atom_vocab_size * atom_vocab_size
     mdl.embed_tokens = Embed(atom_vocab_size, ucfg.embed_dim, dtype)
     if ucfg.kernel == "gaussian":
@@ -65,13 +119,14 @@ def build_3d_stream(mdl: nn.Module, ucfg: UniMolEncoderConfig, atom_vocab_size: 
     if use_kernels and ucfg.kernel == "gaussian":
         mdl.gbf_proj = FusedGbfProj(
             ucfg.attention_heads, ucfg.gaussian_kernels, ucfg.activation_fn,
-            dtype=dtype, pair_dtype=torch_dtype(ucfg.pair_dtype),
+            dtype=dtype, pair_dtype=torch_dtype(ucfg.pair_dtype), group=group,
         )
     else:
         mdl.gbf_proj = NonLinearHead(
-            ucfg.gaussian_kernels, ucfg.attention_heads, ucfg.activation_fn, dtype=dtype
+            ucfg.gaussian_kernels, ucfg.attention_heads, ucfg.activation_fn, dtype=dtype,
+            group=group,
         )
-    mdl.encoder = UniMolEncoder(ucfg, dtype, use_kernels)
+    mdl.encoder = UniMolEncoder(ucfg, dtype, use_kernels, group)
 
 
 def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
@@ -115,7 +170,7 @@ def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
     return enc, padding_mask, atom_mask
 
 
-class MMModel(nn.Module):
+class MMModel(ShardedModel, nn.Module):
     def __init__(
         self,
         unimol_cfg: UniMolEncoderConfig,
@@ -129,8 +184,18 @@ class MMModel(nn.Module):
         fds_cfg: Optional[FDSConfig] = None,
         task: str = "regression",
         use_fds: bool = False,
+        model_group=None,
     ):
+        init_kwargs = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         super().__init__()
+        self._init_kwargs = init_kwargs
+        self.model_group = group = tensor_parallel(model_group)
+        if group is not None:
+            for what, n in (("ChemBERTa num_attention_heads", chemberta_cfg.num_attention_heads),
+                            ("ChemBERTa intermediate_size", chemberta_cfg.intermediate_size),
+                            ("cross-modal num_attention_heads", cross_cfg.num_attention_heads),
+                            ("cross-modal intermediate_size", cross_cfg.intermediate_size)):
+                check_divisible(what, n, group.size)
         ucfg = unimol_cfg
         self.unimol_cfg = ucfg
         self.atom_vocab_size = atom_vocab_size
@@ -141,19 +206,14 @@ class MMModel(nn.Module):
         self.use_fds = use_fds
         self.compute_dtype = dtype
         self.use_kernels = use_kernels
-        build_3d_stream(self, ucfg, atom_vocab_size, dtype, use_kernels)
-        self.bert = ChemBerta(chemberta_cfg, dtype, use_kernels)
+        build_3d_stream(self, ucfg, atom_vocab_size, dtype, use_kernels, group)
+        self.bert = ChemBerta(chemberta_cfg, dtype, use_kernels, group)
         self.infonce = InfoNCE(ucfg.embed_dim, dtype=dtype)
-        self.cross_modal_module = CrossAttentionModel(cross_cfg, dtype, use_kernels)
+        self.cross_modal_module = CrossAttentionModel(cross_cfg, dtype, use_kernels, group)
         self.classification_head = ClassificationHead(
             cross_cfg.hidden_size, ucfg.embed_dim, output_dim,
             ucfg.pooler_activation_fn, dtype, pooler_dropout=ucfg.pooler_dropout,
         )
-
-    def reset_parameters_like_flax(self, generator: torch.Generator) -> "MMModel":
-        """Random weights drawn as the flax initializers draw them."""
-        init_like_flax(self, generator)
-        return self
 
     def forward(
         self,
@@ -260,9 +320,11 @@ def build_model(
     task: str = "regression",
     use_fds: bool = False,
     fds_num: int = 20,
+    model_group=None,
 ) -> MMModel:
     """Assemble the flagship model from task-level options (same overrides
-    and FDS options as mmdti_tpu.models.mm_model.build_model)."""
+    and FDS options as mmdti_tpu.models.mm_model.build_model); with a
+    sharding ``model_group``, one model rank's shard of it."""
     ucfg = UniMolEncoderConfig(**(unimol_overrides or {}))
     ccfg = ChemBertaConfig(
         **{"vocab_size": smiles_vocab_size, **(chemberta_overrides or {})}
@@ -282,5 +344,6 @@ def build_model(
         fds_cfg=dataclasses.replace(FDSConfig(), bucket_num=fds_num, feature_dim=ucfg.embed_dim),
         task=task,
         use_fds=use_fds,
+        model_group=model_group,
     )
 

@@ -24,8 +24,8 @@ from torch import nn
 
 from mmdti_tpu_torch.configs.architectures import FDSConfig, UniMolEncoderConfig
 from mmdti_tpu_torch.losses.fds import fds_smooth
-from mmdti_tpu_torch.models.layers import ClassificationHead, Embed, NonLinearHead, init_like_flax
-from mmdti_tpu_torch.models.mm_model import build_3d_stream, unimol_3d_stream
+from mmdti_tpu_torch.models.layers import ClassificationHead, Embed, NonLinearHead, tensor_parallel
+from mmdti_tpu_torch.models.mm_model import ShardedModel, build_3d_stream, unimol_3d_stream
 from mmdti_tpu_torch.models.unimol import torch_dtype
 
 
@@ -76,7 +76,7 @@ class EnvModel(nn.Module):
                           self.temperature_embed(self._bin(t))], dim=-1)
 
 
-class MOFModel(nn.Module):
+class MOFModel(ShardedModel, nn.Module):
     def __init__(
         self,
         unimol_cfg: UniMolEncoderConfig,
@@ -93,8 +93,12 @@ class MOFModel(nn.Module):
         gas_max_count: int = 500,
         env_bins: int = 32,
         env_min_max: Optional[Dict[str, Tuple[float, float]]] = None,
+        model_group=None,
     ):
+        init_kwargs = {k: v for k, v in locals().items() if k not in ("self", "__class__")}
         super().__init__()
+        self._init_kwargs = init_kwargs
+        self.model_group = tensor_parallel(model_group)
         ucfg = unimol_cfg
         self.unimol_cfg = ucfg
         self.atom_vocab_size = atom_vocab_size
@@ -105,7 +109,7 @@ class MOFModel(nn.Module):
         self.use_fds = use_fds
         self.compute_dtype = dtype
         self.use_kernels = use_kernels
-        build_3d_stream(self, ucfg, atom_vocab_size, dtype, use_kernels)
+        build_3d_stream(self, ucfg, atom_vocab_size, dtype, use_kernels, self.model_group)
         self.gas_model = GasModel(gas_attr_input_dim, gas_dim, gas_max_count, dtype)
         self.env_model = EnvModel(gas_dim, env_bins, env_min_max, dtype)
         fused_dim = ucfg.embed_dim + 5 * gas_dim
@@ -115,11 +119,6 @@ class MOFModel(nn.Module):
             ucfg.embed_dim, ucfg.embed_dim, output_dim, ucfg.pooler_activation_fn, dtype,
             pooler_dropout=ucfg.pooler_dropout,
         )
-
-    def reset_parameters_like_flax(self, generator: torch.Generator) -> "MOFModel":
-        """Random weights drawn as the flax initializers draw them."""
-        init_like_flax(self, generator)
-        return self
 
     def forward(
         self,
@@ -202,6 +201,7 @@ def build_mof_model(
     use_kernels: bool = True,
     unimol_overrides: Optional[dict] = None,
     mof_overrides: Optional[dict] = None,
+    model_group=None,
 ) -> MOFModel:
     """The MOF model of data_type='mof' (same options as
     mmdti_tpu.models.mof.build_mof_model; ``mof_overrides`` are MOFModel's
@@ -217,5 +217,6 @@ def build_mof_model(
         use_fds=use_fds,
         dtype=torch_dtype(compute_dtype),
         use_kernels=use_kernels,
+        model_group=model_group,
         **(mof_overrides or {}),
     )

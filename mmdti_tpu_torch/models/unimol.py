@@ -15,6 +15,14 @@ recomputed in the backward, from the layer's input, its incoming pair bias
 and its draws (``PairBiasEncoderLayer.draw``, made once before the layer),
 so a step with remat is bit-equal to one without.  The incoming pair bias
 is a checkpoint input, so the chain of [B,H,N,N] logits stays resident.
+
+With a sharding model group (parallel/mesh.py) each layer holds this
+shard's H/m heads of ``in_proj`` (from each of its q, k and v thirds),
+``out_proj``'s matching input columns, and F/m columns of ``fc1`` and
+``fc2``; the pair-bias kernels run on the shard's heads at their place
+among the layer's, and each shard threads its own [B, H/m, N, N] chain.
+Only ``pair_outputs`` gathers the heads (the final head LayerNorm and the
+delta-pair norm read all H); the train and serve paths never ask for them.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from mmdti_tpu_torch.models.layers import (
     draw_seed,
     dropout,
     get_activation_fn,
+    row_dense,
+    tensor_parallel,
 )
 from mmdti_tpu_torch.ops.attention import pair_bias_attention
 
@@ -57,18 +67,26 @@ class Draws(NamedTuple):
 
 
 class PairBiasEncoderLayer(nn.Module):
-    def __init__(self, cfg: UniMolEncoderConfig, dtype=torch.float32, use_kernels=True):
+    def __init__(self, cfg: UniMolEncoderConfig, dtype=torch.float32, use_kernels=True,
+                 group=None):
         super().__init__()
-        E = cfg.embed_dim
+        E, F = cfg.embed_dim, cfg.ffn_embed_dim
         self.cfg = cfg
         self.use_kernels = use_kernels
+        self.group = group = tensor_parallel(group)
+        m = group.size if group else 1
         self.act = get_activation_fn(cfg.activation_fn)
         self.self_attn_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
-        self.in_proj = Dense(E, 3 * E, dtype)
-        self.out_proj = Dense(E, E, dtype)
+        self.in_proj = Dense(E, 3 * E // m, dtype)
+        self.out_proj = row_dense(E, E, dtype, group)
         self.final_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
-        self.fc1 = Dense(E, cfg.ffn_embed_dim, dtype)
-        self.fc2 = Dense(cfg.ffn_embed_dim, E, dtype)
+        self.fc1 = Dense(E, F // m, dtype)
+        self.fc2 = row_dense(F, E, dtype, group)
+        # this shard's heads among the layer's, and its FFN columns
+        self.heads = cfg.attention_heads // m
+        self.head_span = None if group is None else (group.span(cfg.attention_heads)[0],
+                                                     cfg.attention_heads)
+        self.ffn_columns = None if group is None else group.span(F)
 
     def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> Draws:
         """The layer's random draws for input ``x``, in the order its
@@ -82,22 +100,27 @@ class PairBiasEncoderLayer(nn.Module):
         return Draws(generator is None, draw_seed(generator, cfg.attention_dropout),
                      draw_keep(generator, cfg.dropout, x.shape, x.device),
                      draw_keep(generator, cfg.activation_dropout,
-                               (*x.shape[:-1], cfg.ffn_embed_dim), x.device),
+                               (*x.shape[:-1], cfg.ffn_embed_dim), x.device,
+                               columns=self.ffn_columns),
                      draw_keep(generator, cfg.dropout, x.shape, x.device))
 
     def forward(self, x, bias, draws: "Draws"):
-        """x [B,N,E], bias [B,H,N,N], the layer's ``draws`` -> (x', new_bias)."""
+        """x [B,N,E], bias [B,H,N,N] (this shard's H/m heads under tensor
+        parallelism), the layer's ``draws`` -> (x', new_bias)."""
         cfg = self.cfg
         residual = x
-        q, k, v = self.in_proj(self.self_attn_layer_norm(x)).chunk(3, dim=-1)
+        h = self.self_attn_layer_norm(x)
+        q, k, v = self.in_proj(h if self.group is None else self.group.copy(h)).chunk(3, dim=-1)
         attn, new_bias = pair_bias_attention(
-            q, k, v, bias, num_heads=cfg.attention_heads,
+            q, k, v, bias, num_heads=self.heads,
             pair_dtype=torch_dtype(cfg.pair_dtype), dropout_rate=cfg.attention_dropout,
             seed=draws.seed, deterministic=draws.deterministic, use_kernels=self.use_kernels,
+            head_span=self.head_span,
         )
         x = residual + apply_keep(self.out_proj(attn), draws.attn_out, cfg.dropout)
         residual = x
-        x = self.act(self.fc1(self.final_layer_norm(x)))
+        h = self.final_layer_norm(x)
+        x = self.act(self.fc1(h if self.group is None else self.group.copy(h)))
         x = self.fc2(apply_keep(x, draws.activation, cfg.activation_dropout))
         return residual + apply_keep(x, draws.out, cfg.dropout), new_bias
 
@@ -114,13 +137,15 @@ def _masked_mean(mask, value, dim=-1, eps=1e-10):
 
 
 class UniMolEncoder(nn.Module):
-    def __init__(self, cfg: UniMolEncoderConfig, dtype=torch.float32, use_kernels=True):
+    def __init__(self, cfg: UniMolEncoderConfig, dtype=torch.float32, use_kernels=True,
+                 group=None):
         super().__init__()
         E = cfg.embed_dim
         self.cfg = cfg
+        self.group = tensor_parallel(group)
         self.emb_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         for i in range(cfg.encoder_layers):
-            self.add_module(f"layers_{i}", PairBiasEncoderLayer(cfg, dtype, use_kernels))
+            self.add_module(f"layers_{i}", PairBiasEncoderLayer(cfg, dtype, use_kernels, group))
         if not cfg.post_ln:
             self.final_layer_norm = LayerNormFP32(E, use_kernels=use_kernels)
         if cfg.delta_pair_repr_norm_loss >= 0:
@@ -175,6 +200,10 @@ class UniMolEncoder(nn.Module):
         if not cfg.post_ln:
             x = self.final_layer_norm(x)
 
+        if self.group is not None:
+            # the pair outputs read every head
+            bias = self.group.gather(bias, 1)
+            input_bias = self.group.gather(input_bias, 1)
         # delta pair representation: accumulated logits minus the input
         # bias, zeroed at padded keys, [B,N,N,H]
         delta = bias.float() - input_bias.float()

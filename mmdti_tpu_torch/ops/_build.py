@@ -6,6 +6,8 @@ the sources and flags, so an edited kernel rebuilds), with a plain C
 interface that ctypes loads: pointers and the stream pass as ``c_void_p``,
 ints as ``c_int``, and every entry point returns the ``cudaError_t`` of its
 launch.  A failed build raises with nvcc's output; nothing falls back.
+A library in ``PARTS`` compiles as several objects at once, each defining
+some of its entry points, linked into the one library.
 
 The host chemistry library (``csrc/mmchem.cpp``, chem/native.py) takes the
 host-compiler route, ``build_host_library``: g++ (``$CXX``) with the flags of
@@ -40,32 +42,34 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     "pair_bias_attention": {
         # fp32 route (row kernels)
-        # q, k, v, bias, out, logits, seed, threshold, drop_scale, B, N, H, D,
+        # q, k, v, bias, out, logits, seed, threshold, drop_scale, h0, H_total, B, N, H, D,
         # qkv_bf16, pair_bf16, stream
-        "mmdti_pair_bias_attention_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 6 + (_P,),
+        "mmdti_pair_bias_attention_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 8 + (_P,),
         # q, k, v, logits, g_out, g_logits, dq, dk, dv, dbias, stats, seed,
-        # threshold, drop_scale, B, N, H, D, qkv_bf16, pair_bf16, stream
-        "mmdti_pair_bias_attention_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 6 + (_P,),
+        # threshold, drop_scale, h0, H_total, B, N, H, D, qkv_bf16, pair_bf16, stream
+        "mmdti_pair_bias_attention_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 8 + (_P,),
         # bf16 route (tensor cores)
-        # q, k, v, bias, out, logits, stats, seed, threshold, drop_scale, B, N, H, D, stream
-        "mmdti_pair_bias_attention_mma_fwd": (_P,) * 8 + (_U, _F) + (_I,) * 4 + (_P,),
+        # q, k, v, bias, out, logits, stats, seed, threshold, drop_scale, h0, H_total,
+        # B, N, H, D, stream
+        "mmdti_pair_bias_attention_mma_fwd": (_P,) * 8 + (_U, _F) + (_I,) * 6 + (_P,),
         # q, k, v, logits, out, stats, g_out, g_logits, dq, dk, dv, dbias, seed,
-        # threshold, drop_scale, B, N, H, D, stream
-        "mmdti_pair_bias_attention_mma_bwd": (_P,) * 13 + (_U, _F) + (_I,) * 4 + (_P,),
+        # threshold, drop_scale, h0, H_total, B, N, H, D, stream
+        "mmdti_pair_bias_attention_mma_bwd": (_P,) * 13 + (_U, _F) + (_I,) * 6 + (_P,),
     },
     "masked_attention": {
         # fp32 route (row kernels)
-        # q, k, v, mask, out, seed, threshold, drop_scale, B, Nq, Nk, H, D, stream
-        "mmdti_masked_attention_fwd": (_P,) * 6 + (_U, _F) + (_I,) * 5 + (_P,),
+        # q, k, v, mask, out, seed, threshold, drop_scale, h0, H_total, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_fwd": (_P,) * 6 + (_U, _F) + (_I,) * 7 + (_P,),
         # q, k, v, mask, g_out, dq, dk, dv, stats, seed, threshold, drop_scale,
-        # B, Nq, Nk, H, D, stream
-        "mmdti_masked_attention_bwd": (_P,) * 10 + (_U, _F) + (_I,) * 5 + (_P,),
+        # h0, H_total, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_bwd": (_P,) * 10 + (_U, _F) + (_I,) * 7 + (_P,),
         # bf16 route (tensor cores)
-        # q, k, v, mask, out, stats, seed, threshold, drop_scale, B, Nq, Nk, H, D, stream
-        "mmdti_masked_attention_mma_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 5 + (_P,),
+        # q, k, v, mask, out, stats, seed, threshold, drop_scale, h0, H_total, B, Nq,
+        # Nk, H, D, stream
+        "mmdti_masked_attention_mma_fwd": (_P,) * 7 + (_U, _F) + (_I,) * 7 + (_P,),
         # q, k, v, mask, out, g_out, stats, rsum, dq, dk, dv, seed, threshold,
-        # drop_scale, B, Nq, Nk, H, D, stream
-        "mmdti_masked_attention_mma_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 5 + (_P,),
+        # drop_scale, h0, H_total, B, Nq, Nk, H, D, stream
+        "mmdti_masked_attention_mma_bwd": (_P,) * 12 + (_U, _F) + (_I,) * 7 + (_P,),
     },
     "gbf_proj": {
         # u, means, stds, w1, b1, w2, b2, pad, out, B, N, K, Kh, H,
@@ -93,6 +97,11 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
     },
 }
 
+# libraries built in parts: csrc/<name>.cu compiled this many times at once,
+# with MMDTI_PART = 0, 1, ... (each part defines some of the entry points and
+# instantiates only their kernels), and the objects linked into one library
+PARTS: Dict[str, int] = {"gbf_proj": 4}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -114,7 +123,7 @@ def _sources(name: str):
 
 
 def library_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join((*NVCC_FLAGS, f"parts={PARTS.get(name, 1)}")).encode())
     for src in _sources(name):
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -127,17 +136,38 @@ def _compile(name: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    src = os.path.join(CSRC, f"{name}.cu")
+    parts = PARTS.get(name)
+    if parts is None:
+        runs = [_nvcc([*NVCC_FLAGS, "-o", tmp, src])]
+    else:
+        # the parts' objects at once, then one link
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        objs = [f"{tmp}.part{i}.o" for i in range(parts)]
+        with _fut.ThreadPoolExecutor(max_workers=parts) as pool:
+            runs = list(pool.map(
+                lambda i: _nvcc([*compile_flags, "-c", f"-DMMDTI_PART={i}", "-o", objs[i], src]),
+                range(parts)))
+        if all(code == 0 for _, code, _ in runs):
+            runs.append(_nvcc([*NVCC_FLAGS, "-o", tmp, *objs]))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        f.write("".join(cmd + "\n" + text for cmd, _, text in runs))
+    failed = [(cmd, code, text) for cmd, code, text in runs if code != 0]
+    if failed:
+        cmd, code, text = failed[0]
+        raise RuntimeError(f"nvcc failed to build {name}.cu (exit {code}):\n{text}")
     os.replace(tmp, out)
     return out
+
+
+def _nvcc(args):
+    """(command line, exit code, output) of one nvcc run."""
+    cmd = [nvcc_path(), *args]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return " ".join(cmd), proc.returncode, proc.stdout + proc.stderr
 
 
 def load(name: str) -> ctypes.CDLL:

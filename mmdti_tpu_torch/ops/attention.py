@@ -105,15 +105,19 @@ def cross_attention_ref(
 
 
 def masked_attention(q_tok, k_tok, v_tok, key_mask_bias, *, num_heads,
-                     dropout_rate=0.0, seed=None, deterministic=True, use_kernels=True):
+                     dropout_rate=0.0, seed=None, deterministic=True, use_kernels=True,
+                     head_span=None):
     """[B,Lq,E] x [B,Lk,E] attention with an additive key mask [B, Lk]
     (ChemBERTa / cross-modal).  With ``deterministic=False`` the
     probabilities are dropped at ``dropout_rate`` by the keep mask of
-    ``seed`` (one int32 tensor), on either path."""
+    ``seed`` (one int32 tensor), on either path; ``head_span`` (h0,
+    H_total) places a tensor-parallel rank's heads among the layer's
+    (ops/hopper_attention.py)."""
     if use_kernels:
         return masked_attention_fused(
             q_tok, k_tok, v_tok, key_mask_bias, num_heads=num_heads,
             dropout_rate=dropout_rate, seed=seed, deterministic=deterministic,
+            head_span=head_span,
         )
     H = num_heads
     rate = effective_rate(dropout_rate, seed, deterministic)
@@ -121,20 +125,21 @@ def masked_attention(q_tok, k_tok, v_tok, key_mask_bias, *, num_heads,
     ctx = cross_attention_ref(
         split_heads(q_tok, H), split_heads(k_tok, H), split_heads(v_tok, H),
         key_mask_bias[:, None, None, :],
-        keep_mask_for(seed, rate, B, H, Lq, k_tok.shape[1], q_tok.device), rate,
+        keep_mask_for(seed, rate, B, H, Lq, k_tok.shape[1], q_tok.device, head_span), rate,
     )
     return merge_heads(ctx)
 
 
 def pair_bias_attention(q_tok, k_tok, v_tok, bias, *, num_heads, pair_dtype,
                         dropout_rate=0.0, seed=None, deterministic=True,
-                        use_kernels=True):
+                        use_kernels=True, head_span=None):
     """[B,N,E] pair-bias attention returning (attn [B,N,E], new_bias); the
-    dropout arguments as masked_attention's."""
+    dropout and ``head_span`` arguments as masked_attention's."""
     if use_kernels:
         return pair_bias_attention_fused(
             q_tok, k_tok, v_tok, bias, num_heads=num_heads, pair_dtype=pair_dtype,
             dropout_rate=dropout_rate, seed=seed, deterministic=deterministic,
+            head_span=head_span,
         )
     H = num_heads
     rate = effective_rate(dropout_rate, seed, deterministic)
@@ -142,6 +147,6 @@ def pair_bias_attention(q_tok, k_tok, v_tok, bias, *, num_heads, pair_dtype,
     attn, new_bias = pair_bias_attention_ref(
         split_heads(q_tok, H), split_heads(k_tok, H), split_heads(v_tok, H),
         bias, pair_dtype=pair_dtype,
-        keep=keep_mask_for(seed, rate, B, H, N, N, q_tok.device), dropout_rate=rate,
+        keep=keep_mask_for(seed, rate, B, H, N, N, q_tok.device, head_span), dropout_rate=rate,
     )
     return merge_heads(attn), new_bias

@@ -28,6 +28,12 @@ Attention dropout draws its keep mask from ops/dropout.py's pure function of
 plain versions drop the same probabilities; ``seed`` is one int32 in a
 tensor on the inputs' device.
 
+Under tensor parallelism (parallel/mesh.py) a call holds the heads
+h0 .. h0 + H - 1 of a layer with H_total heads: ``head_span=(h0, H_total)``
+(None: (0, H)).  The keep mask of local head h is the one a call over every
+head draws for head h0 + h (the hash takes b*H_total + h0 + h), so a
+sharded layer drops what the whole layer drops.
+
 Each ``*_cuda`` launcher counts its launches in ``<fn>.launches`` and per
 route in ``<fn>.routes``.
 """
@@ -82,12 +88,26 @@ def guarded_softmax_pv(logits: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v) * inv_s
 
 
-def keep_mask_for(seed, dropout_rate: float, B: int, H: int, Nq: int, Nk: int, device):
-    """The call's dropout keep mask [B,H,Nq,Nk] (ops/dropout.py), or None
-    without dropout."""
+def keep_mask_for(seed, dropout_rate: float, B: int, H: int, Nq: int, Nk: int, device,
+                  head_span=None):
+    """The call's dropout keep mask [B,H,Nq,Nk] (ops/dropout.py) for its H
+    heads at ``head_span`` (h0, H_total) of the layer's, or None without
+    dropout."""
     if dropout_rate <= 0.0:
         return None
-    return drop.keep_mask(seed, dropout_rate, B, H, Nq, Nk, device=device)
+    h0, total = span_of(head_span, H)
+    return drop.keep_mask(seed, dropout_rate, B, total, Nq, Nk, heads=slice(h0, h0 + H),
+                          device=device)
+
+
+def span_of(head_span, H: int):
+    """(h0, H_total) of a call with H heads: ``head_span``, or (0, H)."""
+    if head_span is None:
+        return 0, H
+    h0, total = (int(x) for x in head_span)
+    if h0 < 0 or h0 + H > total:
+        raise ValueError(f"heads {h0} .. {h0 + H - 1} are not among a layer's {total}")
+    return h0, total
 
 
 def _attention_bwd_core(qh, kh, vh, logits, g_h, g_logits, keep, dropout_rate, scale):
@@ -164,14 +184,17 @@ def _require_aligned(tensors, names):
             raise ValueError(f"{n} must start on a 16-byte boundary for the bf16 kernels")
 
 
-def _dropout_args(seed: Optional[torch.Tensor], dropout_rate: float, device):
-    """(seed pointer or None, uint32 threshold, keep scale) for a launch."""
+def _dropout_args(seed: Optional[torch.Tensor], dropout_rate: float, device, H: int,
+                  head_span=None):
+    """(seed pointer or None, uint32 threshold, keep scale, h0, H_total) for
+    a launch of H heads."""
+    h0, total = span_of(head_span, H)
     if dropout_rate <= 0.0:
-        return None, 0, 1.0
+        return None, 0, 1.0, h0, total
     if not (torch.is_tensor(seed) and seed.dtype == torch.int32 and seed.numel() == 1
             and seed.device == device):
         raise ValueError(f"attention dropout needs seed as one int32 on {device}")
-    return seed.data_ptr(), drop.threshold(dropout_rate), drop.keep_scale(dropout_rate)
+    return seed.data_ptr(), drop.threshold(dropout_rate), drop.keep_scale(dropout_rate), h0, total
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -247,7 +270,7 @@ def check_pair_mma_backward(N: int, D: int) -> None:
 
 
 def pair_bias_attention_plain(q, k, v, bias, num_heads: int, pair_dtype=torch.float32,
-                              seed=None, dropout_rate: float = 0.0):
+                              seed=None, dropout_rate: float = 0.0, head_span=None):
     """Plain version of the pair-bias forward kernels, whole rows at once.
 
     q/k/v [B,N,H*D], bias [B,H,N,N] (-inf at padded keys) ->
@@ -262,7 +285,7 @@ def pair_bias_attention_plain(q, k, v, bias, num_heads: int, pair_dtype=torch.fl
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
     logits = torch.matmul(qh * D ** -0.5, kh.transpose(-1, -2)) + bias.float()
-    keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device)
+    keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device, head_span)
     out = merge_heads(guarded_softmax_pv(logits, vh, keep, dropout_rate)).to(q.dtype)
     stored = logits.to(pair_dtype)
     m = guarded_max(logits)
@@ -271,7 +294,7 @@ def pair_bias_attention_plain(q, k, v, bias, num_heads: int, pair_dtype=torch.fl
 
 
 def pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, num_heads: int,
-                                  seed=None, dropout_rate: float = 0.0):
+                                  seed=None, dropout_rate: float = 0.0, head_span=None):
     """Plain version of the pair-bias backward row kernels, and the oracle of
     both routes: the softmax recomputed from the stored logits, the
     forward's dropout mask replayed.  g_out [B,N,H*D] and g_logits
@@ -282,7 +305,7 @@ def pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, num_heads: i
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
     g_h = None if g_out is None else split_heads(g_out, H).float()
-    keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device)
+    keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device, head_span)
     dq, dk, dv, dl = _attention_bwd_core(qh, kh, vh, logits.float(), g_h, g_logits, keep,
                                          dropout_rate, D ** -0.5)
     return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
@@ -290,7 +313,8 @@ def pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, num_heads: i
 
 
 def pair_bias_attention_stats_bwd_plain(q, k, v, logits, out, stats, g_out, g_logits,
-                                        num_heads: int, seed=None, dropout_rate: float = 0.0):
+                                        num_heads: int, seed=None, dropout_rate: float = 0.0,
+                                        head_span=None):
     """Plain version of the bf16 (tensor-core) backward kernel, whole rows
     at once: P = exp(logits - m) * inv from the forward's stats,
     r = rowsum(g_out * out), dL = P * (keep*c*dP - r) + g_logits.  g_out and
@@ -305,7 +329,7 @@ def pair_bias_attention_stats_bwd_plain(q, k, v, logits, out, stats, g_out, g_lo
         dl = torch.zeros_like(p)
         dv = torch.zeros_like(vh)
     else:
-        keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device)
+        keep = keep_mask_for(seed, dropout_rate, B, H, N, N, q.device, head_span)
         dl, dv = _stats_softmax_bwd(p, split_heads(g_out, H).float(),
                                     split_heads(out, H).float(), vh, keep, dropout_rate)
     if g_logits is not None:
@@ -323,7 +347,7 @@ def _check_pair(q, k, v, pair, num_heads, what):
 
 
 def pair_bias_attention_cuda(q, k, v, bias, num_heads: int, seed=None,
-                             dropout_rate: float = 0.0):
+                             dropout_rate: float = 0.0, head_span=None):
     """Launch csrc/pair_bias_attention.cu's forward on the route of the
     dtypes.  Returns (out, logits in bias.dtype, stats): stats [B,H,N,2]
     fp32 on the "mma" route, None on the "rows" route."""
@@ -331,7 +355,7 @@ def pair_bias_attention_cuda(q, k, v, bias, num_heads: int, seed=None,
     B, N, D = _check_pair(q, k, v, bias, num_heads, "bias")
     H = num_heads
     route = pair_bias_route(q.dtype, bias.dtype)
-    seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
+    drop_args = _dropout_args(seed, dropout_rate, q.device, H, head_span)
     out = torch.empty_like(q)
     logits = torch.empty_like(bias)
     lib = _build.load("pair_bias_attention")
@@ -341,11 +365,11 @@ def pair_bias_attention_cuda(q, k, v, bias, num_heads: int, seed=None,
         stats = torch.empty((B, H, N, 2), dtype=torch.float32, device=q.device)
         rc = lib.mmdti_pair_bias_attention_mma_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            logits.data_ptr(), stats.data_ptr(), seed_p, thr, scale, B, N, H, D, _stream(q))
+            logits.data_ptr(), stats.data_ptr(), *drop_args, B, N, H, D, _stream(q))
     else:
         rc = lib.mmdti_pair_bias_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            logits.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
+            logits.data_ptr(), *drop_args, B, N, H, D, _dtype_flag(q, "q"),
             _dtype_flag(bias, "bias"), _stream(q))
     _build.check(rc, f"pair_bias_attention {route} (B={B}, N={N}, H={H}, D={D})")
     pair_bias_attention_cuda.launches += 1
@@ -358,7 +382,7 @@ pair_bias_attention_cuda.routes = {"mma": 0, "rows": 0}
 
 
 def pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits, num_heads: int,
-                                 seed=None, dropout_rate: float = 0.0):
+                                 seed=None, dropout_rate: float = 0.0, head_span=None):
     """Launch csrc/pair_bias_attention.cu's backward on the route of the
     dtypes: on "mma" one kernel that reads the forward's out and stats, on
     "rows" two kernels that recompute everything from the logits (out and
@@ -374,7 +398,7 @@ def pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits, n
                                  or g_logits.dtype != logits.dtype):
         raise ValueError("g_logits must match the logits in shape and dtype")
     route = pair_bias_route(q.dtype, logits.dtype)
-    seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
+    drop_args = _dropout_args(seed, dropout_rate, q.device, H, head_span)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(logits)
     lib = _build.load("pair_bias_attention")
@@ -391,13 +415,13 @@ def pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits, n
         rc = lib.mmdti_pair_bias_attention_mma_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(), out.data_ptr(),
             stats.data_ptr(), _ptr(g_out), _ptr(g_logits), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbias.data_ptr(), seed_p, thr, scale, B, N, H, D, _stream(q))
+            dv.data_ptr(), dbias.data_ptr(), *drop_args, B, N, H, D, _stream(q))
     else:
         ws = torch.empty((B, H, N, 3), dtype=torch.float32, device=q.device)
         rc = lib.mmdti_pair_bias_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(), _ptr(g_out),
             _ptr(g_logits), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            ws.data_ptr(), seed_p, thr, scale, B, N, H, D, _dtype_flag(q, "q"),
+            ws.data_ptr(), *drop_args, B, N, H, D, _dtype_flag(q, "q"),
             _dtype_flag(logits, "logits"), _stream(q))
     _build.check(rc, f"pair_bias_attention_bwd {route} (B={B}, N={N}, H={H}, D={D})")
     pair_bias_attention_bwd_cuda.launches += 1
@@ -411,7 +435,8 @@ pair_bias_attention_bwd_cuda.routes = {"mma": 0, "rows": 0}
 
 class PairBiasAttention(torch.autograd.Function):
     """The pair-bias kernel pair as one differentiable op: apply(q, k, v,
-    bias, num_heads, seed, dropout_rate) -> (out, logits in bias.dtype).
+    bias, num_heads, seed, dropout_rate, head_span) -> (out, logits in
+    bias.dtype).
     bf16 q/k/v with a bf16 pair take the "mma" route and save out and the
     row stats for the backward; otherwise the "rows" route, whose backward
     recomputes everything from the logits.  CPU tensors run each route's
@@ -419,16 +444,17 @@ class PairBiasAttention(torch.autograd.Function):
     read (the last layer's logits) and passes it on as absent."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads, seed, dropout_rate):
+    def forward(ctx, q, k, v, bias, num_heads, seed, dropout_rate, head_span):
         if q.device.type != "cpu":
             out, logits, stats = pair_bias_attention_cuda(q, k, v, bias, num_heads, seed,
-                                                          dropout_rate)
+                                                          dropout_rate, head_span)
         else:
             out, logits, stats = pair_bias_attention_plain(q, k, v, bias, num_heads, bias.dtype,
-                                                           seed, dropout_rate)
+                                                           seed, dropout_rate, head_span)
         mma = pair_bias_route(q.dtype, bias.dtype) == "mma"
         ctx.save_for_backward(q, k, v, logits, *((out, stats) if mma else ()))
         ctx.num_heads, ctx.seed, ctx.dropout_rate = num_heads, seed, dropout_rate
+        ctx.head_span = head_span
         ctx.set_materialize_grads(False)
         return out, logits
 
@@ -439,7 +465,7 @@ class PairBiasAttention(torch.autograd.Function):
             g_out = g_out.to(q.dtype).contiguous()
         if g_logits is not None:
             g_logits = g_logits.to(logits.dtype).contiguous()
-        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate)
+        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate, ctx.head_span)
         if q.device.type != "cpu":
             out, stats = saved or (None, None)
             grads = pair_bias_attention_bwd_cuda(q, k, v, logits, out, stats, g_out, g_logits,
@@ -449,22 +475,24 @@ class PairBiasAttention(torch.autograd.Function):
                                                         g_logits, *rest)
         else:
             grads = pair_bias_attention_bwd_plain(q, k, v, logits, g_out, g_logits, *rest)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def pair_bias_attention_fused(q, k, v, bias, *, num_heads: int,
                               pair_dtype=torch.float32, dropout_rate: float = 0.0,
                               seed: Optional[torch.Tensor] = None,
-                              deterministic: bool = True):
+                              deterministic: bool = True, head_span=None):
     """Token-major pair-bias attention, differentiable: the kernels for
     CUDA tensors, the plain versions for CPU tensors.  Returns (out, logits
     in pair_dtype).  With ``deterministic=False`` and a rate above 0 the
-    probabilities are dropped by the keep mask of ``seed``."""
+    probabilities are dropped by the keep mask of ``seed`` (at
+    ``head_span``: the module docstring)."""
     rate = effective_rate(dropout_rate, seed, deterministic)
     bias = bias.to(pair_dtype)
     if q.device.type != "cpu":
         q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
-    return PairBiasAttention.apply(q, k, v, bias, num_heads, seed if rate else None, rate)
+    return PairBiasAttention.apply(q, k, v, bias, num_heads, seed if rate else None, rate,
+                                   head_span)
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +515,7 @@ def masked_route(dtype) -> str:
 
 
 def masked_attention_plain(q, k, v, mask, num_heads: int, seed=None,
-                           dropout_rate: float = 0.0):
+                           dropout_rate: float = 0.0, head_span=None):
     """Plain version of the forward kernels, whole rows at once.
 
     q [B,Nq,H*D], k/v [B,Nk,H*D], mask [B,Nk] additive fp32 ->
@@ -499,13 +527,13 @@ def masked_attention_plain(q, k, v, mask, num_heads: int, seed=None,
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
     logits = _masked_logits(qh, kh, mask, D)
-    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
+    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device, head_span)
     out = merge_heads(guarded_softmax_pv(logits, vh, keep, dropout_rate)).to(q.dtype)
     return out, torch.cat([guarded_max(logits), guarded_softmax_parts(logits)[1]], dim=-1)
 
 
 def masked_attention_bwd_plain(q, k, v, mask, g_out, num_heads: int, seed=None,
-                               dropout_rate: float = 0.0):
+                               dropout_rate: float = 0.0, head_span=None):
     """Plain version of the fp32 (row) backward kernels, and the oracle of
     both routes: recomputes the logits from q, k and the mask and replays
     the dropout mask.  Returns (dq, dk, dv); the mask gets no gradient."""
@@ -514,14 +542,14 @@ def masked_attention_bwd_plain(q, k, v, mask, g_out, num_heads: int, seed=None,
     D = E // H
     qh, kh, vh = (split_heads(t, H).float() for t in (q, k, v))
     g_h = None if g_out is None else split_heads(g_out, H).float()
-    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
+    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device, head_span)
     dq, dk, dv, _ = _attention_bwd_core(qh, kh, vh, _masked_logits(qh, kh, mask, D), g_h,
                                         None, keep, dropout_rate, D ** -0.5)
     return merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype), merge_heads(dv).to(v.dtype)
 
 
 def masked_attention_stats_bwd_plain(q, k, v, mask, out, stats, g_out, num_heads: int,
-                                     seed=None, dropout_rate: float = 0.0):
+                                     seed=None, dropout_rate: float = 0.0, head_span=None):
     """Plain version of the bf16 (tensor-core) backward kernels, whole rows
     at once: P from the forward's stats, r = rowsum(g_out * out),
     dS = P * (keep*c*dP - r).  Returns (dq, dk, dv) in q.dtype."""
@@ -530,7 +558,7 @@ def masked_attention_stats_bwd_plain(q, k, v, mask, out, stats, g_out, num_heads
     D = E // H
     qh, kh, vh, gh, oh = (split_heads(t, H).float() for t in (q, k, v, g_out, out))
     p = torch.exp(_masked_logits(qh, kh, mask, D) - stats[..., :1]) * stats[..., 1:]
-    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device)
+    keep = keep_mask_for(seed, dropout_rate, B, H, Nq, k.shape[1], q.device, head_span)
     ds, dv = _stats_softmax_bwd(p, gh, oh, vh, keep, dropout_rate)
     dq = torch.matmul(ds, kh) * D ** -0.5
     dk = torch.matmul(ds.transpose(-1, -2), qh) * D ** -0.5
@@ -545,7 +573,7 @@ def _check_mask(mask, B, Nk):
 
 
 def masked_attention_cuda(q, k, v, mask, num_heads: int, seed=None,
-                          dropout_rate: float = 0.0):
+                          dropout_rate: float = 0.0, head_span=None):
     """Launch csrc/masked_attention.cu's forward on the route of q's dtype.
     Returns (out, stats): stats [B,H,Nq,2] fp32 on the "mma" route, None on
     the "rows" route."""
@@ -553,7 +581,7 @@ def masked_attention_cuda(q, k, v, mask, num_heads: int, seed=None,
     B, Nq, Nk, D = _check_heads(q, k, v, num_heads, "masked attention")
     _check_mask(mask, B, Nk)
     route = masked_route(q.dtype)
-    seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
+    drop_args = _dropout_args(seed, dropout_rate, q.device, num_heads, head_span)
     lib = _build.load("masked_attention")
     stats = None
     if route == "mma":
@@ -562,12 +590,12 @@ def masked_attention_cuda(q, k, v, mask, num_heads: int, seed=None,
         stats = torch.empty((B, num_heads, Nq, 2), dtype=torch.float32, device=q.device)
         rc = lib.mmdti_masked_attention_mma_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            stats.data_ptr(), seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+            stats.data_ptr(), *drop_args, B, Nq, Nk, num_heads, D, _stream(q))
     else:
         out = torch.empty_like(q)
         rc = lib.mmdti_masked_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+            *drop_args, B, Nq, Nk, num_heads, D, _stream(q))
     _build.check(rc, f"masked_attention {route} (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, "
                      f"D={D})")
     masked_attention_cuda.launches += 1
@@ -580,7 +608,7 @@ masked_attention_cuda.routes = {"mma": 0, "rows": 0}
 
 
 def masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, num_heads: int, seed=None,
-                              dropout_rate: float = 0.0):
+                              dropout_rate: float = 0.0, head_span=None):
     """Launch csrc/masked_attention.cu's backward (two kernels) on the route
     of q's dtype.  The "mma" route reads the forward's out and stats and
     needs g_out; the "rows" route recomputes the logits, ignores out and
@@ -592,7 +620,7 @@ def masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, num_heads: int, 
     if g_out is not None and (g_out.shape != q.shape or g_out.dtype != q.dtype):
         raise ValueError("g_out must match q in shape and dtype")
     route = masked_route(q.dtype)
-    seed_p, thr, scale = _dropout_args(seed, dropout_rate, q.device)
+    drop_args = _dropout_args(seed, dropout_rate, q.device, num_heads, head_span)
     lib = _build.load("masked_attention")
     if route == "mma":
         if g_out is None or out is None or stats is None:
@@ -606,13 +634,13 @@ def masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, num_heads: int, 
         rc = lib.mmdti_masked_attention_mma_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
             g_out.data_ptr(), stats.data_ptr(), rsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), seed_p, thr, scale, B, Nq, Nk, num_heads, D, _stream(q))
+            dv.data_ptr(), *drop_args, B, Nq, Nk, num_heads, D, _stream(q))
     else:
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ws = torch.empty((B, num_heads, Nq, 3), dtype=torch.float32, device=q.device)
         rc = lib.mmdti_masked_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), _ptr(g_out),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), seed_p, thr, scale,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), *drop_args,
             B, Nq, Nk, num_heads, D, _stream(q))
     _build.check(rc, f"masked_attention_bwd {route} (B={B}, Nq={Nq}, Nk={Nk}, H={num_heads}, "
                      f"D={D})")
@@ -627,28 +655,29 @@ masked_attention_bwd_cuda.routes = {"mma": 0, "rows": 0}
 
 class MaskedAttention(torch.autograd.Function):
     """The masked kernel pair as one differentiable op: apply(q, k, v, mask,
-    num_heads, seed, dropout_rate) -> out.  bf16 takes the "mma" route and
+    num_heads, seed, dropout_rate, head_span) -> out.  bf16 takes the "mma" route and
     saves out and the row stats for the backward; fp32 takes the "rows"
     route, whose backward recomputes everything.  CPU tensors run each
     route's plain versions.  The mask gets no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, num_heads, seed, dropout_rate):
+    def forward(ctx, q, k, v, mask, num_heads, seed, dropout_rate, head_span):
         fwd = masked_attention_plain if q.device.type == "cpu" else masked_attention_cuda
-        out, stats = fwd(q, k, v, mask, num_heads, seed, dropout_rate)
+        out, stats = fwd(q, k, v, mask, num_heads, seed, dropout_rate, head_span)
         saved = (out, stats) if masked_route(q.dtype) == "mma" else ()
         ctx.save_for_backward(q, k, v, mask, *saved)
         ctx.num_heads, ctx.seed, ctx.dropout_rate = num_heads, seed, dropout_rate
+        ctx.head_span = head_span
         ctx.set_materialize_grads(False)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         if g_out is None:
-            return (None,) * 7
+            return (None,) * 8
         q, k, v, mask, *saved = ctx.saved_tensors
         g_out = g_out.to(q.dtype).contiguous()
-        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate)
+        rest = (ctx.num_heads, ctx.seed, ctx.dropout_rate, ctx.head_span)
         if q.device.type != "cpu":
             out, stats = saved or (None, None)
             dq, dk, dv = masked_attention_bwd_cuda(q, k, v, mask, out, stats, g_out, *rest)
@@ -656,16 +685,18 @@ class MaskedAttention(torch.autograd.Function):
             dq, dk, dv = masked_attention_stats_bwd_plain(q, k, v, mask, *saved, g_out, *rest)
         else:
             dq, dk, dv = masked_attention_bwd_plain(q, k, v, mask, g_out, *rest)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def masked_attention_fused(q, k, v, mask, *, num_heads: int, dropout_rate: float = 0.0,
-                           seed: Optional[torch.Tensor] = None, deterministic: bool = True):
+                           seed: Optional[torch.Tensor] = None, deterministic: bool = True,
+                           head_span=None):
     """Token-major masked attention with an additive key mask [B, Nk],
     differentiable: the kernels for CUDA tensors, the plain versions for
-    CPU tensors."""
+    CPU tensors; ``head_span`` as pair_bias_attention_fused's."""
     rate = effective_rate(dropout_rate, seed, deterministic)
     mask = mask.float()
     if q.device.type != "cpu":
         q, k, v, mask = (t.contiguous() for t in (q, k, v, mask))
-    return MaskedAttention.apply(q, k, v, mask, num_heads, seed if rate else None, rate)
+    return MaskedAttention.apply(q, k, v, mask, num_heads, seed if rate else None, rate,
+                                 head_span)

@@ -32,18 +32,22 @@ from mmdti_tpu_torch.ops import _build
 
 SQRT_2PI = (2 * 3.14159) ** 0.5  # reference constant (models/gaussian.py)
 ACTIVATIONS = {"gelu_tanh": 0, "gelu": 1}
-WIDTHS = ((128, 64), (128, 96))  # (hidden Kh, heads H) instantiated in csrc/gbf_proj.cu
+# (hidden Kh, heads H) instantiated in csrc/gbf_proj.cu: a whole flagship or
+# scale-arch layer's heads (64, 96) and a tensor-parallel rank's share of
+# them (64/4, 64/2, 96/2)
+HEADS = (16, 32, 48, 64, 96)
+WIDTHS = tuple((128, h) for h in HEADS)
 BWD_K = 128                       # the backward kernels take K = Kh = 128
 ROUTES = ("mma", "fma")
 
 
 def gbf_route(compute_dtype, K: int, Kh: int, H: int) -> str:
     """The kernel route of a gbf call: "mma" (tensor-core kernels) for bf16
-    compute at K = Kh = 128 and H in {64, 96}, "fma" (FMA-unit kernels)
-    for everything else."""
+    compute at K = Kh = 128 and H in HEADS, "fma" (FMA-unit kernels) for
+    everything else."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
-    if compute_dtype == torch.bfloat16 and K == Kh == BWD_K and H in (64, 96):
+    if compute_dtype == torch.bfloat16 and K == Kh == BWD_K and H in HEADS:
         return "mma"
     return "fma"
 

@@ -27,8 +27,11 @@ no buffer here, and either package refuses the other's.
 The single-writer rule of data parallelism (parallel/mesh.py): every rank
 runs the same fit against one experiment dir and only rank 0 writes the
 checkpoint, the history and the train state (a data-parallel train state
-holds every rank's generator state); a resume reads rank 0's files on
-every rank.
+holds every data rank's generator state); a resume reads rank 0's files
+on every rank.  Under tensor parallelism both files hold the whole model,
+gathered over the model group (``model_{fold}.ckpt`` is what a fit
+without one writes, so MolPredict, MolServe at any mesh and the JAX
+package read it), and a resume cuts the train state to each rank's shard.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from mmdti_tpu_torch.parallel.mesh import is_writer_process
+from mmdti_tpu_torch.parallel.mesh import is_writer_process, model_state
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -473,7 +476,9 @@ class CheckpointResumeMixin:
         one.  With async_checkpoint the encoding and the write then run on
         the writer thread.  Under data parallelism every rank gathers the
         generators' states (a collective) and only rank 0 pulls the rest
-        and writes."""
+        and writes; under tensor parallelism every rank first takes part in
+        gathering the whole model's best weights and optimizer buffers over
+        its model group."""
         stopping = bool(self.stop_after_epoch and epoch + 1 >= self.stop_after_epoch
                         and epoch + 1 < self.max_epochs)
         interval = bool(self.checkpoint_interval and (epoch + 1) % self.checkpoint_interval == 0)
@@ -481,6 +486,7 @@ class CheckpointResumeMixin:
             return stopping
         t0 = time.perf_counter()
         programs_state = programs.state_dict()
+        best_params = model_state(programs.model, best_params)
         if not is_writer_process():
             return stopping
         state = {

@@ -33,7 +33,12 @@ own generator.  The FDS pass and validation run whole on every rank, so
 the FDS statistics, the history, the early stop and the best weights are
 the same everywhere; only rank 0 writes (train/checkpointing.py), and the
 final predict evaluates the best weights in memory on every rank instead
-of reloading the checkpoint rank 0 wrote.
+of reloading the checkpoint rank 0 wrote.  Under tensor parallelism (the
+Trainer's ``model_group``) the m model ranks of a data row take the same
+rows and share its dropout stream (``rank_seed`` of the data index); the
+checkpoint and the train state hold the whole model, gathered over the
+model group before rank 0 writes, and a resume cuts them to each rank's
+shard again.
 """
 
 from __future__ import annotations
@@ -48,7 +53,13 @@ from mmdti_tpu_torch.data.batching import CachedLoader, MolDataLoader
 from mmdti_tpu_torch.data.pipeline import StreamPut, prefetch_to_device
 from mmdti_tpu_torch.losses.fds import fds_epoch_update
 from mmdti_tpu_torch.models.convert import state_dict_to_flax_params
-from mmdti_tpu_torch.parallel.mesh import barrier, is_writer_process, rank_seed
+from mmdti_tpu_torch.parallel.mesh import (
+    barrier,
+    is_writer_process,
+    model_shard,
+    model_state,
+    rank_seed,
+)
 from mmdti_tpu_torch.train.checkpointing import (
     _AsyncSaver,
     _load_history,
@@ -170,7 +181,8 @@ class FitLoopMixin:
         # per-epoch scalars; a resumed fit keeps the earlier run's rows
         history = _load_history(dump_dir, fold, start_epoch)
         if resumed is not None:
-            best_params = {k: v.to(self.device) for k, v in resumed["best_params"].items()}
+            best_params = {k: v.to(self.device)
+                           for k, v in model_shard(model, resumed["best_params"]).items()}
             best_fds = ({k: v.to(self.device) for k, v in resumed["best_fds"].items()}
                         if fds_state is not None else None)
             es = resumed["early_stop"]
@@ -295,7 +307,10 @@ class FitLoopMixin:
         except Exception:
             logger.exception("the periodic train-state save failed; still writing the best "
                              "checkpoint")
-        save_checkpoint(dump_dir, fold, state_dict_to_flax_params(best_params), best_fds)
+        # the whole model (a collective over the model group under tensor
+        # parallelism: every rank takes part, rank 0 writes)
+        save_checkpoint(dump_dir, fold, state_dict_to_flax_params(model_state(model, best_params)),
+                        best_fds)
         if self.data_group is None:
             # the final predict reloads the artifact just written
             y_preds, _, _ = self.predict(model, valid_dataset, activation_fn, target_scaler,
@@ -337,7 +352,7 @@ class FitLoopMixin:
             optimizer = FusedAdam(dict(model.named_parameters()), self.learning_rate,
                                   num_updates, self.warmup_ratio, self.max_norm, frozen=frozen,
                                   mu_dtype=self.mu_dtype, accumulate_steps=self.accumulate_steps,
-                                  data_group=self.data_group)
+                                  data_group=self.data_group, model_group=self.model_group)
             generator = torch.Generator(device=self.device).manual_seed(seed)
             programs = TrainPrograms(model, optimizer, loss_fn, self.task, generator,
                                      fds_state=fds_state, fds_bucket=fds_bucket,

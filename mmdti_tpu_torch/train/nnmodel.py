@@ -65,6 +65,7 @@ from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_path, load_
 from mmdti_tpu_torch.models.mm_model import build_model
 from mmdti_tpu_torch.models.mof import build_mof_model
 from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
+from mmdti_tpu_torch.parallel.mesh import load_model_state, model_state
 from mmdti_tpu_torch.train.trainer import Trainer, load_weights
 
 logger = logging.getLogger("mmdti_tpu_torch")
@@ -127,21 +128,25 @@ REMAT_MEMORY_SHARE = 0.8
 # peak is within 3.5 % of the model but the smallest (B=32, N=64: 12 %
 # under); with remat within 8 % from B=128 or N=160 up, and under by up
 # to 38 % below that, where the step's peak is not the activations'
-# (PERF.md §6).  The rule reads only the peak without remat.
+# (PERF.md §6).  The rule reads only the peak without remat.  Under tensor
+# parallelism over m model ranks a rank holds 1/m of each layer's logits
+# and of its sharded token activations (the model's own split, not a
+# measured one: TOKEN_LAYER is divided by m whole).
 STEP_MEMORY = dict(static=1.187e9, pair_layer=2.0, token_layer=28_184.0,
                    token_other=53_663.0, smiles=187_059.0)
 
 
 def predicted_step_bytes(rows: int, atom_pad: int, smiles_pad: int, cfg: UniMolEncoderConfig,
-                         remat: bool = False) -> float:
+                         remat: bool = False, model_parallel: int = 1) -> float:
     """One eager train step's peak allocated bytes on the card (the memory
     model above): ``rows`` molecules of ``atom_pad`` atoms and
-    ``smiles_pad`` SMILES tokens (0 for a MOF model)."""
+    ``smiles_pad`` SMILES tokens (0 for a MOF model), on one of
+    ``model_parallel`` model ranks."""
     m = STEP_MEMORY
     layers = cfg.encoder_layers
-    pair = cfg.attention_heads * float(atom_pad) ** 2
+    pair = cfg.attention_heads * float(atom_pad) ** 2 / model_parallel
     pair_scale = (2.0 if cfg.pair_dtype == "bfloat16" else 4.0) / 2.0
-    token = (cfg.embed_dim + cfg.ffn_embed_dim) / 2560.0 * atom_pad
+    token = (cfg.embed_dim + cfg.ffn_embed_dim) / 2560.0 * atom_pad / model_parallel
     per_row = (layers * m["pair_layer"] * pair_scale * pair
                + (1 if remat else layers) * m["token_layer"] * token
                + m["token_other"] * atom_pad + m["smiles"] * smiles_pad)
@@ -150,20 +155,22 @@ def predicted_step_bytes(rows: int, atom_pad: int, smiles_pad: int, cfg: UniMolE
 
 def auto_remat(unimol_overrides: Dict[str, Any], atom_pad: int, smiles_pad: int, rows: int,
                device: torch.device, data_type: str = "molecule",
-               total_memory: Optional[int] = None) -> bool:
+               total_memory: Optional[int] = None, model_parallel: int = 1) -> bool:
     """Whether a fit turns encoder remat on by itself (the JAX package's
     train/nnmodel.py rule; an explicit ``remat`` is the caller's).  On the
     CPU the port runs the plain path, the twin of the JAX package's XLA
     path, so it takes that path's threshold: atom_pad >= 160.  On a CUDA
     device remat turns on where the predicted peak of one eager step
-    without it, for this rank's ``rows``, passes REMAT_MEMORY_SHARE of the
-    card's memory (``total_memory``, else the device's own)."""
+    without it, for this rank's ``rows`` and its share of ``model_parallel``
+    model ranks, passes REMAT_MEMORY_SHARE of the card's memory
+    (``total_memory``, else the device's own)."""
     if device.type != "cuda":
         return atom_pad >= CPU_REMAT_ATOM_PAD
     if total_memory is None:
         total_memory = torch.cuda.get_device_properties(device).total_memory
     cfg = UniMolEncoderConfig(**{k: v for k, v in unimol_overrides.items() if k != "remat"})
-    need = predicted_step_bytes(rows, atom_pad, 0 if data_type == "mof" else smiles_pad, cfg)
+    need = predicted_step_bytes(rows, atom_pad, 0 if data_type == "mof" else smiles_pad, cfg,
+                                model_parallel=model_parallel)
     return need > REMAT_MEMORY_SHARE * total_memory
 
 
@@ -241,7 +248,8 @@ class NNModel:
         if "remat" not in unimol_overrides and auto_remat(
                 unimol_overrides, self.atom_pad, self.smiles_pad,
                 trainer.batch_size // (trainer.data_group.size if trainer.data_group else 1),
-                self.device, data_type=self.data_type):
+                self.device, data_type=self.data_type,
+                model_parallel=trainer.model_group.size if trainer.model_group else 1):
             unimol_overrides["remat"] = True
             logger.info("Auto-enabled encoder rematerialization (atom_pad=%d)", self.atom_pad)
         common = dict(
@@ -254,6 +262,7 @@ class NNModel:
             task=self.task,
             use_fds=self.use_fds,
             fds_num=self.fds_num,
+            model_group=trainer.model_group,
         )
         if self.data_type == "mof":
             self.model = build_mof_model(
@@ -302,10 +311,11 @@ class NNModel:
 
     def _init_params(self, params) -> None:
         """The initial weights: random ones, then the pretrained checkpoints'
-        tensors over them."""
+        tensors over them (under tensor parallelism over the whole model's
+        state dict, gathered, and this rank's shard kept)."""
         self._random_init()
-        self.model.load_state_dict(load_pretrained(
-            dict(self.model.state_dict()), unimol_dir=params.get("unimol_dir") or None,
+        load_model_state(self.model, load_pretrained(
+            model_state(self.model), unimol_dir=params.get("unimol_dir") or None,
             # MOFModel has no ChemBERTa stream to take those weights
             chemberta_dir=(params.get("chemberta_dir") or None)
             if self.data_type != "mof" else None))

@@ -7,7 +7,12 @@ fp32).  Parameters marked frozen get a zero gradient before the clip, so
 they neither count toward the global norm nor move.  Under data
 parallelism (``data_group``, parallel/mesh.py) the flat gradient is
 averaged over the ranks first, one collective a call, so the norm, the
-clip and the update are the same on every rank.
+clip and the update are the same on every rank.  Under tensor parallelism
+(``model_group``) the flat buffers hold this model rank's shard: the
+global norm adds every shard's sum of squares of its sharded tensors (one
+all-reduce over the model group) to the replicated tensors' own, counted
+once, and ``full_named_state`` / ``load_named_state`` move the buffers as
+the whole model's.
 
 The arithmetic follows the JAX fused apply op for op, including where its
 types promote: ``b1 * mu`` is taken in the stored mu dtype, with b1 itself
@@ -33,6 +38,8 @@ from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+
+from mmdti_tpu_torch.parallel.mesh import full_shape, shard_tensor, tp_rule
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
@@ -95,7 +102,8 @@ class FusedAdam:
     ``params`` maps names to the model's fp32 parameters
     (``named_parameters``); ``frozen`` names the ones that must not move;
     ``data_group`` (parallel/mesh.py DataGroup, or None) is the data axis
-    the gradients are averaged over.
+    the gradients are averaged over; ``model_group`` (a ModelGroup, or
+    None) the model axis whose shards the parameters are.
 
     The parameters become views into one flat fp32 buffer, beside flat
     buffers for the moments, so an update is a dozen elementwise kernels
@@ -115,9 +123,11 @@ class FusedAdam:
                  num_training_steps: int, warmup_ratio: float = 0.03, max_norm: float = 5.0,
                  eps: float = ADAM_EPS, b1: float = ADAM_B1, b2: float = ADAM_B2,
                  frozen: Optional[Iterable[str]] = None, mu_dtype=torch.bfloat16,
-                 accumulate_steps: int = 1, data_group=None):
+                 accumulate_steps: int = 1, data_group=None, model_group=None):
         self.params = dict(params)
         self.data_group = data_group
+        self.model_group = (model_group if model_group is not None and model_group.size > 1
+                            else None)
         self.schedule = linear_warmup_schedule(learning_rate, num_training_steps, warmup_ratio)
         self.accumulate_steps = int(accumulate_steps)
         if self.accumulate_steps < 1:
@@ -145,6 +155,13 @@ class FusedAdam:
             self._trained = torch.ones(off, dtype=torch.bool, device=self._flat.device)
             for n in frozen:
                 self._view(self._trained, n).fill_(False)
+        self._sharded = None
+        if self.model_group is not None:
+            # the entries of the tensors that are this shard's part of theirs
+            self._sharded = torch.zeros(off, dtype=torch.bool, device=self._flat.device)
+            for n in self.params:
+                if tp_rule(n) is not None:
+                    self._view(self._sharded, n).fill_(True)
         self._mu_views = {n: self._view(self._mu, n) for n in self.params}
         self._nu_views = {n: self._view(self._nu, n) for n in self.params}
         dev = self._flat.device
@@ -188,9 +205,52 @@ class FusedAdam:
         undo (a CUDA graph's warm-up) saves and restores these."""
         return list(self.named_state.values())
 
+    # the flat buffers that hold one entry per parameter entry
+    _PER_PARAM = ("params", "mu", "nu", "acc")
+
+    def full_named_state(self) -> Dict[str, torch.Tensor]:
+        """``named_state`` as the whole model's: under tensor parallelism the
+        per-parameter buffers gathered over the model group (a collective;
+        CPU tensors), in the layout one process's FusedAdam over the whole
+        model holds; else ``named_state`` itself."""
+        state = self.named_state
+        if self.model_group is None:
+            return state
+        out = dict(state)
+        for k in self._PER_PARAM:
+            if k in state:
+                whole = self.model_group.gather_state_dict(
+                    {n: self._view(state[k], n) for n in self.params})
+                out[k] = torch.cat([whole[n].reshape(-1) for n in self.params])
+        return out
+
+    def _shard_state(self, state: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A whole model's ``named_state`` cut to this shard's."""
+        g = self.model_group
+        out = dict(state)
+        for k in self._PER_PARAM:
+            if k not in state:
+                continue
+            flat, off, parts = state[k], 0, []
+            for n in self.params:
+                shape = full_shape(n, self._slices[n][1], g.size)
+                count = int(np.prod(shape, dtype=np.int64))
+                parts.append(shard_tensor(n, flat[off:off + count].view(shape), g.index,
+                                          g.size).reshape(-1))
+                off += count
+            if off != flat.numel():
+                raise ValueError(f"optimizer state {k!r} holds {flat.numel()} entries, the "
+                                 f"whole model {off}")
+            out[k] = torch.cat(parts)
+        return out
+
     @torch.no_grad()
     def load_named_state(self, state: Mapping[str, torch.Tensor]) -> None:
-        """Copy a ``named_state`` in, in place; the names must match."""
+        """Copy a ``named_state`` in, in place; the names must match.  Under
+        tensor parallelism ``state`` is the whole model's
+        (``full_named_state``)."""
+        if self.model_group is not None:
+            state = self._shard_state(state)
         mine = self.named_state
         if set(state) != set(mine):
             raise ValueError(f"optimizer state holds {sorted(state)}, this optimizer "
@@ -259,7 +319,14 @@ class FusedAdam:
         """Clip + Adam + apply from the flat gradient g; with ``emit`` (a
         0-dim bool tensor) the parameters, moments and counts move only
         where it is true."""
-        g_norm = torch.sqrt(torch.sum(g * g))
+        if self._sharded is None:
+            g_norm = torch.sqrt(torch.sum(g * g))
+        else:
+            sq = g * g
+            zero = torch.zeros((), device=g.device)
+            shard_sq = torch.sum(torch.where(self._sharded, sq, zero)).reshape(1)
+            g_norm = torch.sqrt(torch.sum(torch.where(self._sharded, zero, sq))
+                                + self.model_group._all_reduce(shard_sq)[0])
         g = torch.where(g_norm < self.max_norm, g, (g / g_norm) * self.max_norm)
         count, schedule_count = self._counts[0] + 1, self._counts[1]
         bc1, bc2 = self._pick(self._bc1, count), self._pick(self._bc2, count)

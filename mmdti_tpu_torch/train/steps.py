@@ -27,6 +27,9 @@ whole global batch, the same on every rank; the optimizer averages the
 gradient over the ranks.  Under NCCL those collectives are recorded into
 the K-step CUDA graphs with everything else; under gloo, whose
 collectives cannot be recorded, the K variants run their steps eagerly.
+Under tensor parallelism (the optimizer's ``model_group``) the model's
+own collectives (parallel/mesh.py ModelGroup) sit in the same graphs
+under NCCL, and a gloo model group runs the steps eagerly likewise.
 """
 
 from __future__ import annotations
@@ -238,7 +241,7 @@ class _Graph:
     inputs: object         # the static tensors a call copies its inputs into
     out: object            # what the recorded call returned
     pins: tuple = ()       # objects the key names by id
-    collectives: int = 0   # the data group's collectives the recording holds
+    collectives: int = 0   # the data and model groups' collectives the recording holds
 
 
 class TrainPrograms:
@@ -285,14 +288,15 @@ class TrainPrograms:
         self.model, self.optimizer, self.generator = model, optimizer, generator
         self.loss_fn = loss_fn
         self.data_group = optimizer.data_group
+        self.model_group = optimizer.model_group
         self._train_step = build_train_step(model, optimizer, loss_fn, task,
                                             data_group=self.data_group, **loss_kw)
         self.device = optimizer._flat.device
-        self.use_graphs = self.device.type == "cuda" and (
-            self.data_group is None or self.data_group.recordable)
+        groups = [g for g in (self.data_group, self.model_group) if g is not None]
+        self.use_graphs = self.device.type == "cuda" and all(g.recordable for g in groups)
         if self.device.type == "cuda" and not self.use_graphs:
             logger.info("the %s group's collectives cannot be recorded into a CUDA graph: "
-                        "train steps run eagerly, one dispatch each", self.data_group.backend)
+                        "train steps run eagerly, one dispatch each", groups[0].backend)
         self.epoch = torch.zeros((), dtype=torch.float32, device=self.device)
         self.fds_state = (None if fds_state is None
                           else {k: v.detach().clone() for k, v in fds_state.items()})
@@ -315,9 +319,10 @@ class TrainPrograms:
             v.copy_(staged[k])
 
     def state_dict(self) -> Dict[str, object]:
-        """What a step carries to the next, by name (the live tensors) and
-        the generator's state (a copy)."""
-        state = {"optimizer": self.optimizer.named_state,
+        """What a step carries to the next, by name (the live tensors; under
+        tensor parallelism the optimizer's as the whole model's, gathered)
+        and the generator's state (a copy)."""
+        state = {"optimizer": self.optimizer.full_named_state(),
                  "generator": self.generator.get_state(),
                  "frozen": sorted(self.optimizer.frozen)}
         if self.data_group is not None:
@@ -409,13 +414,13 @@ class TrainPrograms:
         prog = self.graphs.get(key)
         if prog is None:
             static = tuple(None if x is None else x.clone() for x in inputs)
-            group = self.data_group
-            calls = group.calls if group is not None else 0
+            groups = [g for g in (self.data_group, self.model_group) if g is not None]
+            calls = sum(g.calls for g in groups)
             graph, out = capture_graph(lambda: run(*static), self.generator,
                                        state=(*self.optimizer.graph_state, self.metric_sums,
                                               *self.loss_state))
             # the warm-ups and the recording issued the same collectives
-            held = 0 if group is None else (group.calls - calls) // (GRAPH_WARMUP + 1)
+            held = (sum(g.calls for g in groups) - calls) // (GRAPH_WARMUP + 1)
             prog = self.graphs[key] = _Graph(graph, static, out, pins, held)
         with torch.no_grad():
             for dst, src in zip(prog.inputs, inputs):
@@ -436,12 +441,16 @@ class EvalSweep:
     On a CUDA device one batch's forward is one CUDA graph per (resident
     dataset, input shapes and dtypes, compute dtype, MMDTI_PALLAS_LN),
     recorded at first use; the sweep replays it once per batch and copies
-    each replay's outputs into its own.  On the CPU the batches run
-    eagerly."""
+    each replay's outputs into its own.  On the CPU, and for a model whose
+    model group is gloo's, the batches run eagerly."""
 
     def __init__(self, model, loss_fn: Callable, activation_fn: Callable, alpha: float = 1.0,
                  with_pooled: bool = False):
         self.model = model
+        group = getattr(model, "model_group", None)
+        # a model group whose collectives a graph cannot hold (gloo) sweeps
+        # eagerly
+        self.use_graphs = group is None or group.recordable
         self.eval_step = build_eval_step(model, loss_fn, activation_fn, alpha)
         self.with_pooled = with_pooled
         self.graphs: Dict[tuple, _Graph] = {}
@@ -453,7 +462,7 @@ class EvalSweep:
 
     def __call__(self, resident: Resident, idx: torch.Tensor, valid_ns: torch.Tensor):
         nb = idx.shape[0]
-        if idx.device.type != "cuda":
+        if idx.device.type != "cuda" or not self.use_graphs:
             outs = [torch.stack(o) for o in
                     zip(*(self._batch(resident, idx[b], valid_ns[b]) for b in range(nb)))]
         else:

@@ -5,15 +5,18 @@ host, or one sweep over a device-resident dataset), and ``inference``
 (representation extraction).
 
 A Trainer holds the device its model runs on ("cuda" unless the caller
-asks for the CPU).  Data parallelism is one process per GPU: when the
-process belongs to a torch.distributed group
+asks for the CPU).  Data and tensor parallelism are one process per GPU:
+when the process belongs to a torch.distributed group
 (parallel/mesh.py::initialize_distributed, or torchrun) the Trainer's
-mesh is ``mesh_shape`` (default (world size, 1); the data axis must equal
-the world size, model > 1 raises), ``device="cuda"`` means this process's
-card, ``batch_size`` is the global batch, rounded up to a multiple of the
-data axis with the JAX package's warning, and the fit takes the
-global-batch steps of train/steps.py.  Without a group ``mesh_shape`` may
-only be (1, 1).  The JAX knobs of resume and train states (``resume``,
+mesh is ``mesh_shape`` = (d, m) (default (world size, 1); d x m must
+equal the world size), ``data_group`` and ``model_group`` its axes
+(parallel/mesh.py mesh_groups: rank r is data index r // m, model index
+r % m), ``device="cuda"`` means this process's card, ``batch_size`` is
+the global batch, rounded up to a multiple of the data axis with the JAX
+package's warning (the m model ranks of a data row take the same rows),
+and the fit takes the global-batch steps of train/steps.py on a model
+sharded over the model axis.  Without a group ``mesh_shape`` may only be
+(1, 1).  The JAX knobs of resume and train states (``resume``,
 ``checkpoint_interval``, ``stop_after_epoch``, ``async_checkpoint``),
 profiling (``profile_dir``, ``profile_steps``) and ``debug_nans`` work as
 there; ``checkpoint_backend="orbax"`` (TPU tooling) raises.
@@ -31,7 +34,7 @@ import torch.distributed as dist
 from mmdti_tpu_torch.data.batching import MolDataLoader
 from mmdti_tpu_torch.losses.registry import target_is_integer
 from mmdti_tpu_torch.models.convert import flax_params_to_state_dict
-from mmdti_tpu_torch.parallel.mesh import DataGroup, local_device, make_mesh
+from mmdti_tpu_torch.parallel.mesh import load_model_state, local_device, make_mesh, mesh_groups
 from mmdti_tpu_torch.train.checkpointing import CheckpointResumeMixin, load_checkpoint
 from mmdti_tpu_torch.train.device_feed import (
     FEATURE_KEYS,
@@ -52,9 +55,10 @@ _NOT_PORTED = {"checkpoint_backend": ("msgpack", "orbax checkpoints are TPU tool
 
 
 def load_weights(model, dump_dir: str, fold: int):
-    """Load ``model_{fold}.ckpt`` into ``model``; returns the checkpoint."""
+    """Load ``model_{fold}.ckpt`` into ``model`` (a model rank's shard of
+    it under tensor parallelism); returns the checkpoint."""
     ckpt = load_checkpoint(dump_dir, fold)
-    model.load_state_dict(flax_params_to_state_dict(ckpt["params"]), strict=True)
+    load_model_state(model, flax_params_to_state_dict(ckpt["params"]), strict=True)
     return ckpt
 
 
@@ -67,13 +71,13 @@ class Trainer(FitLoopMixin, DeviceFeedMixin, CheckpointResumeMixin):
         # the mesh: the processes of the group (one without a group)
         mesh_shape = params.get("mesh_shape", None)
         self.mesh = make_mesh(tuple(mesh_shape) if mesh_shape is not None else None)
-        self.data_group = None
+        self.data_group = self.model_group = None
         if dist.is_initialized():
             world = dist.get_world_size()
-            if self.mesh.data != world:
-                raise ValueError(f"mesh_shape {tuple(mesh_shape)}: a fit's data axis is its "
-                                 f"{world} processes, one per GPU")
-            self.data_group = DataGroup()
+            if self.mesh.data * self.mesh.model != world:
+                raise ValueError(f"mesh_shape {tuple(mesh_shape)}: a fit's data axis times its "
+                                 f"model axis is its {world} processes, one per GPU")
+            self.data_group, self.model_group = mesh_groups(self.mesh)
             if torch.device(device) == torch.device("cuda"):
                 device = local_device()
         self.device = resolve_device(device)

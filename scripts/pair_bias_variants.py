@@ -90,14 +90,14 @@ def main() -> int:
             def fwd():
                 build.check(lib.mmdti_pair_bias_attention_mma_fwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o2.data_ptr(),
-                    l2.data_ptr(), s2.data_ptr(), seed.data_ptr(), thr, scale, B, N, H, D,
+                    l2.data_ptr(), s2.data_ptr(), seed.data_ptr(), thr, scale, 0, H, B, N, H, D,
                     stream), name)
 
             def bwd():
                 build.check(lib.mmdti_pair_bias_attention_mma_bwd(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), logits.data_ptr(),
                     out.data_ptr(), stats.data_ptr(), g.data_ptr(), gl.data_ptr(),
-                    *(t.data_ptr() for t in grads), seed.data_ptr(), thr, scale, B, N, H, D,
+                    *(t.data_ptr() for t in grads), seed.data_ptr(), thr, scale, 0, H, B, N, H, D,
                     stream), name)
 
             print(f"N={N} {name:26s} forward {_device_ms(fwd):.4f} ms  "

@@ -24,8 +24,8 @@ tests/test_distributed_dcn.py spawns its workers), SMALL_ARCH width
   resumed from rank 0's train state, finishes bit-equal to the
   uninterrupted two-rank fit (each rank's generator stream restored).
 * batch_size rounded up to a multiple of the data axis with its warning;
-  the meshes refused: model > 1, a data axis other than the group's,
-  more devices than there are.
+  the two ranks as one model row (1, 2); the meshes refused: a data axis
+  other than the group's, more processes or devices than there are.
 * MolServe(mesh_shape=(2, 1), device="cpu") on the experiment dir the two
   ranks wrote: the single-replica server's answers and the JAX
   MolServe(mesh_shape=(8, 1))'s at the serve tolerance, buckets
@@ -341,13 +341,13 @@ def test_batch_size_rounds_up_to_the_data_axis(dp):
         assert checks["warnings"] == [
             "batch_size 7 is not divisible by the 2-way data mesh axis; rounding up to 8"]
         assert checks["data_1"].startswith("ValueError: mesh_shape (1, 1): a fit's data axis")
-        assert checks["model_2"].startswith("NotImplementedError") and "ROADMAP.md" in \
-            checks["model_2"]
+        # the two ranks as one model row (tensor parallelism, tests/test_torch_tp.py)
+        assert checks["model_2"] == {"data": [0, 1], "model": [rank["rank"], 2]}
         assert rank["fits"]["reg"]["batch_size"] == 8
 
 
 @pytest.mark.parametrize("shape,devices,err,match", [
-    ((1, 2), None, NotImplementedError, "ROADMAP.md"),
+    ((1, 2), None, ValueError, "needs 2 processes; only 1 available"),
     ((2, 1), None, ValueError, "needs 2 processes; only 1 available"),
     ((2, 1), ["cpu"], ValueError, "needs 2 devices; only 1 available"),
 ])

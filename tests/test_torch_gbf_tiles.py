@@ -163,7 +163,10 @@ def _tiled_backward(u, means, std, w1, b1, w2, g, pad, act, grid):
     (torch.bfloat16, 128, 128, 96, "mma"),
     (torch.float32, 128, 128, 64, "fma"),
     (torch.bfloat16, 64, 128, 64, "fma"),
-    (torch.bfloat16, 128, 128, 32, "fma"),
+    (torch.bfloat16, 128, 128, 8, "fma"),
+    (torch.bfloat16, 128, 128, 16, "mma"),
+    (torch.bfloat16, 128, 128, 32, "mma"),
+    (torch.bfloat16, 128, 128, 48, "mma"),
 ])
 def test_route_follows_compute_dtype_and_widths(compute, K, Kh, H, want):
     assert hg.gbf_route(compute, K, Kh, H) == want

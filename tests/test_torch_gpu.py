@@ -125,7 +125,7 @@ def _gbf_inputs(cuda, rng, B, N, H, K=128, Kh=128):
 @pytest.mark.parametrize("pair", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
 @pytest.mark.parametrize("N", GBF_NS)
-@pytest.mark.parametrize("H", [64, 96])
+@pytest.mark.parametrize("H", [16, 32, 48, 64, 96])
 def test_gbf_kernel_matches_plain(cuda, route, pair, act, N, H):
     """Both routes against the plain forward; the flat 16-pair tiles of the
     "mma" route cross row and batch ends at every N here, and N=65 keeps no
@@ -440,7 +440,7 @@ def test_masked_backward_kernel_matches_plain(cuda, dtype, rate, fill, H, D, Nq,
 @pytest.mark.parametrize("pair", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["gelu_tanh", "gelu"])
 @pytest.mark.parametrize("N", GBF_NS)
-@pytest.mark.parametrize("H", [64, 96])
+@pytest.mark.parametrize("H", [16, 32, 48, 64, 96])
 def test_gbf_backward_kernel_matches_plain(cuda, route, pair, act, N, H):
     """Both routes against the plain backward, repeated calls bit-equal."""
     compute = GBF_COMPUTE[route]

@@ -331,10 +331,14 @@ def test_debug_nans_raises_at_a_non_finite_loss(csvs, tmp_path):
         _fit(str(tmp_path / "exp"), (bad, csvs[1]), debug_nans=True, **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(checkpoint_backend="orbax"), dict(mesh_shape=(1, 2))],
-                         ids=["orbax", "mesh"])
-def test_tpu_knobs_still_raise(kw):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(checkpoint_backend="orbax"), NotImplementedError, "ROADMAP.md"),
+    # a model axis runs: over its processes, one per GPU (tests/test_torch_tp.py)
+    (dict(mesh_shape=(1, 2)), ValueError, "needs 2 processes; only 1 available: start one "
+                                          "process per GPU"),
+], ids=["orbax", "mesh"])
+def test_tpu_knobs_still_raise(kw, err, match):
     from mmdti_tpu_torch.train.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(err, match=match):
         Trainer(device="cpu", task="regression", **kw)

@@ -9,9 +9,9 @@ on the CPU, against the JAX MolServe on the same dirs:
 * a JAX-written (joblib) StandardScaler, read without joblib;
 * pair features built on the device (``device_pair_feats`` "device" or
   True) answering as the host-mode server does (1e-5);
-* what is refused, with a pointer to ROADMAP.md: a mesh with a model axis
-  (tensor parallelism), a scaler
-  mode the port lacks;
+* a mesh with a model axis (tensor parallelism) serving fold 0 as one
+  shard does, and its fold ensemble refused; what is refused, with a
+  pointer to ROADMAP.md: a scaler mode the port lacks;
   serve_folds outside 1..model_folds raises with JAX's message.
 
 Both packages featurize through the port's numpy refinement; torch runs
@@ -172,9 +172,18 @@ def test_classification_threshold_and_proba(clf_exp):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh_shape=(1, 2))])
-def test_refusals_point_to_the_roadmap(cv_exp, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_refusals_point_to_the_roadmap(servers, cv_exp, kw):
+    """A model axis serves fold 0 of the CV dir in two tensor-parallel
+    shards, as the one-shard server does (on the plain path: SMALL_ARCH's
+    2 heads a shard are below the fused gbf kernel's gate, which raises);
+    its fold ensemble still refuses (tests/test_kfold.py's JAX refusal)."""
+    with pytest.raises(ValueError, match="gbf kernel's gate"):
         MolServe(cv_exp[0], device="cpu", **kw)
+    srv = MolServe(cv_exp[0], device="cpu", use_kernels=False, **kw)
+    assert srv.mesh.shape == {"data": 1, "model": 2} and srv.serve_folds == 1
+    _close(srv.predict(SMILES_20)["predict"], servers[1].predict(SMILES_20)["predict"])
+    with pytest.raises(ValueError, match="tensor-parallel"):
+        MolServe(cv_exp[0], device="cpu", serve_folds="all", **kw)
 
 
 @pytest.mark.parametrize("value", ["device", True])

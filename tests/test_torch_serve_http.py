@@ -547,10 +547,11 @@ class TestInflightAccounting:
 
 
 def test_cli_refuses_a_mesh(server):
-    """The CLI takes --mesh as the JAX package's does, and the server
-    refuses a model axis above 1 (tensor parallelism) with a pointer to
-    ROADMAP.md before serving anything."""
+    """The CLI takes --mesh as the JAX package's does: a model axis above 1
+    serves tensor-parallel shards (tests/test_torch_tp.py), and this
+    model's 2 heads a shard are refused by the fused gbf kernel's gate
+    before anything is served."""
     from mmdti_tpu_torch.api.serve_http import main
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="gbf kernel's gate"):
         main([server.load_model, "--mesh", "1", "2", "--device", "cpu", "--port", "0"])

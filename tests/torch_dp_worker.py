@@ -104,8 +104,8 @@ def dropout_masks(spec, group):
 
 
 def trainer_checks(group):
-    """batch_size rounding under a 2-way data axis (and its warning), and
-    the meshes a Trainer under this group refuses."""
+    """batch_size rounding under a 2-way data axis (and its warning), the
+    mesh a Trainer under this group refuses, and the (1, 2) mesh it runs."""
     from mmdti_tpu_torch.train.trainer import Trainer
 
     records = []
@@ -115,12 +115,15 @@ def trainer_checks(group):
     out = {"batch_size": Trainer(device="cpu", task="regression", batch_size=7).batch_size,
            "warnings": [r.getMessage() for r in records if r.levelno == logging.WARNING]}
     logging.getLogger("mmdti_tpu_torch").removeHandler(handler)
-    for shape, name in (((1, 1), "data_1"), ((2, 2), "model_2")):
-        try:
-            Trainer(device="cpu", task="regression", mesh_shape=shape)
-            out[name] = None
-        except (ValueError, NotImplementedError) as e:
-            out[name] = f"{type(e).__name__}: {e}"
+    try:
+        Trainer(device="cpu", task="regression", mesh_shape=(1, 1))
+        out["data_1"] = None
+    except (ValueError, NotImplementedError) as e:
+        out["data_1"] = f"{type(e).__name__}: {e}"
+    # the two processes as one model row: the model axis runs
+    t = Trainer(device="cpu", task="regression", mesh_shape=(1, 2))
+    out["model_2"] = {"data": [t.data_group.rank, t.data_group.size],
+                      "model": [t.model_group.index, t.model_group.size]}
     return out
 
 
