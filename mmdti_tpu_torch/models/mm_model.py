@@ -55,6 +55,7 @@ from mmdti_tpu_torch.models.unimol import UniMolEncoder, torch_dtype
 from mmdti_tpu_torch.ops.attention import merge_padding_into_bias
 from mmdti_tpu_torch.ops.pair_feats import mof_pair_feats_from_coords, pair_feats_from_coords
 from mmdti_tpu_torch.parallel.mesh import check_divisible, load_model_state
+from mmdti_tpu_torch.train.profiler import mark, mark_backward
 
 # the fused gbf kernel's gate on a shard's heads: the JAX package's
 # gbf_fused_supported takes heads % 8 == 0 per shard
@@ -139,7 +140,9 @@ def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
     arrays the distances and edge types are rebuilt from ``src_coord``
     (ops/pair_feats.py; ``pair_mode`` "mof" zeroes the BOS and EOS
     distances, as the MOF featurizer does).  ``pair_outputs`` and
-    ``generator`` are passed on to the encoder."""
+    ``generator`` are passed on to the encoder.  The stream begins with
+    the ``unimol`` mark (train/profiler.py)."""
+    mark("unimol", src_tokens)
     if src_distance is None or src_edge_type is None:
         if src_coord is None:
             raise ValueError(
@@ -265,8 +268,13 @@ class MMModel(ShardedModel, nn.Module):
             self, src_tokens, src_distance, src_edge_type, src_coord,
             pair_outputs=outputs == "all", generator=generator,
         )
-        encoder_rep = enc["rep"]                                  # [B,N,E]
-        bert_rep = self.bert(input_ids, attention_mask, generator)  # [B,L,E]
+        # the section marks (train/profiler.py): forward and backward of
+        # each encoder, then the head
+        encoder_rep = mark_backward(enc["rep"], "unimol_bwd")     # [B,N,E]
+        mark("smiles", input_ids)
+        bert_rep = mark_backward(self.bert(input_ids, attention_mask, generator),
+                                 "smiles_bwd")                    # [B,L,E]
+        mark("head", input_ids)
         if outputs != "logits":
             infonce_loss = self.infonce(encoder_rep, bert_rep, generator, gather_rows)
 

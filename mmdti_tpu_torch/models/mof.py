@@ -27,6 +27,7 @@ from mmdti_tpu_torch.losses.fds import fds_smooth
 from mmdti_tpu_torch.models.layers import ClassificationHead, Embed, NonLinearHead, tensor_parallel
 from mmdti_tpu_torch.models.mm_model import ShardedModel, build_3d_stream, unimol_3d_stream
 from mmdti_tpu_torch.models.unimol import torch_dtype
+from mmdti_tpu_torch.train.profiler import mark, mark_backward
 
 
 class GasModel(nn.Module):
@@ -157,7 +158,9 @@ class MOFModel(ShardedModel, nn.Module):
             self, src_tokens, src_distance, src_edge_type, src_coord, pair_mode="mof",
             pair_outputs=outputs == "all", generator=generator,
         )
-        encoder_rep = enc["rep"]                                  # [B,N,E]
+        # the section marks (train/profiler.py): no SMILES stream here
+        encoder_rep = mark_backward(enc["rep"], "unimol_bwd")     # [B,N,E]
+        mark("head", src_tokens)
         m = atom_mask[..., None].float()
         pooled_atoms = (encoder_rep.float() * m).sum(dim=1) / m.sum(dim=1).clamp_min(1.0)
         fused = torch.cat([pooled_atoms.to(self.compute_dtype),

@@ -95,6 +95,10 @@ SIGNATURES: Dict[str, Dict[str, Sequence]] = {
         # backward, E, x_bf16, y_bf16, blocks (out)
         "mmdti_layer_norm_resident": (_I,) * 4 + (ctypes.POINTER(_I),),
     },
+    "trace_mark": {
+        # which (train/profiler.py MARKS index), stream
+        "mmdti_trace_mark": (_I, _P),
+    },
 }
 
 # libraries built in parts: csrc/<name>.cu compiled this many times at once,

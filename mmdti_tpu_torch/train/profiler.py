@@ -1,15 +1,20 @@
 """Tracing and profiling hooks (port of mmdti_tpu/train/profiler.py over
 torch.profiler).
 
-``trace(log_dir)`` records a Chrome trace of its block (host operations,
-and on a CUDA device every kernel the card ran, the port's kernels under
-their CUDA names); ``StepTimer`` times dispatches up to the device's
-completion; ``annotate(name)`` names a region in the trace; and
-``DispatchProfiler`` is the fit loop's hook: a trace of the first
-``profile_steps`` dispatches of a fit into ``profile_dir``, and each
-epoch's dispatch p50/p95 in the log.  Every hook is a no-op when
-``profile_dir`` is unset: the timer's synchronization would otherwise
-serialize the dispatches.
+``mark(name, like)`` puts a section mark of the train step on the device:
+a null kernel ``trace_mark_<name>`` (csrc/trace_mark.cu) on the current
+stream of ``like``'s CUDA device, nothing on the CPU.  A mark recorded into
+a CUDA graph is a node of it, so every replay emits it in stream order, and
+a section of the step lasts on the device from its mark to the next one
+(``MARKS`` in step order; ``mark_backward`` puts a mark where the backward
+reaches a tensor).  ``span(name)`` names a region of host time in a
+torch.profiler trace, on the same clock as the device's records; it is a
+shared no-op while no profiler records.  ``StepTimer`` times dispatches up
+to the device's completion; and ``DispatchProfiler`` is the fit loop's
+hook: a Chrome trace of the first ``profile_steps`` dispatches of a fit
+into ``profile_dir``, and each epoch's dispatch p50/p95 in the log.  Every
+hook of the fit loop is a no-op when ``profile_dir`` is unset: the timer's
+synchronization would otherwise serialize the dispatches.
 """
 
 from __future__ import annotations
@@ -18,12 +23,72 @@ import contextlib
 import logging
 import os
 import time
-from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from mmdti_tpu_torch.ops import _build
+
 logger = logging.getLogger("mmdti_tpu_torch")
+
+# the marks of one train step in the order the card meets them: the step's
+# start (the row gather of a fed step), the Uni-Mol stream (gbf, embeddings,
+# the encoder), the SMILES encoder, the head (InfoNCE, cross-modal fusion,
+# pooling, FDS, the classification head and the losses), the backward of
+# the head, of the SMILES encoder and of the Uni-Mol stream, the optimizer
+# update and the step's end (after the metric sums).  A model without a
+# SMILES stream (models/mof.py) emits neither smiles mark.
+MARKS = ("step", "unimol", "smiles", "head", "head_bwd", "smiles_bwd", "unimol_bwd",
+         "optimizer", "end")
+_INDEX = {name: i for i, name in enumerate(MARKS)}
+
+
+def _launch(name: str, device: torch.device) -> None:
+    """Launch mark ``name`` on ``device``'s current stream (a CUDA device
+    only)."""
+    if device.type != "cuda":
+        return
+    _build.check(_build.load("trace_mark").mmdti_trace_mark(
+        _INDEX[name], torch._C._cuda_getCurrentRawStream(device.index)), f"trace mark {name}")
+
+
+def mark(name: str, like: torch.Tensor) -> None:
+    """Section mark ``name`` (one of MARKS) on the device of ``like``."""
+    _launch(name, like.device)
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity; its backward marks ``name`` on the stream the backward
+    runs on, then passes the gradient through."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mark(ctx.name, grad)
+        return grad, None
+
+
+def mark_backward(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``x`` unchanged (a view where ``x`` requires grad): mark ``name`` is
+    launched as the backward reaches ``x``, once every use of ``x`` has
+    passed its gradient back."""
+    return _BackwardMark.apply(x, name) if x.requires_grad else x
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named region of host time in the trace of a recording
+    torch.profiler (a ``record_function`` context); one shared no-op
+    context while none records."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _activities():
@@ -54,19 +119,6 @@ def _stop(prof: torch.profiler.profile, log_dir: str, name: str) -> str:
     return path
 
 
-@contextlib.contextmanager
-def trace(log_dir: Optional[str], name: str = "trace") -> Iterator[None]:
-    """A Chrome trace of the block into ``log_dir`` (no-op when None)."""
-    if not log_dir:
-        yield
-        return
-    prof = _start()
-    try:
-        yield
-    finally:
-        _stop(prof, log_dir, name)
-
-
 class StepTimer:
     """Wall-clock seconds per dispatch, each up to the device's completion
     of what it launched."""
@@ -89,11 +141,6 @@ class StepTimer:
         arr = np.asarray(self.times)
         return {"steps": len(arr), "mean_s": float(arr.mean()),
                 "p50_s": float(np.percentile(arr, 50)), "p95_s": float(np.percentile(arr, 95))}
-
-
-def annotate(name: str):
-    """A named region in the trace (a context manager)."""
-    return torch.profiler.record_function(name)
 
 
 class DispatchProfiler:

@@ -43,6 +43,7 @@ import torch
 from mmdti_tpu_torch.losses.contrastive import CT_REGISTRY
 from mmdti_tpu_torch.ops.hopper_ln import ln_kernels_on
 from mmdti_tpu_torch.train.optim import FusedAdam
+from mmdti_tpu_torch.train.profiler import mark, span
 
 logger = logging.getLogger("mmdti_tpu_torch")
 
@@ -120,7 +121,9 @@ def build_train_step(model, optimizer: FusedAdam, loss_fn: Callable, task: str, 
                    generator: Optional[torch.Generator] = None,
                    **model_kw) -> Dict[str, torch.Tensor]:
         total, metrics = train_loss(model, feats, labels, weights, generator, **model_kw)
+        mark("head_bwd", total)
         grads = torch.autograd.grad(total, params, allow_unused=True)
+        mark("optimizer", total)
         metrics["grad_norm"] = optimizer.apply(dict(zip(names, grads)))
         return metrics
 
@@ -256,7 +259,10 @@ class TrainPrograms:
 
     Each step adds its metrics (METRICS) into ``metric_sums`` in step order,
     so an epoch's sums do not depend on how its steps are grouped; each
-    variant also returns its steps' metrics ([M], or [K, M]).  The model
+    variant also returns its steps' metrics ([M], or [K, M]).  On a CUDA
+    device every step launches the section marks of train/profiler.py
+    (``MARKS``, from ``step`` before the row gather or the forward to
+    ``end`` after the metric sums), recorded into the graphs.  The model
     gets ``epoch`` (a 0-dim float32 tensor), ``fds_state`` and
     ``fds_bucket``; ``set_epoch`` and ``set_fds_state`` write the first two
     in place.  A stateful task loss (losses/zoo.py GHMCState: the JAX
@@ -372,12 +378,18 @@ class TrainPrograms:
         self.data_group.broadcast_([*self.optimizer.graph_state, *fds, *self.loss_state])
 
     def single(self, feats, labels, weights=None) -> torch.Tensor:
+        mark("step", labels)
+        return self._step(feats, labels, weights)
+
+    def _step(self, feats, labels, weights) -> torch.Tensor:
+        """One step after its ``step`` mark, through the ``end`` mark."""
         rows = labels if self.data_group is None else self.data_group.local_rows(labels)
         metrics = self._train_step(feats, labels, weights, self.generator,
                                    fds_state=self.fds_state, net_target=rows.float(),
                                    epoch=self.epoch, fds_bucket=self.fds_bucket)
         m = torch.stack([metrics[k] for k in METRICS])
         self.metric_sums.add_(m)
+        mark("end", m)
         return m
 
     def stacked(self, feats_k: Mapping[str, torch.Tensor], labels_k: torch.Tensor,
@@ -399,15 +411,21 @@ class TrainPrograms:
         return self._replay(key, run, inputs)
 
     def feed(self, resident: Resident, idx_k: torch.Tensor) -> torch.Tensor:
+        """The K steps, in the trace's ``train.feed`` span while a
+        profiler records: the host's time to hand them to the card."""
         def run(idx):
-            return torch.stack([self.single(*resident.take(idx[k], self.data_group))
-                                for k in range(idx.shape[0])])
+            steps = []
+            for k in range(idx.shape[0]):
+                mark("step", idx)
+                steps.append(self._step(*resident.take(idx[k], self.data_group)))
+            return torch.stack(steps)
 
-        if not self.use_graphs:
-            return run(idx_k)
-        key = ("feed", idx_k.shape[0], *_shape_key(idx_k, *resident.feats.values(),
-                                                   resident.labels), id(resident))
-        return self._replay(key, run, (idx_k,), pins=(resident,))
+        with span("train.feed"):
+            if not self.use_graphs:
+                return run(idx_k)
+            key = ("feed", idx_k.shape[0], *_shape_key(idx_k, *resident.feats.values(),
+                                                       resident.labels), id(resident))
+            return self._replay(key, run, (idx_k,), pins=(resident,))
 
     def _replay(self, key, run, inputs, pins=()) -> torch.Tensor:
         key = (*key, self.model.compute_dtype, ln_kernels_on())

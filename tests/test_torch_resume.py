@@ -298,20 +298,24 @@ def test_profile_dir_writes_a_trace(csvs, tmp_path):
 
 
 def test_trace_annotate_and_timer(tmp_path):
-    """The JAX profiler module's other names: trace() writes a Chrome trace
-    holding an annotated region, trace(None) is a no-op, StepTimer sums up
-    its dispatches."""
-    from mmdti_tpu_torch.train.profiler import StepTimer, annotate, trace, trace_file
+    """The profiler module's other names: span() is one shared no-op while
+    no profiler records, and a named region in the Chrome trace of one that
+    does; StepTimer sums up its dispatches."""
+    from mmdti_tpu_torch.train.profiler import StepTimer, span, trace_file
 
-    with trace(str(tmp_path), "block"):
-        with annotate("mmdti_region"):
+    assert span("mmdti_region") is span("other")
+    with span("mmdti_region"):
+        torch.ones(4).add_(1)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with span("mmdti_region"):
             torch.ones(4).add_(1)
+    prof.export_chrome_trace(trace_file(str(tmp_path), "block"))
     with open(trace_file(str(tmp_path), "block")) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "mmdti_region" in names
-    with trace(None):
-        pass
-    assert os.listdir(tmp_path) == ["block.pt.trace.json"]
+        events = json.load(f)["traceEvents"]
+    regions = [e for e in events if e.get("name") == "mmdti_region"]
+    assert len(regions) == 1 and regions[0]["cat"] == "user_annotation"
+    assert span("mmdti_region") is span("other")
     timer = StepTimer()
     for _ in range(3):
         timer.start()
