@@ -92,7 +92,7 @@ Phases, one result line each; any failure exits non-zero:
    tensor cores), peak memory, device time and the kernels' shares;
    (e) one step at N=64, L=512: masked launches per route, device time, the
    masked kernels' share of it and peak memory; (f) the N=L=64 step with
-   the LayerNorm kernels off (MMDTI_PALLAS_LN unset) and on (=1), alternated
+   the LayerNorm kernels off (MMDTI_PALLAS_LN=0) and on (=1), alternated
    over 2 rounds of 10 steps each way: step p50, launches and device ms per
    step, the LayerNorm kernels' ms per step; on, exactly 49 forward and 49
    backward LayerNorm launches a step; and, after (a), the loss of the
@@ -1633,9 +1633,10 @@ def phase_serve(dev, card):
     attn = _attention_launches(ucfg.encoder_layers, model.bert.cfg.num_hidden_layers
                                + 2 * model.cross_modal_module.text_attention.cfg.num_layers,
                                backward=False)
-    # the LayerNorm kernels only where MMDTI_PALLAS_LN=1 (off unless set)
+    # the LayerNorm kernels where their setting is on for the card (on
+    # unless MMDTI_PALLAS_LN=0)
     per_fwd = {**{k: attn.get(k, 0) for k in KERNELS},
-               "layer_norm": _ln_sites(model) if ln_kernels_on() else 0}
+               "layer_norm": _ln_sites(model) if ln_kernels_on(dev) else 0}
     one_replay = {k: per_fwd[k] for k in KERNEL_MARKERS}
     requests = {n: SMILES_20[:n] for n in REQUESTS}
     print(f"serve: flagship {n_params} params a fold, layers={ucfg.encoder_layers} "
@@ -2336,7 +2337,7 @@ def _numerical_check(dev, feats, labels, weights, n_masked):
 
 def _ln_off_on(model, step, args):
     """Phase train (f): the flagship step (N=L=64, dropout on) with the
-    LayerNorm kernels off (MMDTI_PALLAS_LN unset) and on (=1), the same
+    LayerNorm kernels off (MMDTI_PALLAS_LN=0) and on (=1), the same
     model, weights and batch, alternated over LN_ROUNDS rounds of LN_STEPS
     steps each way; MMDTI_PALLAS_LN is restored afterwards.  With the
     kernels on, every LayerNorm site launches its kernels once a step each
@@ -2347,17 +2348,14 @@ def _ln_off_on(model, step, args):
 
     sites = sum(1 for m in model.modules()
                 if isinstance(m, FusedLN) and m.use_kernels and m.weight.numel() % 128 == 0)
-    ways = {"off": None, "on": "1"}
+    ways = {"off": "0", "on": "1"}
     runs = {w: {"step_ms": [], "round_p50_ms": [], "ln_launches": [], "profiles": []}
             for w in ways}
     previous = os.environ.get("MMDTI_PALLAS_LN")
     try:
         for _ in range(LN_ROUNDS):
             for way, env in ways.items():
-                if env is None:
-                    os.environ.pop("MMDTI_PALLAS_LN", None)
-                else:
-                    os.environ["MMDTI_PALLAS_LN"] = env
+                os.environ["MMDTI_PALLAS_LN"] = env
                 torch.cuda.synchronize()
                 _reset_counts()
                 events = []
@@ -2501,10 +2499,7 @@ def _ln_kernels_on():
 
 
 def _set_ln(way):
-    if way == "off":
-        os.environ.pop("MMDTI_PALLAS_LN", None)
-    else:
-        os.environ["MMDTI_PALLAS_LN"] = "1"
+    os.environ["MMDTI_PALLAS_LN"] = "0" if way == "off" else "1"
 
 
 def _replay_launches(fn, n=3, tries=5):
@@ -3880,7 +3875,7 @@ def _ln_backward_sites(model, feats):
 
     def hook(m, args):
         x = args[0]
-        if ln_kernel_enabled(m.use_kernels, x.shape):
+        if ln_kernel_enabled(m.use_kernels, x.shape, x.device):
             sites.append(x.requires_grad or any(p.requires_grad for p in m.parameters()))
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
@@ -5391,7 +5386,7 @@ def phase_remat(dev, card):
     remat on, bit-equal to GRAPH_K eager steps with remat on; (c) the
     peak allocated by one eager step with remat off and on, here and at
     the MOF step (B=16, N=528), each beside train/nnmodel.py's predicted
-    peak (LayerNorm kernels off, the default the model is fitted to); (d)
+    peak (LayerNorm kernels off, as the model was fitted); (d)
     device ms and launches a step replayed, remat off and on (pair-bias
     forward 15 -> 30, the Uni-Mol layers' LayerNorm forwards again in the
     backward); (e) the auto rule's decision at the shapes of
@@ -5412,8 +5407,8 @@ def phase_remat(dev, card):
     out = {"card": card, "total_memory": total_memory}
     with _ln_kernels_on():
         # (c) memory first, before any graph holds a pool: flagship, then MOF,
-        # with the LayerNorm of the fit's default (MMDTI_PALLAS_LN unset),
-        # which the memory model was fitted to
+        # with the LayerNorm kernels off (MMDTI_PALLAS_LN=0), as the memory
+        # model was fitted
         _set_ln("off")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

@@ -11,7 +11,8 @@ CUDA graph and replayed; ``make_server`` adds the dynamic batcher and the
 HTTP front (``python -m mmdti_tpu_torch.api.serve_http <dir>``).  The
 model runs the hand-written Hopper kernels (ops/hopper_*.py, csrc/*.cu) on
 CUDA tensors and their plain versions on CPU tensors; the LayerNorm kernels
-engage under MMDTI_PALLAS_LN=1.  The package imports torch and never jax.
+run on CUDA tensors unless MMDTI_PALLAS_LN=0 (on CPU tensors only under
+MMDTI_PALLAS_LN=1).  The package imports torch and never jax.
 """
 
 from mmdti_tpu_torch.api.predict_api import MolPredict  # noqa: F401

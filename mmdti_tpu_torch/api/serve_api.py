@@ -351,11 +351,12 @@ class MolServe:
 
     # --- one launch of the forward or the embed -------------------------
     @staticmethod
-    def _graph_key(kind: str, arrays: Dict[str, np.ndarray]) -> tuple:
-        """What a graph freezes beyond the server's own settings: the shape
-        bucket and MMDTI_PALLAS_LN."""
+    def _graph_key(kind: str, arrays: Dict[str, np.ndarray], device: torch.device) -> tuple:
+        """What a graph on ``device`` freezes beyond the server's own
+        settings: the shape bucket and the LayerNorm kernels' setting in
+        force there."""
         return (kind, arrays["src_tokens"].shape[0], arrays["src_tokens"].shape[1],
-                arrays["input_ids"].shape[1], ln_kernels_on())
+                arrays["input_ids"].shape[1], ln_kernels_on(device))
 
     def _record(self, kind: str, arrays: Dict[str, np.ndarray], replica: int = 0) -> _Graph:
         """Record ``kind``'s forward at this bucket into a CUDA graph in
@@ -391,7 +392,7 @@ class MolServe:
             with torch.no_grad():
                 return self._replica_fns[replica][kind](
                     self._place_feats(arrays, self.replica_devices[replica]))
-        key = self._graph_key(kind, arrays)
+        key = self._graph_key(kind, arrays, self.replica_devices[replica])
         if replica:
             key = (*key, replica)
         prog = self.graphs.get(key)

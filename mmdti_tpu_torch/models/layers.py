@@ -174,8 +174,9 @@ class FusedLN(nn.Module):
     """fp32 LayerNorm with the fast variance of the JAX package:
     var = max(E[x^2] - E[x]^2, 0), epsilon inside the rsqrt.  A module
     built with ``use_kernels`` runs ops/hopper_ln.py's kernels where
-    ``ln_kernel_enabled`` holds (MMDTI_PALLAS_LN=1, read at every call, and
-    a supported shape) and the plain formula otherwise."""
+    ``ln_kernel_enabled`` holds for its input (a supported shape; on a CUDA
+    tensor unless MMDTI_PALLAS_LN=0, elsewhere only under MMDTI_PALLAS_LN=1;
+    read at every call) and the plain formula otherwise."""
 
     def __init__(self, features: int, epsilon: float = 1e-5, use_kernels: bool = False):
         super().__init__()
@@ -185,7 +186,7 @@ class FusedLN(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        if ln_kernel_enabled(self.use_kernels, x.shape):
+        if ln_kernel_enabled(self.use_kernels, x.shape, x.device):
             return layer_norm_fused(x, self.weight, self.bias, self.epsilon, out_dtype)
         return layer_norm_plain(x, self.weight, self.bias, self.epsilon, out_dtype)
 

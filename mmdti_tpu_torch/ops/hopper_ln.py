@@ -21,9 +21,12 @@ CUDA tensor launches the kernels or raises.  The launchers count their
 launches in ``layer_norm_cuda.launches`` and
 ``layer_norm_bwd_cuda.launches`` (one launch a backward).
 
-The gate is the JAX package's (pallas_ln.py:73-100): opt in with
-``MMDTI_PALLAS_LN=1`` (read at every call), E % 128 == 0 and T % 8 == 0,
-so the same LayerNorm sites engage in both packages.
+The gate takes the JAX package's shape rule (pallas_ln.py:73-100:
+E % 128 == 0 and T % 8 == 0) and reads ``MMDTI_PALLAS_LN`` at every call.
+On a CUDA device the kernels are the default: unset or ``1`` engages them,
+``0`` keeps the plain path.  Elsewhere, and where no device is given, the
+JAX package's opt-in holds: only ``1`` engages them, so every CPU path
+stays the JAX gate's.
 """
 
 from __future__ import annotations
@@ -52,16 +55,24 @@ def layer_norm_supported(shape) -> bool:
     return shape[-1] % 128 == 0 and T % 8 == 0 and T > 0
 
 
-def ln_kernels_on() -> bool:
-    """MMDTI_PALLAS_LN=1, read now (a CUDA graph keeps what it read at
-    capture, so train/steps.py keys its graphs by this)."""
-    return os.environ.get("MMDTI_PALLAS_LN", "0") == "1"
+def ln_kernels_on(device=None) -> bool:
+    """The LayerNorm kernels' setting in force on ``device``, read now:
+    MMDTI_PALLAS_LN=1 on, any other value off, and unset on for a CUDA
+    device and off elsewhere or without a device (the JAX gate).  A CUDA
+    graph keeps what it read at capture, so train/steps.py and
+    api/serve_api.py key their graphs by this."""
+    env = os.environ.get("MMDTI_PALLAS_LN")
+    if env is None:
+        return device is not None and torch.device(device).type == "cuda"
+    return env == "1"
 
 
-def ln_kernel_enabled(use_kernels: bool, shape) -> bool:
-    """Engage the fused LayerNorm?  Off unless MMDTI_PALLAS_LN=1, and then
-    only for a module built with use_kernels on a supported shape."""
-    if not ln_kernels_on():
+def ln_kernel_enabled(use_kernels: bool, shape, device=None) -> bool:
+    """Engage the fused LayerNorm?  Where ``ln_kernels_on(device)`` holds,
+    for a module built with use_kernels on a supported shape.  Every call
+    in the program names its device; without one the answer is the JAX
+    gate's, the form tests/test_torch_ln.py holds against it."""
+    if not ln_kernels_on(device):
         return False
     return bool(use_kernels) and layer_norm_supported(shape)
 

@@ -124,14 +124,16 @@ REMAT_MEMORY_SHARE = 0.8
 # hooks), the rest a non-negative least-squares fit to the peaks
 # allocated: scripts/remat_memory.py on an NVIDIA H100 80GB HBM3 at
 # 700 W, flagship widths, bf16 compute and pair logits, LayerNorm kernels
-# off (the default), B=32-256, N=64-280, L=64/256.  Without remat every
-# peak is within 3.5 % of the model but the smallest (B=32, N=64: 12 %
-# under); with remat within 8 % from B=128 or N=160 up, and under by up
-# to 38 % below that, where the step's peak is not the activations'
-# (PERF.md §6).  The rule reads only the peak without remat.  Under tensor
-# parallelism over m model ranks a rank holds 1/m of each layer's logits
-# and of its sharded token activations (the model's own split, not a
-# measured one: TOKEN_LAYER is divided by m whole).
+# off (MMDTI_PALLAS_LN=0), B=32-256, N=64-280, L=64/256.  Without remat
+# every peak is within 3.5 % of the model but the smallest (B=32, N=64:
+# 12 % under); with remat within 8 % from B=128 or N=160 up, and under by
+# up to 38 % below that, where the step's peak is not the activations'
+# (PERF.md §6).  With the kernels on, the card's default, the model lies
+# 20-40 % above the peak without remat from B=64 or N=160 up, so the rule
+# turns remat on early, never late.  The rule reads only the peak without
+# remat.  Under tensor parallelism over m model ranks a rank holds 1/m of
+# each layer's logits and of its sharded token activations (the model's
+# own split, not a measured one: TOKEN_LAYER is divided by m whole).
 STEP_MEMORY = dict(static=1.187e9, pair_layer=2.0, token_layer=28_184.0,
                    token_other=53_663.0, smiles=187_059.0)
 

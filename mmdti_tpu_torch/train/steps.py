@@ -276,7 +276,8 @@ class TrainPrograms:
     On a CUDA device each K variant is one CUDA graph of K whole steps
     (forward, autograd.grad, clip + Adam + apply and the metrics), recorded
     at its first call for each (variant, K, input shapes and dtypes: B, N,
-    L among them, compute dtype, MMDTI_PALLAS_LN, resident dataset) and
+    L among them, compute dtype, the LayerNorm kernels' setting in force
+    (ops/hopper_ln.py ln_kernels_on), resident dataset) and
     replayed after; ``single`` runs eagerly.  On the CPU the K variants run
     their steps as a loop.
 
@@ -428,7 +429,7 @@ class TrainPrograms:
             return self._replay(key, run, (idx_k,), pins=(resident,))
 
     def _replay(self, key, run, inputs, pins=()) -> torch.Tensor:
-        key = (*key, self.model.compute_dtype, ln_kernels_on())
+        key = (*key, self.model.compute_dtype, ln_kernels_on(self.device))
         prog = self.graphs.get(key)
         if prog is None:
             static = tuple(None if x is None else x.clone() for x in inputs)
@@ -457,7 +458,8 @@ class EvalSweep:
     pass).
 
     On a CUDA device one batch's forward is one CUDA graph per (resident
-    dataset, input shapes and dtypes, compute dtype, MMDTI_PALLAS_LN),
+    dataset, input shapes and dtypes, compute dtype, the LayerNorm
+    kernels' setting in force),
     recorded at first use; the sweep replays it once per batch and copies
     each replay's outputs into its own.  On the CPU, and for a model whose
     model group is gloo's, the batches run eagerly."""
@@ -485,7 +487,7 @@ class EvalSweep:
                     zip(*(self._batch(resident, idx[b], valid_ns[b]) for b in range(nb)))]
         else:
             key = (*_shape_key(idx[0], *resident.feats.values(), resident.labels), id(resident),
-                   self.model.compute_dtype, ln_kernels_on())
+                   self.model.compute_dtype, ln_kernels_on(idx.device))
             prog = self.graphs.get(key)
             if prog is None:
                 static = (idx[0].clone(), valid_ns[0].clone())

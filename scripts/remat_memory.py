@@ -8,7 +8,8 @@ model in mmdti_tpu_torch/train/nnmodel.py (STEP_MEMORY) to it.
 Card only (a CUDA device and nvcc; about 2 min with the kernels' build).
 The flagship model (bf16 compute, bf16 pair logits, weights from seed 0),
 regression MSE + InfoNCE + ct_regress with sample weights, dropout on,
-FusedAdam; the LayerNorm kernels off (the default) or on (``--ln 1``).
+FusedAdam; the LayerNorm kernels on (``--ln 1``, the card's default) or
+off (``--ln 0``, as STEP_MEMORY was fitted).
 Per shape (B, N, L): the bytes autograd saves in the forward with remat
 off (saved-tensor hooks, each storage once, parameters left out), inside
 the Uni-Mol layers and outside, pair-sized (N x N) and token-sized; and
@@ -16,8 +17,10 @@ the peak allocated by one eager step (loss, gradients, update) with remat
 off and on, above what was allocated before the model was built.  Then:
 the per-layer coefficients from the hooks (slopes over the shapes),
 the other coefficients fitted to the peaks (scipy's non-negative least
-squares), each shape's peak beside the fitted model's, and the card's
-name and power limit.  One JSON line each; imports nothing of JAX.
+squares), each shape's peak beside the fitted model's and beside the
+rule's (train/nnmodel.py predicted_step_bytes, its constants as they
+are), and the card's name and power limit.  One JSON line each; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ GRID = ((32, 64, 64), (64, 64, 64), (128, 64, 64), (256, 64, 64), (32, 160, 64),
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ln", default="0", choices=("0", "1"),
-                    help="MMDTI_PALLAS_LN for the steps (default 0: the plain LayerNorm)")
+    ap.add_argument("--ln", default="1", choices=("0", "1"),
+                    help="MMDTI_PALLAS_LN for the steps (default 1: the LayerNorm kernels)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -47,14 +50,12 @@ def main() -> int:
 
     import chip_smoke as cs
     from mmdti_tpu_torch.ops import _build
+    from mmdti_tpu_torch.train.nnmodel import predicted_step_bytes
 
     if not torch.cuda.is_available():
         print("remat_memory.py needs a CUDA device", file=sys.stderr)
         return 2
-    if args.ln == "1":
-        os.environ["MMDTI_PALLAS_LN"] = "1"
-    else:
-        os.environ.pop("MMDTI_PALLAS_LN", None)
+    os.environ["MMDTI_PALLAS_LN"] = args.ln
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
@@ -104,11 +105,15 @@ def main() -> int:
               "smiles": float(smiles)}
     print(json.dumps({"fit": memory, "ln": args.ln, "card": card}), flush=True)
     for r, fo, fn in zip(rows, fitted_off, fitted_on):
+        rule = {way: predicted_step_bytes(r["B"], r["N"], r["L"], cfg, remat=way == "on")
+                for way in ("off", "on")}
         print(json.dumps({"B": r["B"], "N": r["N"], "L": r["L"],
                           "off": r["peak"]["off"], "off_fitted": float(fo),
-                          "off_err": float(fo / r["peak"]["off"] - 1),
+                          "off_err": float(fo / r["peak"]["off"] - 1), "off_rule": rule["off"],
+                          "off_rule_err": rule["off"] / r["peak"]["off"] - 1,
                           "on": r["peak"]["on"], "on_fitted": float(fn),
-                          "on_err": float(fn / r["peak"]["on"] - 1)}), flush=True)
+                          "on_err": float(fn / r["peak"]["on"] - 1), "on_rule": rule["on"],
+                          "on_rule_err": rule["on"] / r["peak"]["on"] - 1}), flush=True)
     print(card, flush=True)
     return 0
 

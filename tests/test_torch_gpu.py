@@ -824,6 +824,95 @@ def test_graph_replays_leave_the_layer_norm_tickets_at_zero(cuda, monkeypatch):
     assert all(bool((tickets == 0).all()) for _, tickets in hl._SCRATCH.values())
 
 
+# ---- the LayerNorm kernels as the card's default ------------------------------------
+
+def _flagship_programs(cuda):
+    """The flagship MM-DTI (bf16, the kernel path, weights from seed 0) on
+    the card, FusedAdam, the train programs (MSE + InfoNCE + CT), a
+    generator from seed 0 and chip_smoke's resident batch of 32 molecules
+    at N = L = 64."""
+    import chip_smoke
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import TrainPrograms
+
+    model = chip_smoke._flagship(True)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(0))
+    model.to(cuda)
+    opt = FusedAdam(dict(model.named_parameters()), 1e-4, 20, warmup_ratio=0.1)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    progs = TrainPrograms(model, opt, zoo.mse_loss, "regression", gen)
+    return model, opt, gen, progs, chip_smoke._graph_resident(cuda, 64, 64)
+
+
+def test_default_flagship_step_runs_every_layer_norm_on_the_kernels(cuda, monkeypatch):
+    """MMDTI_PALLAS_LN unset: recording the flagship's train step launches
+    the forward and the backward kernel of each of its 49 LayerNorm sites
+    once a run (the capture's warm-ups and the recording); the graph is
+    keyed as on, and its replays move no counter."""
+    import chip_smoke
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
+
+    monkeypatch.delenv("MMDTI_PALLAS_LN", raising=False)
+    model, _, _, progs, res = _flagship_programs(cuda)
+    assert chip_smoke._ln_sites(model) == 49
+    one = torch.arange(32, device=cuda).view(1, 32)
+    chip_smoke._reset_counts()
+    progs.feed(res, one)
+    torch.cuda.synchronize()
+    counts = chip_smoke._read_counts()
+    assert counts["layer_norm"] == counts["layer_norm_bwd"] == (GRAPH_WARMUP + 1) * 49
+    progs.feed(res, one)
+    torch.cuda.synchronize()
+    assert chip_smoke._read_counts() == counts
+    assert [key[-1] for key in progs.graphs] == [True]
+
+
+@pytest.mark.parametrize("env,same_as", [(None, "1"), ("0", "plain")])
+def test_flagship_step_bit_equal_to_the_path_it_names(cuda, monkeypatch, env, same_as):
+    """The flagship's first train step, eagerly (loss and gradients, dropout
+    on) and then replayed from its graph from the same state (metrics,
+    parameters, moments, counts): MMDTI_PALLAS_LN unset is bit-equal to
+    MMDTI_PALLAS_LN=1, and 0 to the plain LayerNorm at every site with
+    every other kernel on (the gate patched to plain)."""
+    import mmdti_tpu_torch.models.layers as layers
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.train.steps import build_train_loss
+
+    def eager(model, gen, res, rows):
+        """The loss and gradients; the autograd graph dies on return (a
+        graph left alive keeps accumulators that a capture would wait on)."""
+        feats, labels, weights = res.take(rows)
+        total, _ = build_train_loss(zoo.mse_loss, "regression")(model, feats, labels, weights,
+                                                                 gen)
+        grads = torch.autograd.grad(total, list(model.parameters()), allow_unused=True)
+        return [total.detach(), *(g for g in grads if g is not None)]
+
+    def step(env, plain=False):
+        with monkeypatch.context() as m:
+            if env is None:
+                m.delenv("MMDTI_PALLAS_LN", raising=False)
+            else:
+                m.setenv("MMDTI_PALLAS_LN", env)
+            if plain:
+                m.setattr(layers, "ln_kernel_enabled", lambda *a: False)
+            model, opt, gen, progs, res = _flagship_programs(cuda)
+            rows = torch.arange(32, device=cuda)
+            gen0 = gen.get_state()
+            out = eager(model, gen, res, rows)
+            torch.cuda.synchronize()
+            gen.set_state(gen0)
+            metrics = progs.feed(res, rows.view(1, 32))
+            torch.cuda.synchronize()
+            return [*out, metrics, *_train_state(opt, progs)]
+
+    got = step(env)
+    want = step("1") if same_as == "1" else step(None, plain=True)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("ln", ["0", "1"])
 def test_graph_fit_resumes_from_a_saved_train_state(cuda, monkeypatch, tmp_path, ln):
     """Two K=3 replays uninterrupted, against one replay, the train state
