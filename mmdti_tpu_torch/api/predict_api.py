@@ -14,6 +14,13 @@ without joblib: a standard pickle, or joblib's array format (the JAX
 package's searched thresholds), through an unpickler that accepts numpy
 arrays and scalars and nothing else (utils/joblib_pickle.py).  ``device``
 is "cuda" unless the caller asks for the CPU.
+
+A docking experiment (data_type "docking") returns, per complex, the
+dict {"cross_distance": [n, p], "holo_distance": [n, n]} of its predicted
+ligand-pocket and ligand-ligand distances over its n heavy atoms and p kept
+pocket atoms (BOS and EOS left out), and with ``save_path`` writes them to
+``<prefix>.predict.<run_id>.npz`` as cross_distance_<i> and
+holo_distance_<i>.
 """
 
 from __future__ import annotations
@@ -74,6 +81,8 @@ class MolPredict:
         self.model.evaluate(self.trainer, self.load_model)
 
         y_pred = self.model.cv["test_pred"]
+        if self.config.get("data_type") == "docking":
+            return self._docking_predictions(np.asarray(y_pred), data, save_path)
         scaler = self.datahub.data["target_scaler"]
         if scaler is not None and scaler.scaler is not None:
             y_pred = scaler.inverse_transform(y_pred)
@@ -117,6 +126,25 @@ class MolPredict:
                 self.model.model, dataset, self.model.collator, return_atomic_reprs=True,
                 dictionary=self.model.dictionary)
         return y_pred
+
+    def _docking_predictions(self, y_pred: np.ndarray, data, save_path):
+        """Each complex's predicted distances over its real atoms."""
+        Np = self.model.pocket_pad
+        out = []
+        for f, pred in zip(self.datahub.data["unimol_input"], y_pred):
+            n, p = len(f["src_tokens"]) - 2, len(f["pocket_src_tokens"]) - 2
+            out.append({"cross_distance": pred[1:n + 1, 1:p + 1],
+                        "holo_distance": pred[1:n + 1, Np + 1:Np + n + 1]})
+        if save_path:
+            prefix = data.split("/")[-1].split(".")[0] if isinstance(data, str) else "test"
+            run_id = 0
+            os.makedirs(save_path, exist_ok=True)
+            while os.path.exists(os.path.join(save_path, f"{prefix}.predict.{run_id}.npz")):
+                run_id += 1
+            path = os.path.join(save_path, f"{prefix}.predict.{run_id}.npz")
+            np.savez(path, **{f"{k}_{i}": v for i, d in enumerate(out) for k, v in d.items()})
+            logger.info("save predict result to %s", path)
+        return out
 
     def save_predict(self, table, out_dir: str, prefix: str) -> None:
         run_id = 0

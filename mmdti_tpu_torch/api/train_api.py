@@ -25,6 +25,12 @@ each row of m model ranks holding one shard of the model, and
 ``batch_size`` is the global batch.  Every rank fits, only rank 0 writes
 the experiment dir (the single-writer rule; the checkpoint is the whole
 model), and ``fit`` returns on every rank once the dir is whole.
+
+``data_type="docking"`` fits Uni-Mol's binding-pose model
+(models/docking.py) on protein-ligand complexes and takes the task
+"docking" whatever ``task`` says: rows of a ligand SMILES and a pocket
+``.npz`` with the ligand's holo pose (data/hub.py); no scaler, no
+threshold; ``cv_pred`` holds the [n, Nm, Np + Nm] predicted distances.
 """
 
 from __future__ import annotations
@@ -101,7 +107,7 @@ class MolTrain:
         **params,
     ):
         config = default_config()
-        config.task = task
+        config.task = "docking" if data_type == "docking" else task
         config.data_type = data_type
         config.epochs = epochs
         config.learning_rate = learning_rate

@@ -10,14 +10,15 @@
 // model issued a kernel.  Each mark costs one launch and no memory traffic.
 //
 // mmdti_trace_mark(which, stream) launches mark ``which`` (its index in
-// train/profiler.py MARKS) on ``stream`` and returns the launch's
+// train/profiler.py MARKS, then the marks DOCKING_MARKS adds) on ``stream`` and returns the launch's
 // cudaError_t; an index past the last mark returns cudaErrorInvalidValue.
 
 #include <cuda_runtime.h>
 
 #define MMDTI_MARKS(X) \
   X(step) X(unimol) X(smiles) X(head) X(head_bwd) X(smiles_bwd) X(unimol_bwd) \
-  X(optimizer) X(end)
+  X(optimizer) X(end) X(pocket) X(decoder) X(dock_head) X(dock_head_bwd) \
+  X(decoder_bwd) X(pocket_bwd)
 
 #define MMDTI_DEFINE_MARK(name) extern "C" __global__ void trace_mark_##name() {}
 MMDTI_MARKS(MMDTI_DEFINE_MARK)

@@ -10,7 +10,10 @@ src_distance with 0.0, src_edge_type with the pad index (``pair_feats=
 "host"``) or src_coord with 0.0 in their place (``"device"``: the model
 rebuilds the [B,N,N] arrays from the [B,N,3] coordinates,
 ops/pair_feats.py), stack the MOF inputs (gas_id, gas_attr, pressure,
-temperature) where the samples carry them, tokenize the SMILES strings
+temperature) where the samples carry them, pad a docking complex's pocket
+(pocket_src_tokens, pocket_src_coord, to ``pocket_pad``; the model builds
+its pair arrays on the device) and its distance targets
+(``docking_labels``), tokenize the SMILES strings
 into input_ids/attention_mask, and return (features, labels).  'bucket'
 mode pads to the same small set of static lengths as the JAX package
 (utils/padding.py), so both packages see identical arrays.
@@ -60,6 +63,7 @@ class BatchCollator:
         atom_buckets: Sequence[int] = DEFAULT_ATOM_BUCKETS,
         smiles_buckets: Sequence[int] = DEFAULT_SMILES_BUCKETS,
         pair_feats: str = "host",
+        pocket_pad: Optional[int] = None,
     ):
         if pad_mode not in ("dataset", "fixed", "bucket", "ragged"):
             raise ValueError(
@@ -81,6 +85,7 @@ class BatchCollator:
         self.smiles_pad = smiles_pad
         self.atom_buckets = tuple(atom_buckets)
         self.smiles_buckets = tuple(smiles_buckets)
+        self.pocket_pad = pocket_pad
 
     def _atom_target(self, max_len: int) -> Optional[int]:
         # 'fixed' differs from 'dataset' only in WHO chose the pad targets
@@ -128,6 +133,16 @@ class BatchCollator:
             if key in feats[0]:
                 batch[key] = np.asarray([f[key] for f in feats], dtype=np.float32)
 
+        # a docking complex's pocket (models/docking.py)
+        if "pocket_src_tokens" in feats[0]:
+            pocket_n = self.pocket_pad if self.pad_mode in ("dataset", "fixed") else None
+            batch["pocket_src_tokens"] = pad_1d_tokens(
+                [np.asarray(f["pocket_src_tokens"], dtype=np.int32) for f in feats],
+                self.pad_idx, pad_to_length=pocket_n)
+            batch["pocket_src_coord"] = pad_coords(
+                [np.asarray(f["pocket_src_coord"], dtype=np.float32) for f in feats],
+                0.0, pad_to_length=pocket_n)
+
         if "smile" in feats[0]:
             smiles = [f["smile"] for f in feats]
             if self.pad_mode in ("dataset", "fixed") and self.smiles_pad is not None:
@@ -148,6 +163,23 @@ class BatchCollator:
 
         labels = np.stack([np.asarray(s[1]) for s in samples])
         return batch, labels
+
+
+def docking_labels(features: Sequence[Dict[str, Any]], atom_pad: int,
+                   pocket_pad: int) -> np.ndarray:
+    """[n, atom_pad, pocket_pad + atom_pad] float32: each complex's
+    cross_target and holo_target (chem/pocket.py docking_targets) side by
+    side, zero-padded, the labels of the docking loss (models/docking.py)."""
+    out = np.zeros((len(features), atom_pad, pocket_pad + atom_pad), np.float32)
+    for i, f in enumerate(features):
+        cross, holo = np.asarray(f["cross_target"]), np.asarray(f["holo_target"])
+        n, p = cross.shape
+        if n > atom_pad or p > pocket_pad:
+            raise ValueError(f"a complex of {n} ligand and {p} pocket tokens does not fit the "
+                             f"pads {atom_pad} and {pocket_pad}")
+        out[i, :n, :p] = cross
+        out[i, :n, pocket_pad:pocket_pad + n] = holo
+    return out
 
 
 class MolDataLoader:

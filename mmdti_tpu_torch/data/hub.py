@@ -10,7 +10,10 @@ molecules with the resolved conformer provider (chem/conformer.py: 'auto'
 is 'device' when ``device``, the entry point's, is a CUDA device), cached
 in a pickle keyed by the featurizer fingerprint; and attaches each sample's
 SMILES and weight to its feature dict.  With ``data_type='mof'`` each row
-names a CIF crystal and a gas instead (``_featurize_mof``).
+names a CIF crystal and a gas instead (``_featurize_mof``).  With
+``data_type='docking'`` each row is a protein-ligand complex
+(``_init_docking``): the ligand's SMILES, and an ``.npz`` with the
+pocket's atoms and coordinates and, to train on, the ligand's holo pose.
 """
 
 from __future__ import annotations
@@ -26,6 +29,12 @@ import numpy as np
 from mmdti_tpu_torch.chem.conformer import ConformerGen, resolve_coord_provider
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
 from mmdti_tpu_torch.chem.mof import MOFReader
+from mmdti_tpu_torch.chem.pocket import (
+    MAX_POCKET_ATOMS,
+    docking_targets,
+    pocket_dictionary,
+    pocket_features,
+)
 from mmdti_tpu_torch.data.reader import MolDataReader, read_csv
 from mmdti_tpu_torch.data.scaler import TargetScaler
 from mmdti_tpu_torch.data.weights import compute_sample_weights
@@ -134,10 +143,66 @@ class DataHub:
         logger.info("Featurized %d MOF samples from CIF files.", len(features))
         return features
 
+    def _init_docking(self, data, source, **params) -> None:
+        """Docking rows: the ligand's SMILES (``smiles_col``) and an ``.npz``
+        (column ``pocket_col``, default 'pocket'; a relative path resolves
+        against the CSV's directory, as MOF CIF paths do) holding
+        ``pocket_atoms`` (element symbols), ``pocket_coord`` [p, 3] and,
+        for training, ``holo_coord`` [n, 3]: the ligand's holo heavy-atom
+        coordinates in the SMILES' heavy-atom order.  The ligand's input
+        conformer is the featurizer's (chem/conformer.py), hydrogens
+        removed; the pocket is cropped at ``max_pocket_atoms``
+        (chem/pocket.py).  Each feature dict gets the pocket's tokens and
+        coordinates and the distance targets (zero without a holo pose);
+        the padded label arrays are made where the pads are known
+        (train/nnmodel.py).  No conformer cache is read or written."""
+        self.data = MolDataReader().read_data(data, self.is_train, **{**params, "task": "repr"})
+        self.data.update(target_scaler=None, target_cols=[], num_classes=None, raw_target=None)
+        table = self.data["raw_data"]
+        col = params.get("pocket_col", "pocket")
+        if col not in table:
+            raise ValueError(f"data_type='docking' requires a {col!r} column; got {list(table)}")
+        base = os.path.dirname(os.path.abspath(source)) if source and os.path.exists(source) \
+            else ""
+        provider = resolve_coord_provider(params.get("coord_provider", "auto"),
+                                          params.get("device"))
+        gen = ConformerGen(**{**params, "remove_hs": True, "coord_provider": provider})
+        ligands = gen.transform(self.data["smiles"])
+        pdict = pocket_dictionary(params.get("pocket_dict_path"))
+        max_pocket = int(params.get("max_pocket_atoms", MAX_POCKET_ATOMS))
+        features = []
+        for i, lig in enumerate(ligands):
+            path = str(table[col][i])
+            if base and not os.path.isabs(path) and not os.path.exists(path):
+                path = os.path.join(base, path)
+            with np.load(path) as z:
+                pocket = pocket_features(z["pocket_atoms"], z["pocket_coord"], pdict, max_pocket)
+                holo = np.asarray(z["holo_coord"], np.float32) if "holo_coord" in z else None
+            n = len(lig["src_tokens"]) - 2
+            if holo is None and self.is_train:
+                raise ValueError(f"{path}: a training complex needs holo_coord")
+            if holo is not None and len(holo) != n:
+                raise ValueError(f"{path}: holo_coord has {len(holo)} atoms and the ligand "
+                                 f"{self.data['smiles'][i]!r} {n} heavy atoms")
+            targets = docking_targets(np.zeros((n, 3)) if holo is None else holo,
+                                      pocket["pocket_coord"])
+            if holo is None:
+                targets = {k: np.zeros_like(v) for k, v in targets.items()}
+            features.append({**lig, "pocket_src_tokens": pocket["pocket_src_tokens"],
+                             "pocket_src_coord": pocket["pocket_src_coord"], **targets,
+                             "weights": np.ones(1, np.float32)})
+        logger.info("Featurized %d docking complexes.", len(features))
+        self.data["target"] = np.zeros((len(features), 1), np.float32)
+        self.data["weights"] = np.ones((len(features), 1), np.float32)
+        self.data["unimol_input"] = features
+
     def _init_data(self, data, **params) -> None:
         # a CSV path: relative CIF paths of a MOF dataset resolve against it
         source = data if isinstance(data, str) else (
             self.raw_data if isinstance(self.raw_data, str) else None)
+        if params.get("data_type", "molecule") == "docking":
+            self._init_docking(data, source, **params)
+            return
         self.data = MolDataReader().read_data(data, self.is_train, **params)
         task = self.task
         num_classes = self.data.get("num_classes")

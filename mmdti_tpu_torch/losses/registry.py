@@ -32,6 +32,7 @@ LOSS_REGISTRY = {
         "focal": _focal,
     },
     "multilabel_regression": zoo.mae_with_nan,
+    "docking": zoo.docking_pose_loss,
 }
 
 ACTIVATION_REGISTRY: Dict[str, Callable] = {
@@ -40,9 +41,10 @@ ACTIVATION_REGISTRY: Dict[str, Callable] = {
     "regression": lambda x: x,
     "multilabel_classification": torch.sigmoid,
     "multilabel_regression": lambda x: x,
+    "docking": lambda x: x,
 }
 
-OUTPUT_DIM = {"classification": 2, "regression": 1}
+OUTPUT_DIM = {"classification": 2, "regression": 1, "docking": 1}
 
 
 def resolve_loss(task: str, loss_key=None) -> Callable:

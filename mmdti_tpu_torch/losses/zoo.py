@@ -18,6 +18,38 @@ def mse_loss(logits, target):
     return torch.mean((logits.float() - target.float()) ** 2)
 
 
+# the published binding-pose recipe's --dist-threshold: cross distances at
+# or past it (Angstrom) leave the loss
+DOCKING_DIST_THRESHOLD = 8.0
+
+
+def docking_terms(logits, target, dist_threshold: float = DOCKING_DIST_THRESHOLD):
+    """The two terms of Uni-Mol's docking_pose loss over [B, Nm, Np + Nm]
+    predictions and targets, [cross | holo] (models/docking.py): the MSE of
+    the cross distances whose target is not 0 (pads, BOS and EOS) and under
+    ``dist_threshold``, and the smooth L1 (beta 1) of the holo ligand
+    distances whose target is not 0, each a mean over its kept entries
+    (a masked mean: 0 where nothing is kept)."""
+    Nm = logits.shape[1]
+    Np = logits.shape[2] - Nm
+    pred, target = logits.float(), target.float()
+    ct, ht = target[..., :Np], target[..., Np:]
+    keep_c = ((ct != 0) & (ct < dist_threshold)).float()
+    keep_h = (ht != 0).float()
+    cross = torch.sum(keep_c * (pred[..., :Np] - ct) ** 2) / keep_c.sum().clamp_min(1.0)
+    d = torch.abs(pred[..., Np:] - ht)
+    smooth = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+    holo = torch.sum(keep_h * smooth) / keep_h.sum().clamp_min(1.0)
+    return cross, holo
+
+
+def docking_pose_loss(logits, target):
+    """Uni-Mol's docking_pose loss: cross-distance MSE + holo-distance
+    smooth L1 (``docking_terms``)."""
+    cross, holo = docking_terms(logits, target)
+    return cross + holo
+
+
 def rmse_loss(logits, target, eps: float = 1e-6):
     return torch.sqrt(mse_loss(logits, target) + eps)
 

@@ -132,7 +132,7 @@ def build_3d_stream(mdl: nn.Module, ucfg: UniMolEncoderConfig, atom_vocab_size: 
 
 def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
                      src_coord=None, pair_mode: str = "molecule",
-                     pair_outputs: bool = True, generator=None):
+                     pair_outputs: bool = True, generator=None, mark_name: str = "unimol"):
     """Token embedding, the pair bias and the Uni-Mol encoder; returns
     (encoder outputs, padding_mask, atom_mask).  ``mdl`` holds the
     submodules of build_3d_stream and atom_vocab_size, atom_pad_idx,
@@ -141,8 +141,9 @@ def unimol_3d_stream(mdl: nn.Module, src_tokens, src_distance, src_edge_type,
     (ops/pair_feats.py; ``pair_mode`` "mof" zeroes the BOS and EOS
     distances, as the MOF featurizer does).  ``pair_outputs`` and
     ``generator`` are passed on to the encoder.  The stream begins with
-    the ``unimol`` mark (train/profiler.py)."""
-    mark("unimol", src_tokens)
+    the section mark ``mark_name`` (train/profiler.py; ``unimol`` unless a
+    model with a second stream names another)."""
+    mark(mark_name, src_tokens)
     if src_distance is None or src_edge_type is None:
         if src_coord is None:
             raise ValueError(

@@ -166,7 +166,10 @@ class UniMolEncoder(nn.Module):
         zeroed at padded keys, the only place the two biases differ.
 
         ``pair_outputs=False`` returns only ``rep``: the norm terms, the
-        final logits and the [B,N,N,H] delta-pair tensor are not computed."""
+        final logits and the [B,N,N,H] delta-pair tensor are not computed;
+        ``pair_outputs="logits"`` returns ``rep`` and the last layer's
+        logits ``pair_logits`` [B,H,N,N] (in the pair dtype, -inf at padded
+        keys), which the docking model threads on (models/docking.py)."""
         cfg = self.cfg
         x = dropout(self.emb_layer_norm(emb), cfg.emb_dropout, generator)
         if padding_mask is not None:
@@ -189,6 +192,9 @@ class UniMolEncoder(nn.Module):
 
         if not pair_outputs:
             return {"rep": self.final_layer_norm(x) if not cfg.post_ln else x}
+        if pair_outputs == "logits":
+            return {"rep": self.final_layer_norm(x) if not cfg.post_ln else x,
+                    "pair_logits": bias}
 
         token_norm = _norm_loss(x)
         if padding_mask is not None:

@@ -30,6 +30,7 @@ FEATURE_KEYS = (
     "src_tokens", "src_distance", "src_edge_type", "src_coord",
     "input_ids", "attention_mask",
     "gas_id", "gas_attr", "pressure", "temperature",
+    "pocket_src_tokens", "pocket_src_coord",
 )
 
 

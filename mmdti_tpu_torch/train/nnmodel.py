@@ -33,7 +33,13 @@ edge types on the host collator or in the model: 'auto' builds them on the
 device on a CUDA device and on the host on the CPU, and features made
 without host pair arrays (``pair_feats=False``) take the device mode.
 ``data_type='mof'`` builds models/mof.py's MOFModel (``mof_overrides``);
-it takes no InfoNCE and no ChemBERTa checkpoint.
+it takes no InfoNCE and no ChemBERTa checkpoint.  ``data_type='docking'``
+builds models/docking.py's DockingPoseModel (``pocket_overrides``,
+``decoder_layers``, ``recycling``) over the ligand and pocket dictionaries
+(chem/pocket.py), pads the pockets to their own length and trains the
+docking_pose loss on the padded distance targets (task 'docking'); it
+takes no InfoNCE, CT, FDS or pretrained checkpoint, and runs without
+tensor parallelism.
 
 ``unimol_overrides={"remat": True}`` (or False) decides encoder remat
 (models/unimol.py); without it the fit decides (``auto_remat``, logging
@@ -45,6 +51,7 @@ past REMAT_MEMORY_SHARE of the device's memory.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -54,14 +61,21 @@ import numpy as np
 import torch
 
 from mmdti_tpu_torch.chem.dictionary import Dictionary, unimol_dict_path
+from mmdti_tpu_torch.chem.pocket import MAX_POCKET_ATOMS, pocket_dictionary
 from mmdti_tpu_torch.chem.tokenizer import load_tokenizer
 from mmdti_tpu_torch.configs.architectures import UniMolEncoderConfig
-from mmdti_tpu_torch.data.batching import BatchCollator, MolDataset, dataset_pad_lengths
+from mmdti_tpu_torch.data.batching import (
+    BatchCollator,
+    MolDataset,
+    dataset_pad_lengths,
+    docking_labels,
+)
 from mmdti_tpu_torch.data.reader import read_csv
 from mmdti_tpu_torch.losses import zoo
 from mmdti_tpu_torch.losses.fds import fds_bucket_params, fds_kernel_window, init_fds_state
 from mmdti_tpu_torch.losses.registry import ACTIVATION_REGISTRY, resolve_loss, resolve_output_dim
 from mmdti_tpu_torch.models.convert import chemberta_overrides, flax_path, load_pretrained
+from mmdti_tpu_torch.models.docking import build_docking_model
 from mmdti_tpu_torch.models.mm_model import build_model
 from mmdti_tpu_torch.models.mof import build_mof_model
 from mmdti_tpu_torch.ops.pair_feats import resolve_pair_feats_mode
@@ -155,9 +169,29 @@ def predicted_step_bytes(rows: int, atom_pad: int, smiles_pad: int, cfg: UniMolE
     return m["static"] + rows * per_row
 
 
+def docking_step_bytes(rows: int, atom_pad: int, pocket_pad: int, cfg: UniMolEncoderConfig,
+                       decoder_layers: int = 4, recycling: int = 3) -> float:
+    """One eager docking train step's peak (models/docking.py) by the same
+    memory model, summed over its three stacks: the ligand encoder at
+    ``atom_pad``, the pocket encoder at ``pocket_pad`` and the decoder's
+    ``decoder_layers * recycling`` layer applications at their sum, one
+    STATIC for all (the model's own sum, not a fitted one), plus the cross
+    head's pair activations: four [Nm, Np, 2E + H] tensors a row in bf16."""
+    def stack(layers, n):
+        return predicted_step_bytes(
+            rows, n, 0, dataclasses.replace(cfg, encoder_layers=layers)) - STEP_MEMORY["static"]
+
+    n_c = atom_pad + pocket_pad
+    heads = rows * 4 * 2.0 * atom_pad * pocket_pad * (2 * cfg.embed_dim + cfg.attention_heads)
+    return (STEP_MEMORY["static"] + stack(cfg.encoder_layers, atom_pad)
+            + stack(cfg.encoder_layers, pocket_pad) + stack(decoder_layers * recycling, n_c)
+            + heads)
+
+
 def auto_remat(unimol_overrides: Dict[str, Any], atom_pad: int, smiles_pad: int, rows: int,
                device: torch.device, data_type: str = "molecule",
-               total_memory: Optional[int] = None, model_parallel: int = 1) -> bool:
+               total_memory: Optional[int] = None, model_parallel: int = 1,
+               pocket_pad: int = 0, decoder_layers: int = 4, recycling: int = 3) -> bool:
     """Whether a fit turns encoder remat on by itself (the JAX package's
     train/nnmodel.py rule; an explicit ``remat`` is the caller's).  On the
     CPU the port runs the plain path, the twin of the JAX package's XLA
@@ -165,14 +199,21 @@ def auto_remat(unimol_overrides: Dict[str, Any], atom_pad: int, smiles_pad: int,
     device remat turns on where the predicted peak of one eager step
     without it, for this rank's ``rows`` and its share of ``model_parallel``
     model ranks, passes REMAT_MEMORY_SHARE of the card's memory
-    (``total_memory``, else the device's own)."""
+    (``total_memory``, else the device's own).  A docking model
+    (``pocket_pad``, ``decoder_layers``, ``recycling``) is judged at its
+    complex, the decoder's length, on the CPU and by docking_step_bytes on
+    a card."""
+    docking = data_type == "docking"
     if device.type != "cuda":
-        return atom_pad >= CPU_REMAT_ATOM_PAD
+        return (atom_pad + pocket_pad if docking else atom_pad) >= CPU_REMAT_ATOM_PAD
     if total_memory is None:
         total_memory = torch.cuda.get_device_properties(device).total_memory
     cfg = UniMolEncoderConfig(**{k: v for k, v in unimol_overrides.items() if k != "remat"})
-    need = predicted_step_bytes(rows, atom_pad, 0 if data_type == "mof" else smiles_pad, cfg,
-                                model_parallel=model_parallel)
+    if docking:
+        need = docking_step_bytes(rows, atom_pad, pocket_pad, cfg, decoder_layers, recycling)
+    else:
+        need = predicted_step_bytes(rows, atom_pad, 0 if data_type == "mof" else smiles_pad,
+                                    cfg, model_parallel=model_parallel)
     return need > REMAT_MEMORY_SHARE * total_memory
 
 
@@ -184,6 +225,15 @@ class NNModel:
             raise ValueError(
                 "using_infonce=True is not applicable to data_type='mof': MOF samples have "
                 "no SMILES stream to align (MOFModel, models/mof.py)")
+        if self.data_type == "docking":
+            for key in ("using_infonce", "using_ct", "fds"):
+                if params.get(key, False):
+                    raise ValueError(f"{key}=True is not applicable to data_type='docking' "
+                                     "(models/docking.py trains the docking_pose loss alone)")
+            if params.get("unimol_dir"):
+                raise NotImplementedError(
+                    "data_type='docking' starts from random weights: the published "
+                    "mol/pocket checkpoints' name map waits on those files")
         self.data_train = data_train
         self.data_test = data_test
         self.trainer = trainer
@@ -230,6 +280,17 @@ class NNModel:
             self.atom_pad, self.smiles_pad = dataset_pad_lengths(
                 self.features_train, self.tokenizer, pad_multiple,
                 extra_datasets=[self.features_test])
+        self.pocket_pad = 0
+        if self.data_type == "docking":
+            # the pocket's own pad, and the padded distance targets as labels
+            longest = (int(params.get("max_pocket_atoms", MAX_POCKET_ATOMS)) + 2
+                       if pad_mode == "fixed" else
+                       max(len(f["pocket_src_tokens"])
+                           for f in [*self.features_train, *self.features_test]))
+            self.pocket_pad = -(-longest // pad_multiple) * pad_multiple
+            for data in (data_train, data_test):
+                data["target"] = docking_labels(data["unimol_input"], self.atom_pad,
+                                                self.pocket_pad)
         self.pair_feats = resolve_pair_feats_mode(params.get("device_pair_feats", "auto"),
                                                   self.device)
         probe = (self.features_train or self.features_test or [None])[0]
@@ -239,7 +300,8 @@ class NNModel:
             self.pair_feats = "device"
         self.collator = BatchCollator(self.tokenizer, pad_idx=self.dictionary.pad(),
                                       pad_mode=pad_mode, atom_pad=self.atom_pad,
-                                      smiles_pad=self.smiles_pad, pair_feats=self.pair_feats)
+                                      smiles_pad=self.smiles_pad, pair_feats=self.pair_feats,
+                                      pocket_pad=self.pocket_pad)
 
         use_kernels = params.get("use_pallas", "auto")
         use_kernels = True if use_kernels == "auto" else bool(use_kernels)
@@ -251,7 +313,9 @@ class NNModel:
                 unimol_overrides, self.atom_pad, self.smiles_pad,
                 trainer.batch_size // (trainer.data_group.size if trainer.data_group else 1),
                 self.device, data_type=self.data_type,
-                model_parallel=trainer.model_group.size if trainer.model_group else 1):
+                model_parallel=trainer.model_group.size if trainer.model_group else 1,
+                pocket_pad=self.pocket_pad, decoder_layers=int(params.get("decoder_layers", 4)),
+                recycling=int(params.get("recycling", 3))):
             unimol_overrides["remat"] = True
             logger.info("Auto-enabled encoder rematerialization (atom_pad=%d)", self.atom_pad)
         common = dict(
@@ -269,6 +333,14 @@ class NNModel:
         if self.data_type == "mof":
             self.model = build_mof_model(
                 **common, mof_overrides=dict(params.get("mof_overrides") or {}) or None)
+        elif self.data_type == "docking":
+            pdict = pocket_dictionary(params.get("pocket_dict_path"))
+            self.model = build_docking_model(
+                len(self.dictionary), self.dictionary.pad(), len(pdict), pdict.pad(),
+                common["compute_dtype"], use_kernels, unimol_overrides,
+                pocket_overrides=dict(params.get("pocket_overrides") or {}) or None,
+                decoder_layers=int(params.get("decoder_layers", 4)),
+                recycling=int(params.get("recycling", 3)))
         else:
             self.model = build_model(
                 **common,
@@ -316,6 +388,8 @@ class NNModel:
         tensors over them (under tensor parallelism over the whole model's
         state dict, gathered, and this rank's shard kept)."""
         self._random_init()
+        if self.data_type == "docking":
+            return
         load_model_state(self.model, load_pretrained(
             model_state(self.model), unimol_dir=params.get("unimol_dir") or None,
             # MOFModel has no ChemBERTa stream to take those weights

@@ -40,7 +40,15 @@ logger = logging.getLogger("mmdti_tpu_torch")
 # SMILES stream (models/mof.py) emits neither smiles mark.
 MARKS = ("step", "unimol", "smiles", "head", "head_bwd", "smiles_bwd", "unimol_bwd",
          "optimizer", "end")
-_INDEX = {name: i for i, name in enumerate(MARKS)}
+# the marks of one train step of the docking model (models/docking.py): the
+# ligand stream keeps ``unimol``; the pocket stream, the recycled decoder
+# and the two distance heads (with the loss) open their own sections, and
+# each has a backward mark where the backward reaches its outputs
+DOCKING_MARKS = ("step", "unimol", "pocket", "decoder", "dock_head", "head_bwd",
+                 "dock_head_bwd", "decoder_bwd", "pocket_bwd", "unimol_bwd", "optimizer", "end")
+# a mark's index in csrc/trace_mark.cu: MARKS first, then the docking ones
+_INDEX = {name: i for i, name in enumerate(
+    MARKS + tuple(m for m in DOCKING_MARKS if m not in MARKS))}
 
 
 def _launch(name: str, device: torch.device) -> None:
@@ -77,6 +85,35 @@ def mark_backward(x: torch.Tensor, name: str) -> torch.Tensor:
     launched as the backward reaches ``x``, once every use of ``x`` has
     passed its gradient back."""
     return _BackwardMark.apply(x, name) if x.requires_grad else x
+
+
+class _JointBackwardMark(torch.autograd.Function):
+    """The identity on several tensors; its backward runs once the
+    gradients of all of them are in, marks ``name`` and passes them
+    through (None where an output got none)."""
+
+    @staticmethod
+    def forward(ctx, name, *xs):
+        ctx.name = name
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        like = next((g for g in grads if g is not None), None)
+        if like is not None:
+            mark(ctx.name, like)
+        return (None, *grads)
+
+
+def mark_backward_joint(name: str, *xs: torch.Tensor):
+    """``xs`` unchanged (views where one requires grad): mark ``name`` is
+    launched once the backward has passed back the gradients of every one
+    of them, the point where a section fed by all of them has finished its
+    backward."""
+    if not any(x.requires_grad for x in xs):
+        return xs
+    return _JointBackwardMark.apply(name, *xs)
 
 
 _NO_SPAN = contextlib.nullcontext()

@@ -362,6 +362,31 @@ CLASSIFICATION_METRICS: Dict[str, MetricSpec] = {
     "cohen_kappa": MetricSpec(cohen_kappa_score, True, True),
 }
 
+def _docking_split(y_true, y_pred):
+    """([cross | holo] targets and predictions [n, Nm, Np + Nm]) -> Np."""
+    y_true, y_pred = np.asarray(y_true, np.float64), np.asarray(y_pred, np.float64)
+    if y_true.shape != y_pred.shape or y_true.ndim != 3:
+        raise ValueError("docking metrics take [n, Nm, Np + Nm] targets and predictions")
+    return y_true, y_pred, y_true.shape[2] - y_true.shape[1]
+
+
+def docking_cross_rmse(y_true, y_pred, dist_threshold: float = 8.0) -> float:
+    """RMSE of the ligand-pocket distances the docking loss keeps (target
+    not 0, under ``dist_threshold`` Angstrom)."""
+    t, p, Np = _docking_split(y_true, y_pred)
+    t, p = t[..., :Np], p[..., :Np]
+    keep = (t != 0) & (t < dist_threshold)
+    return float(np.sqrt(np.mean((p[keep] - t[keep]) ** 2))) if keep.any() else float("nan")
+
+
+def docking_holo_rmse(y_true, y_pred) -> float:
+    """RMSE of the holo ligand distances (target not 0)."""
+    t, p, Np = _docking_split(y_true, y_pred)
+    t, p = t[..., Np:], p[..., Np:]
+    keep = t != 0
+    return float(np.sqrt(np.mean((p[keep] - t[keep]) ** 2))) if keep.any() else float("nan")
+
+
 METRICS_REGISTRY: Dict[str, Dict[str, MetricSpec]] = {
     "regression": REGRESSION_METRICS,
     "classification": CLASSIFICATION_METRICS,
@@ -373,6 +398,8 @@ METRICS_REGISTRY: Dict[str, Dict[str, MetricSpec]] = {
         k: CLASSIFICATION_METRICS[k] for k in ("auroc", "auc", "auprc", "log_loss", "acc", "mcc")
     },
     "multilabel_regression": {k: REGRESSION_METRICS[k] for k in ("mae", "mse", "r2")},
+    "docking": {"cross_rmse": MetricSpec(docking_cross_rmse, False),
+                "holo_rmse": MetricSpec(docking_holo_rmse, False)},
 }
 
 DEFAULT_METRICS: Dict[str, List[str]] = {
@@ -381,6 +408,7 @@ DEFAULT_METRICS: Dict[str, List[str]] = {
     "multiclass": ["log_loss", "acc"],
     "multilabel_classification": ["log_loss", "auc", "auprc"],
     "multilabel_regression": ["mse", "mae", "r2"],
+    "docking": ["cross_rmse", "holo_rmse"],
 }
 
 
@@ -440,6 +468,8 @@ class Metrics:
             return {name: masked_columnwise_metric(label, predict, self.registry[name].fn,
                                                    nan_value)
                     for name in self.metric_names}
+        if self.task == "docking":
+            return {name: self.registry[name].fn(label, predict) for name in self.metric_names}
         if self.task in ("classification", "multilabel_classification"):
             out = {}
             for name in self.metric_names:

@@ -1343,3 +1343,78 @@ def test_stream_put_prefetches_on_a_side_stream(cuda):
         assert got_weights is None and got_labels.device.type == "cuda"
         assert torch.equal(got_feats["src_tokens"].cpu(), torch.from_numpy(feats["src_tokens"]))
         assert torch.equal(got_labels.cpu(), torch.from_numpy(labels))
+
+
+def _docking_setup(cuda, layers=2, decoder_layers=2, seed=5):
+    """A small bf16 docking model on the kernel path, dropout on, with its
+    optimizer, generator, TrainPrograms and 16 resident complexes."""
+    from mmdti_tpu_torch.losses import zoo
+    from mmdti_tpu_torch.models.docking import build_docking_model
+    from mmdti_tpu_torch.train.optim import FusedAdam
+    from mmdti_tpu_torch.train.steps import Resident, TrainPrograms
+
+    u = dict(encoder_layers=layers, embed_dim=128, ffn_embed_dim=256, attention_heads=16,
+             gaussian_kernels=128, pair_dtype="bfloat16")
+    model = build_docking_model(12, 1, 10, 1, "bfloat16", True, u, None, decoder_layers, 3)
+    model.reset_parameters_like_flax(torch.Generator().manual_seed(seed))
+    model.to(cuda)
+    rng = np.random.RandomState(seed)
+    R, Nm, Np = 16, 16, 40
+    lt, pt = np.ones((R, Nm), np.int64), np.ones((R, Np), np.int64)
+    lc, pc = rng.randn(R, Nm, 3).astype(np.float32), rng.randn(R, Np, 3).astype(np.float32) * 4
+    labels = np.zeros((R, Nm, Np + Nm), np.float32)
+    for r in range(R):
+        n, p = rng.randint(4, Nm - 1), rng.randint(10, Np - 1)
+        lt[r, 0], lt[r, 1:n + 1], lt[r, n + 1] = 0, rng.randint(4, 11, n), 2
+        pt[r, 0], pt[r, 1:p + 1], pt[r, p + 1] = 0, rng.randint(4, 9, p), 2
+        labels[r, 1:n + 1, 1:p + 1] = rng.uniform(2, 12, (n, p))
+        labels[r, 1:n + 1, Np + 1:Np + n + 1] = rng.uniform(1, 6, (n, n))
+    feats = {k: _t(v, cuda) for k, v in dict(src_tokens=lt, src_coord=lc, pocket_src_tokens=pt,
+                                             pocket_src_coord=pc).items()}
+    res = Resident(feats, _t(labels, cuda), None)
+    opt = FusedAdam(dict(model.named_parameters()), 1e-3, 20, warmup_ratio=0.1)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    progs = TrainPrograms(model, opt, zoo.docking_pose_loss, "docking", gen, use_infonce=False,
+                          use_ct=False, use_weight=False)
+    return model, opt, gen, progs, res
+
+
+def test_docking_graph_steps_equal_eager_steps(cuda):
+    """Two docking steps replayed from one graph (dropout on, bf16 kernels)
+    against the same two steps run eagerly from the same state: metrics,
+    parameters, moments, counts and the generator are bit-equal."""
+    model, opt, gen, progs, res = _docking_setup(cuda)
+    idx = torch.arange(8, device=cuda).view(2, 4)
+    saved, gen0 = _train_state(opt, progs), gen.get_state()
+    m_graph = progs.feed(res, idx)
+    torch.cuda.synchronize()
+    after_graph, gen_graph = _train_state(opt, progs), gen.get_state()
+    _restore(opt, progs, gen, saved, gen0)
+    m_eager = _eager_feed(progs, res, idx)
+    torch.cuda.synchronize()
+    assert len(progs.graphs) == 1 and torch.isfinite(m_graph).all()
+    assert torch.equal(m_graph, m_eager)
+    for a, b in zip(after_graph, _train_state(opt, progs)):
+        assert torch.equal(a, b)
+    assert torch.equal(gen_graph, gen.get_state())
+    assert not torch.equal(after_graph[0], saved[0])
+
+
+def test_docking_step_launches_at_capture(cuda):
+    """At the published depths (15 + 15 encoder layers, 4 decoder layers x
+    3 rounds) a captured docking step launches, per step, 42 pair-bias
+    forwards and 42 backwards, 2 gbf forwards and 2 backwards, every one on
+    the bf16 "mma" route of the pair-bias kernels."""
+    from mmdti_tpu_torch.train.steps import GRAPH_WARMUP
+
+    model, opt, gen, progs, res = _docking_setup(cuda, layers=15, decoder_layers=4)
+    counters = (ha.pair_bias_attention_cuda, ha.pair_bias_attention_bwd_cuda,
+                hg.gbf_pair_bias_cuda, hg.gbf_pair_bias_bwd_cuda)
+    before = [c.launches for c in counters]
+    mma = [c.routes["mma"] for c in counters[:2]]
+    progs.feed(res, torch.arange(4, device=cuda).view(1, 4))
+    torch.cuda.synchronize()
+    runs = GRAPH_WARMUP + 1
+    assert [c.launches - b for c, b in zip(counters, before)] == [42 * runs, 42 * runs,
+                                                                  2 * runs, 2 * runs]
+    assert [c.routes["mma"] - b for c, b in zip(counters[:2], mma)] == [42 * runs] * 2
